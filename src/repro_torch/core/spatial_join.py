@@ -1,0 +1,418 @@
+"""The block spatial join: Phases 1-3 + refinement (paper §3.2).
+
+Phase 1 (candidate nodes) lives on SQuadTree.candidate_nodes; Phase 2 is
+node_select.select + SIP filter material; this module is Phase 3 — the
+pairwise MBR distance join between a driver block and the SIP-filtered driven
+candidates — plus the exact-geometry refinement step.
+
+The MBR join is the compute hot spot. Three backends:
+
+- ``numpy``  — dense broadcast via geometry.box_min_dist on the host.
+- ``kernel`` — the distance-matrix kernel (`ops.distance_join`):
+  materializes the full (M, N) f32 distance matrix, the caller masks it.
+- ``fused``  — the streaming top-k kernel (`ops.fused_topk_join`): driven
+  entities are fed in score-key order, each column batch is reduced on the
+  device to per-row top-k partials under the current top-k threshold θ, and
+  the (M, N) matrix never exists. `fused_stream_join` below is the driver:
+  it re-reads θ between batches (so early termination prunes *inside* an
+  executor block) and recovers overflowing rows densely so the candidate
+  set stays exact.
+
+The kernels run on the `device` the caller passes: the CUDA kernels on a
+CUDA device, their plain torch versions on the CPU. All f32 distances use
+the unfused ``sqrt(dx*dx + dy*dy)`` with every step rounded, so the matrix
+kernel reproduces the fused kernel's predicate bit-for-bit.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..kernels import ops
+from . import geometry, topk as topk_mod
+
+# Phase-3 MBR-join backend registry (see module docstring). "auto" resolves
+# to the dense numpy broadcast: the kernel path pays (M, N) materialization
+# and the fused path only wins with real score keys + a live θ, which the
+# executor supplies explicitly when configured.
+JOIN_BACKENDS = ("auto", "numpy", "kernel", "fused")
+
+
+def resolve_join_backend(backend: str | None) -> str:
+    b = backend or "auto"
+    if b not in JOIN_BACKENDS:
+        raise ValueError(f"unknown spatial join backend {b!r}")
+    return "numpy" if b == "auto" else b
+
+
+@dataclasses.dataclass
+class JoinStats:
+    candidates: int = 0       # MBR-level candidate pairs emitted
+    refined: int = 0          # pairs surviving exact refinement
+    pairs_tested: int = 0     # full MBR pairs evaluated (block product)
+    refine_skipped: int = 0   # candidate pairs never refined (θ-aware skip)
+    overflow_rows: int = 0    # driver rows recovered densely (partial width
+    #                           overflow in the fused kernel)
+    overflow_batches: int = 0  # column batches with >= 1 overflowing row
+
+
+@dataclasses.dataclass
+class KcapTuner:
+    """EWMA autotuner for the fused kernel's per-row partial width.
+
+    The fixed ``min(max(k, 64), batch_cols)`` floor pays worst-case partial
+    widths on every launch even when θ has tightened enough that almost no
+    pairs survive. The tuner tracks an EWMA of the observed per-launch MAX
+    survivor count and suggests ``headroom`` times that, quantized to the
+    next power of two and
+    clamped to ``[max(k, floor), min(ceiling, batch_cols)]``. Undershooting
+    a survivor burst is *safe* — overflowing rows are recovered densely by
+    the caller (see fused_stream_join) — it only costs recompute, which
+    JoinStats.overflow_* makes observable.
+    """
+    alpha: float = 0.25       # EWMA smoothing weight for the newest sample
+    headroom: float = 1.5     # width multiplier over the smoothed max
+    floor: int = 8            # never suggest below this (absent a larger k)
+    ceiling: int = 1024       # never suggest above this
+    ewma: float | None = None
+
+    def update(self, counts: np.ndarray) -> None:
+        """Fold one launch's per-row survivor counts into the EWMA."""
+        if len(counts) == 0:
+            return
+        obs = float(np.max(counts))
+        self.ewma = obs if self.ewma is None else (
+            self.alpha * obs + (1.0 - self.alpha) * self.ewma)
+
+    def suggest(self, k: int, batch_cols: int) -> int:
+        if self.ewma is None:               # cold start: the old fixed floor
+            width = max(int(k), 64)
+        else:
+            width = int(np.ceil(self.ewma * self.headroom))
+        width = max(width, int(k), self.floor)
+        width = 1 << max(int(width - 1).bit_length(), 0)   # next pow2
+        return int(max(min(width, self.ceiling, batch_cols),
+                       min(self.floor, batch_cols)))
+
+
+def mbr_distance_join(driver_boxes: np.ndarray, driven_boxes: np.ndarray,
+                      dist_norm: float, backend: str = "numpy",
+                      stats: JoinStats | None = None,
+                      device: torch.device | str | None = None
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    """Candidate pairs (i, j) with box_min_dist <= dist (normalized space).
+
+    The "kernel" and "fused" backends run on `device`."""
+    if len(driver_boxes) == 0 or len(driven_boxes) == 0:
+        return np.empty(0, np.int64), np.empty(0, np.int64)
+    if backend == "fused":
+        # pure-distance use of the streaming kernel: zero keys, θ = -inf.
+        # With nothing to prune this does MORE work than the matrix paths —
+        # it exists for drop-in equivalence (tests, ablations); the perf
+        # path is fused_stream_join with real keys via the executor.
+        pi, pj = [], []
+        for bi, bj in fused_stream_join(
+                driver_boxes, driven_boxes,
+                np.zeros(len(driver_boxes)), np.zeros(len(driven_boxes)),
+                dist_norm, k=64, stats=stats, device=device):
+            pi.append(bi)
+            pj.append(bj)
+        i = np.concatenate(pi) if pi else np.empty(0, np.int64)
+        j = np.concatenate(pj) if pj else np.empty(0, np.int64)
+        order = np.lexsort((j, i))      # match the dense row-major order
+        return i[order], j[order]
+    if backend == "kernel":
+        d = ops.distance_join(
+            _f32_on(driver_boxes, device), _f32_on(driven_boxes, device))
+        mask = d.cpu().numpy() <= np.float32(dist_norm)
+    else:
+        d = geometry.box_min_dist(driver_boxes[:, None, :],
+                                  driven_boxes[None, :, :])
+        mask = d <= dist_norm
+    if stats is not None:
+        stats.pairs_tested += mask.size
+        stats.candidates += int(mask.sum())
+    i, j = np.nonzero(mask)
+    return i.astype(np.int64), j.astype(np.int64)
+
+
+def _f32_on(x: np.ndarray, device: torch.device | str | None) -> torch.Tensor:
+    """Host array -> contiguous f32 tensor on the kernels' device."""
+    if device is None:
+        raise ValueError("a kernel backend needs a device")
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)) \
+        .to(device)
+
+
+def _sanitize_keys(keys: np.ndarray, n: int) -> np.ndarray:
+    """Per-entity score-key upper bounds as f32; NaN (no value -> the row can
+    never produce a scored result) maps to -inf so the kernel drops it.
+
+    Engine score keys are f64; round-to-nearest f32 conversion may round a
+    bound *below* the true key, which would make θ pruning unsound. Nudge
+    any rounded-down value one ulp toward +inf so the f32 bound stays a true
+    upper bound (false survivors are harmless — scoring decides).
+    """
+    if keys is None:
+        return np.zeros(n, dtype=np.float32)
+    keys64 = np.asarray(keys, dtype=np.float64)
+    k32 = keys64.astype(np.float32)
+    low = k32.astype(np.float64) < keys64
+    k32 = np.where(low, np.nextafter(k32, np.float32(np.inf)), k32)
+    return np.where(np.isnan(k32), -np.inf, k32).astype(np.float32)
+
+
+def _theta32_lower(theta: float) -> np.float32:
+    """θ as f32 rounded toward -inf: the kernel must never prune with a θ
+    above the true f64 threshold."""
+    t32 = np.float32(theta)
+    if np.isfinite(t32) and float(t32) > theta:
+        t32 = np.nextafter(t32, np.float32(-np.inf))
+    return t32
+
+
+def fused_stream_join(driver_boxes: np.ndarray, driven_boxes: np.ndarray,
+                      driver_keys: np.ndarray, driven_keys: np.ndarray,
+                      dist_norm: float, k: int,
+                      theta_fn=None, batch_cols: int = 4096,
+                      stats: JoinStats | None = None,
+                      tuner: KcapTuner | None = None,
+                      device: torch.device | str | None = None):
+    """Streaming Phase-3 join on `device`: yields (pi, pj) candidate batches.
+
+    Driven entities are processed in descending score-key order, one
+    `batch_cols`-wide column batch per fused-kernel call, so:
+
+    - `theta_fn()` (the shared TopK threshold) is re-read before every batch
+      and passed to the kernel — results the caller pushes between batches
+      tighten the filter mid-block;
+    - once ``max(driver_keys) + driven_keys[next] <= θ`` no later pair can
+      enter the top-k (keys are sorted), and the scan stops — the paper's
+      early termination applied *inside* a block;
+    - peak intermediate memory is O(M * batch_cols), independent of N.
+
+    The kernel emits fixed-width (M, k) per-row partials plus exact survivor
+    counts; rows whose survivors overflow the width are recovered densely
+    through the distance-matrix kernel (only those rows, only this batch),
+    which computes the fused kernel's f32 distance bit-for-bit, so the
+    candidate set stays exactly equal to the matrix backends'. Pairs are
+    (driver row, driven row) indices into the *original* (unsorted) arrays.
+    """
+    m, n = len(driver_boxes), len(driven_boxes)
+    if m == 0 or n == 0:
+        return
+    ds = _sanitize_keys(driver_keys, m)
+    vs = _sanitize_keys(driven_keys, n)
+    ds_max = float(ds.max()) if m else -np.inf
+    order = np.argsort(-vs, kind="stable")
+    vs_sorted = vs[order]
+    drv_t = _f32_on(driver_boxes, device)
+    dvn_t = _f32_on(driven_boxes[order], device)
+    ds_t = torch.from_numpy(ds).to(device)
+    vs_t = torch.from_numpy(vs_sorted).to(device)
+    dist32 = np.float32(dist_norm)
+    dist_t = torch.full((m,), float(dist32), dtype=torch.float32,
+                        device=device)
+
+    for start in range(0, n, batch_cols):
+        theta = float(theta_fn()) if theta_fn is not None else -np.inf
+        # early termination inside the block: the best remaining pair bound
+        # cannot beat theta, and keys only decrease from here
+        if ds_max + float(vs_sorted[start]) <= theta:
+            break
+        # partial width: autotuned from observed survivor counts when a
+        # tuner is threaded through; otherwise the fixed floor above k
+        # keeps the (rare but expensive) dense overflow recovery off the
+        # common path when θ is still loose
+        kcap = (tuner.suggest(int(k), batch_cols) if tuner is not None
+                else min(max(int(k), 64), batch_cols))
+        theta32 = _theta32_lower(theta)
+        stop = min(start + batch_cols, n)
+        chunk, ck = dvn_t[start:stop], vs_t[start:stop]
+        _, idx_t, counts_t = ops.fused_topk_join(
+            drv_t, chunk, ds_t, ck, dist_t,
+            torch.full((m,), float(theta32), dtype=torch.float32,
+                       device=device), k=kcap)
+        idx = idx_t.cpu().numpy()
+        counts = counts_t.cpu().numpy()
+        if tuner is not None:
+            tuner.update(counts)
+        if stats is not None:
+            stats.pairs_tested += m * (stop - start)
+
+        ok_rows = counts <= kcap
+        sel = (idx >= 0) & ok_rows[:, None]
+        pi = np.nonzero(sel)[0].astype(np.int64)
+        pj_local = idx[sel].astype(np.int64)
+        over = np.flatnonzero(~ok_rows)
+        if len(over):
+            # width overflow: recover those rows densely — same f32 arrays,
+            # same f32 distance formula and θ the kernel used, so recovered
+            # rows see exactly the kernel's predicate
+            if stats is not None:
+                stats.overflow_rows += len(over)
+                stats.overflow_batches += 1
+            over_t = torch.from_numpy(over).to(device)
+            d = ops.distance_join(drv_t.index_select(0, over_t), chunk) \
+                .cpu().numpy()
+            bound = ds[over][:, None] + vs_sorted[None, start:stop]
+            oi, oj = np.nonzero((d <= dist32) & (bound > theta32))
+            pi = np.concatenate([pi, over[oi].astype(np.int64)])
+            pj_local = np.concatenate([pj_local, oj.astype(np.int64)])
+        if len(pi) == 0:
+            continue
+        pj = order[start + pj_local]
+        srt = np.lexsort((pj, pi))
+        pi, pj = pi[srt], pj[srt]
+        if stats is not None:
+            stats.candidates += len(pi)
+        yield pi, pj
+
+
+def fused_topk_pairs(driver_boxes: np.ndarray, driven_boxes: np.ndarray,
+                     driver_keys: np.ndarray, driven_keys: np.ndarray,
+                     dist_norm: float, k: int, theta: float = -np.inf,
+                     batch_cols: int = 4096,
+                     device: torch.device | str | None = None
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """Global per-row top-k of the fused join, without densifying.
+
+    Runs the streaming kernel batch by batch on `device` and absorbs the
+    per-batch (M, k) partials through topk.merge_row_partials (the
+    two-level merge: tiles fold in-kernel, batches fold here). Returns
+    (scores (M, k), idx (M, k) into the original driven array), -inf/-1
+    padded.
+    """
+    m, n = len(driver_boxes), len(driven_boxes)
+    ds = _sanitize_keys(driver_keys, m)
+    vs = _sanitize_keys(driven_keys, n)
+    kcap = max(int(k), 1)
+    theta32 = _theta32_lower(float(theta))
+    drv_t = _f32_on(driver_boxes, device)
+    ds_t = torch.from_numpy(ds).to(device)
+    dist_t = torch.full((m,), float(np.float32(dist_norm)),
+                        dtype=torch.float32, device=device)
+    theta_t = torch.full((m,), float(theta32), dtype=torch.float32,
+                         device=device)
+    parts = []
+    for start in range(0, n, batch_cols):
+        scores, idx, _ = ops.fused_topk_join(
+            drv_t, _f32_on(driven_boxes[start:start + batch_cols], device),
+            ds_t, torch.from_numpy(vs[start:start + batch_cols]).to(device),
+            dist_t, theta_t, k=kcap)
+        idx = idx.cpu().numpy().astype(np.int64)
+        parts.append((scores.cpu().numpy(),
+                      np.where(idx >= 0, idx + start, -1)))
+    if not parts:
+        return (np.full((m, kcap), -np.inf, np.float32),
+                np.full((m, kcap), -1, np.int64))
+    return topk_mod.merge_row_partials(parts, kcap)
+
+
+# ---------------------------------------------------------------------------
+# Exact-geometry refinement on the CSR pool (paper §3.2.4), bucketed kernel
+# ---------------------------------------------------------------------------
+
+REFINE_MAX_PTS = 128        # size-class cap; larger geometries are fragmented
+
+
+def _size_class(n: np.ndarray) -> np.ndarray:
+    """Next power of two >= n (n in [1, REFINE_MAX_PTS])."""
+    return (1 << np.ceil(np.log2(np.maximum(n, 1))).astype(np.int64)) \
+        .astype(np.int64)
+
+
+def core_to_dist(core: np.ndarray, metric: str) -> np.ndarray:
+    """Metric *core* minima -> distances, in float64 numpy.
+
+    The bucketed kernel reduces the metric core — squared euclid distance,
+    or squared unit-sphere chord (= 4·haversine-h) — both monotone in the
+    true distance, so the transform commutes with the min and runs once per
+    pair here, in f64 numpy (a device f32 ``asin`` would not be exact at 0:
+    a self-distance would not come back as 0).
+    """
+    core = np.asarray(core, dtype=np.float64)
+    if metric == "haversine":
+        return (2.0 * geometry.EARTH_RADIUS_KM
+                * np.arcsin(np.clip(np.sqrt(core) * 0.5, 0.0, 1.0)))
+    return np.sqrt(core)
+
+
+def pool_min_dist(pool, rows_a: np.ndarray, rows_b: np.ndarray,
+                  metric: str = "euclid",
+                  device: torch.device | str | None = None,
+                  max_pts: int = REFINE_MAX_PTS) -> np.ndarray:
+    """Exact min distance per (rows_a[t], rows_b[t]) geometry-pool row pair.
+
+    Pairs are grouped by padded (m_pad, n_pad) size class (next power of two
+    per side), each bucket is gathered from the CSR pool's coordinate planes
+    — raw x/y for euclid, unit-sphere X/Y/Z for haversine (chord² = 4h, trig
+    hoisted to pool build) — into dense (B, m_pad) / (B, n_pad) tiles,
+    padding replicating the entity's last point (which can never change a
+    min), and one `ops.bucketed_min_core` call per bucket on `device`
+    computes the pairwise minima. Geometries wider than `max_pts` are
+    fragmented into <= max_pts chunks on both sides (min distance decomposes
+    over point subsets) and min-scattered back. Returns (n_pairs,) float64
+    distances (f32 cores, f64 final transform).
+    """
+    npairs = len(rows_a)
+    out = np.full(npairs, np.inf, dtype=np.float32)
+    if npairs == 0:
+        return out
+    rows_a = np.asarray(rows_a, dtype=np.int64)
+    rows_b = np.asarray(rows_b, dtype=np.int64)
+    off = pool.offsets
+    cnt_a, cnt_b = pool.counts(rows_a), pool.counts(rows_b)
+    na, nb = -(-cnt_a // max_pts), -(-cnt_b // max_pts)
+    frags = na * nb
+    if int(frags.max()) == 1:           # common case: no fragmentation
+        pair_idx = np.arange(npairs, dtype=np.int64)
+        start_a, len_a = off[rows_a], cnt_a
+        start_b, len_b = off[rows_b], cnt_b
+    else:
+        pair_idx = np.repeat(np.arange(npairs, dtype=np.int64), frags)
+        base = np.repeat(np.cumsum(frags) - frags, frags)
+        local = np.arange(int(frags.sum()), dtype=np.int64) - base
+        nb_r = nb[pair_idx]
+        ca, cb = local // nb_r, local % nb_r
+        start_a = off[rows_a][pair_idx] + ca * max_pts
+        len_a = np.minimum(cnt_a[pair_idx] - ca * max_pts, max_pts)
+        start_b = off[rows_b][pair_idx] + cb * max_pts
+        len_b = np.minimum(cnt_b[pair_idx] - cb * max_pts, max_pts)
+    cls_a, cls_b = _size_class(len_a), _size_class(len_b)
+    planes = pool.planes3d() if metric == "haversine" else pool.planes2d()
+    key = cls_a * (2 * max_pts) + cls_b
+    for kk in np.unique(key):
+        sel = np.flatnonzero(key == kk)
+        m_pad, n_pad = int(cls_a[sel[0]]), int(cls_b[sel[0]])
+        # clamped gather: index min(arange, len-1) replicates the last point
+        ia = start_a[sel, None] + np.minimum(np.arange(m_pad)[None, :],
+                                             (len_a[sel] - 1)[:, None])
+        ib = start_b[sel, None] + np.minimum(np.arange(n_pad)[None, :],
+                                             (len_b[sel] - 1)[:, None])
+        c = ops.bucketed_min_core(
+            _f32_on(np.stack([p[ia] for p in planes]), device),
+            _f32_on(np.stack([p[ib] for p in planes]), device))
+        np.minimum.at(out, pair_idx[sel], c.cpu().numpy())
+    return core_to_dist(out, metric)
+
+
+def refine(pairs_i: np.ndarray, pairs_j: np.ndarray,
+           pool, rows_a: np.ndarray, rows_b: np.ndarray,
+           dist_world: float, metric: str = "euclid",
+           stats: JoinStats | None = None,
+           device: torch.device | str | None = None) -> np.ndarray:
+    """Exact-representation distance validation (paper §3.2.4), vectorized.
+
+    rows_a / rows_b are geometry-pool rows per candidate pair (from
+    ``store.geom_rows(ents[pairs_i])`` etc.). Returns a boolean keep mask.
+    """
+    d = pool_min_dist(pool, rows_a, rows_b, metric, device)
+    # f64 compare: the threshold stays un-rounded (a f32-rounded threshold
+    # could drop true survivors)
+    keep = d <= float(dist_world)
+    if stats is not None:
+        stats.refined += int(keep.sum())
+    return keep

@@ -1,0 +1,116 @@
+"""Build the port's store from another engine's store state.
+
+`store_from_state` takes the arrays that make up a built STREAK store —
+quads, permutation and numeric indexes, the S-QuadTree's node and object
+arrays and Bloom words, the geometry pool and the dictionary — as plain
+numpy arrays and scalars in one flat dict, and assembles the port's
+`QuadStore` from them without rebuilding anything. Two engines can then
+answer queries over the very same state: the weights carried across, for a
+database. The keys (`<part>.<field>`):
+
+- ``quads`` (n, 4) int64; ``index.<order>`` (n, 4) int64 per `store.ORDERS`
+- ``numeric.preds`` (P,) int64, and per predicate id ``p``:
+  ``numeric.<p>.{values,subjects,objects,facts,block_max,block_min}`` and
+  the scalar ``numeric.<p>.block``
+- ``cs_of_entity.{keys,values}`` int64; ``cs_catalog.{ids,offsets,preds}``
+  (CSR of each CS id's sorted predicate ids)
+- ``geometry_predicate``, ``block`` scalars; ``num_ids`` int64 /
+  ``num_vals`` f64 (the numeric-literal lookup table)
+- ``geom_pool.{points,offsets}``; ``exact_geoms.{ids,offsets,points}``
+- ``dictionary.{terms,ids,numeric_ids,numeric_values}`` and scalar
+  ``dictionary.next``
+- ``tree.extent`` (4,) f64, scalar ``tree.l_max``, ``tree.<field>`` for
+  every array field of `SQuadTree` in `TREE_FIELDS`,
+  ``tree.bloom_{self,in,out}.bits`` with scalar ``.k``, and
+  ``tree.cs_stats.{offsets,cs_ids,counts}``. The tree's E-lists are the raw
+  CSR (``tree.elist_ids``), not the packed tier.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from .core.charsets import BloomBank, NodeCSStats
+from .core.dictionary import Dictionary
+from .core.geometry import Extent
+from .core.squadtree import SQuadTree
+from .core.store import ORDERS, GeomPool, NumericIndex, QuadStore
+
+TREE_FIELDS = ("node_z", "node_level", "node_parent", "node_children",
+               "node_cell", "node_mbr", "irange", "n_subtree",
+               "elist_offsets", "elist_ids", "obj_ids", "obj_mbr",
+               "obj_entity")
+
+
+def _csr_split(offsets: np.ndarray, values: np.ndarray) -> list:
+    return [values[offsets[i]:offsets[i + 1]] for i in range(len(offsets) - 1)]
+
+
+def _tree_from_state(state: dict) -> SQuadTree | None:
+    if "tree.node_z" not in state:
+        return None
+    fields = {f: np.asarray(state[f"tree.{f}"]) for f in TREE_FIELDS}
+    banks = {w: BloomBank(np.asarray(state[f"tree.bloom_{w}.bits"],
+                                     dtype=np.uint32),
+                          int(state[f"tree.bloom_{w}.k"]))
+             for w in ("self", "in", "out")}
+    obj_ids, obj_entity = fields["obj_ids"], fields["obj_entity"]
+    return SQuadTree(
+        extent=Extent(*(float(v) for v in state["tree.extent"])),
+        l_max=int(state["tree.l_max"]),
+        bloom_self=banks["self"], bloom_in=banks["in"],
+        bloom_out=banks["out"],
+        cs_stats=NodeCSStats(np.asarray(state["tree.cs_stats.offsets"]),
+                             np.asarray(state["tree.cs_stats.cs_ids"]),
+                             np.asarray(state["tree.cs_stats.counts"])),
+        entity_to_id=dict(zip(obj_entity.tolist(), obj_ids.tolist())),
+        **fields)
+
+
+def _dictionary_from_state(state: dict) -> Dictionary:
+    terms = [str(t) for t in state["dictionary.terms"]]
+    ids = np.asarray(state["dictionary.ids"], dtype=np.int64).tolist()
+    d = Dictionary(
+        term_to_id=dict(zip(terms, ids)), id_to_term=dict(zip(ids, terms)),
+        numeric_value=dict(zip(
+            np.asarray(state["dictionary.numeric_ids"]).tolist(),
+            np.asarray(state["dictionary.numeric_values"]).tolist())))
+    d._next = int(state["dictionary.next"])
+    return d
+
+
+def store_from_state(state: dict) -> QuadStore:
+    """The port's `QuadStore` over the given arrays (see module docstring).
+
+    Arrays are used as given (no copies), so the caller must not mutate them
+    while the store is in use."""
+    numeric = {}
+    for p in np.asarray(state["numeric.preds"], dtype=np.int64).tolist():
+        f = {c: np.asarray(state[f"numeric.{p}.{c}"])
+             for c in ("values", "subjects", "objects", "facts",
+                       "block_max", "block_min")}
+        numeric[p] = NumericIndex(block=int(state[f"numeric.{p}.block"]), **f)
+    cat_preds = _csr_split(np.asarray(state["cs_catalog.offsets"]),
+                           np.asarray(state["cs_catalog.preds"]))
+    exact = _csr_split(np.asarray(state["exact_geoms.offsets"]),
+                       np.asarray(state["exact_geoms.points"]))
+    return QuadStore(
+        quads=np.asarray(state["quads"]),
+        dictionary=_dictionary_from_state(state),
+        indexes={name: np.asarray(state[f"index.{name}"]) for name in ORDERS},
+        numeric=numeric,
+        tree=_tree_from_state(state),
+        cs_of_entity=dict(zip(
+            np.asarray(state["cs_of_entity.keys"]).tolist(),
+            np.asarray(state["cs_of_entity.values"]).tolist())),
+        cs_catalog={int(c): frozenset(int(x) for x in preds) for c, preds
+                    in zip(np.asarray(state["cs_catalog.ids"]).tolist(),
+                           cat_preds)},
+        geometry_predicate=int(state["geometry_predicate"]),
+        exact_geoms=dict(zip(
+            np.asarray(state["exact_geoms.ids"]).tolist(), exact)),
+        geom_pool=GeomPool(np.asarray(state["geom_pool.points"]),
+                           np.asarray(state["geom_pool.offsets"])),
+        block=int(state["block"]),
+        _num_ids=np.asarray(state["num_ids"]),
+        _num_vals=np.asarray(state["num_vals"]),
+    )

@@ -1,0 +1,110 @@
+"""Build the CUDA kernels in `csrc/` with nvcc and load them with ctypes.
+
+Each `csrc/<name>.cu` compiles on its own into `_build/<name>-<hash>.so`, a
+shared library with a plain C interface (no PyTorch headers, so a build takes
+seconds). All sources build in parallel, once per content hash, at the first
+launch of any kernel; nothing is built when the package is imported. A
+failed build raises with nvcc's output.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+
+# --fmad=false: no multiply-add contraction anywhere, so every f32 step is
+# rounded as the plain torch versions round it
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+# kernel name -> C launcher symbol and its ctypes argument types; every
+# launcher returns the cudaError_t of its launch
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+KERNELS = {
+    "fused_topk_join": ("fused_topk_join_launch",
+                        [_P] * 11 + [_I, _I, _I, _P]),
+    "distance_join": ("distance_join_launch", [_P, _P, _P, _L, _L, _P]),
+    "bucketed_min_core": ("bucketed_min_core_launch",
+                          [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "tree_descend": ("tree_descend_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),
+}
+
+_launchers: dict[str, object] = {}   # kernel name -> ctypes launcher
+build_logs: dict[str, str] = {}     # kernel name -> ptxas report of its build
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME)")
+    return found
+
+
+def _target(name: str) -> pathlib.Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for dep in sorted(CSRC.glob("*.cuh")) + [src]:
+        h.update(dep.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> dict[str, pathlib.Path]:
+    """Compile every kernel not yet built, one nvcc per source, all at once.
+
+    Returns kernel name -> library path. Raises RuntimeError with nvcc's
+    output when any build fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    targets = {name: _target(name) for name in KERNELS}
+    jobs = {}
+    for name, so in targets.items():
+        if so.exists():
+            continue
+        tmp = so.parent / f"{so.name}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, so)
+    failed = []
+    for name, (proc, tmp, so) in jobs.items():
+        out, _ = proc.communicate()
+        build_logs[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{out}")
+            continue
+        os.replace(tmp, so)
+        so.with_suffix(".log").write_text(out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    for name, so in targets.items():
+        log = so.with_suffix(".log")
+        if name not in build_logs and log.exists():
+            build_logs[name] = log.read_text()
+    return targets
+
+
+def launcher(name: str):
+    """The ctypes launcher of kernel `name`, building and loading all
+    kernels first if this process has loaded none yet."""
+    fn = _launchers.get(name)
+    if fn is None:
+        for kname, path in build_all().items():
+            symbol, argtypes = KERNELS[kname]
+            f = getattr(ctypes.CDLL(str(path)), symbol)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+            _launchers[kname] = f
+        fn = _launchers[name]
+    return fn

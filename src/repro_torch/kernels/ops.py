@@ -1,0 +1,239 @@
+"""Kernel wrappers: each launches its CUDA kernel or runs its plain version.
+
+A wrapper takes torch tensors. On CUDA tensors it checks their dtype, shape
+and layout, allocates the outputs with `torch.empty`, launches its kernel on
+the current stream (built from `csrc/` at first use, see `_build.py`), raises
+if the launch fails, and adds one to its count in `LAUNCHES`. On CPU tensors
+it runs the kernel's plain torch version from `ref.py`. Tensors on any other
+device raise. There is no fallback from the kernel to the plain version.
+
+The host-side helpers the kernel paths need (`f64_sort_keys`,
+`DESCEND_PAD_BOX`) and the merge-join rank pass, which this slice of the port
+runs in numpy only, live here too.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import _build, ref
+
+# launches per kernel; only a launch of the CUDA kernel counts
+LAUNCHES = {name: 0 for name in _build.KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU tensors
+    (run the plain version); all inputs must share one device."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: inputs on several devices {devices}")
+    kind = next(iter(devices)).type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"{name}: unsupported device {kind!r}")
+    return kind == "cuda"
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
+           align: int = 1) -> None:
+    """dtype, shape (None = any extent), contiguity and base alignment."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != len(shape) or any(
+            want is not None and got != want
+            for got, want in zip(t.shape, shape)):
+        raise ValueError(f"{name}: expected shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: tensor must be {align}-byte aligned")
+
+
+def _launch(name: str, *args) -> None:
+    stream = torch.cuda.current_stream().cuda_stream
+    err = _build.launcher(name)(*args, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    LAUNCHES[name] += 1
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+# ----------------------------------------------------------- distance join --
+def distance_join(driver: torch.Tensor, driven: torch.Tensor) -> torch.Tensor:
+    """(M, 4) x (N, 4) f32 boxes -> (M, N) f32 min box distances."""
+    if not _on_cuda("distance_join", driver, driven):
+        return ref.distance_join_ref(driver, driven)
+    _check("distance_join", driver, torch.float32, (None, 4), 16)
+    _check("distance_join", driven, torch.float32, (None, 4), 16)
+    m, n = driver.shape[0], driven.shape[0]
+    out = torch.empty((m, n), dtype=torch.float32, device=driver.device)
+    if m and n:
+        _launch("distance_join", _ptr(driver), _ptr(driven), _ptr(out),
+                ctypes.c_longlong(m), ctypes.c_longlong(n))
+    return out
+
+
+# ------------------------------------------------- fused top-k distance join --
+FUSED_MAX_K = 8192      # the per-row list pair must fit in shared memory
+
+
+def fused_topk_join(driver: torch.Tensor, driven: torch.Tensor,
+                    driver_keys: torch.Tensor, driven_keys: torch.Tensor,
+                    dist: torch.Tensor, theta: torch.Tensor, k: int,
+                    row_qid: torch.Tensor | None = None,
+                    col_qid: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Streaming per-row top-k distance join (see csrc/fused_topk_join.cu).
+
+    driver (M, 4) / driven (N, 4) f32 boxes, driver_keys (M,) / driven_keys
+    (N,) f32 score-key bounds, per-row dist / theta (M,) f32, optional int32
+    query ids (absent = all zero). Returns (scores (M, k) f32, idx (M, k)
+    int32, counts (M,) int32).
+    """
+    m, n = driver.shape[0], driven.shape[0]
+    dev = driver.device
+    if row_qid is None:
+        row_qid = torch.zeros(m, dtype=torch.int32, device=dev)
+    if col_qid is None:
+        col_qid = torch.zeros(n, dtype=torch.int32, device=dev)
+    args = (driver, driven, driver_keys, driven_keys, dist, theta,
+            row_qid, col_qid)
+    if not _on_cuda("fused_topk_join", *args):
+        return ref.fused_topk_join_ref(*args, k)
+    if not 1 <= k <= FUSED_MAX_K:
+        raise ValueError(f"fused_topk_join: k={k} outside [1, {FUSED_MAX_K}]")
+    for t, dtype, shape, align in (
+            (driver, torch.float32, (m, 4), 16),
+            (driven, torch.float32, (n, 4), 16),
+            (driver_keys, torch.float32, (m,), 4),
+            (driven_keys, torch.float32, (n,), 4),
+            (dist, torch.float32, (m,), 4), (theta, torch.float32, (m,), 4),
+            (row_qid, torch.int32, (m,), 4), (col_qid, torch.int32, (n,), 4)):
+        _check("fused_topk_join", t, dtype, shape, align)
+    scores = torch.empty((m, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((m, k), dtype=torch.int32, device=dev)
+    counts = torch.empty(m, dtype=torch.int32, device=dev)
+    if m:
+        _launch("fused_topk_join", *(_ptr(t) for t in args),
+                _ptr(scores), _ptr(idx), _ptr(counts),
+                ctypes.c_int(m), ctypes.c_int(n), ctypes.c_int(k))
+    return scores, idx, counts
+
+
+# ------------------------------------------- bucketed geometry refinement --
+def bucketed_min_core(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-row min squared point distance over one size-class bucket.
+
+    a (dims, B, m_pad), b (dims, B, n_pad) f32 coordinate planes (dims 2 or
+    3, pads <= 128, padding replicates real points) -> (B,) f32 cores; the
+    caller applies the metric's distance transform in f64.
+    """
+    if not _on_cuda("bucketed_min_core", a, b):
+        return ref.bucketed_min_core_ref(a, b)
+    dims, nb, m_pad = a.shape
+    n_pad = b.shape[2]
+    if dims not in (2, 3) or not (1 <= m_pad <= 128 and 1 <= n_pad <= 128):
+        raise ValueError(f"bucketed_min_core: dims={dims}, m_pad={m_pad}, "
+                         f"n_pad={n_pad} outside dims 2-3, pads 1-128")
+    _check("bucketed_min_core", a, torch.float32, (dims, nb, m_pad), 4)
+    _check("bucketed_min_core", b, torch.float32, (dims, nb, n_pad), 4)
+    out = torch.empty(nb, dtype=torch.float32, device=a.device)
+    if nb:
+        _launch("bucketed_min_core", _ptr(a), _ptr(b), _ptr(out),
+                ctypes.c_int(dims), ctypes.c_int(nb), ctypes.c_int(m_pad),
+                ctypes.c_int(n_pad))
+    return out
+
+
+# ------------------------------------------------------------ tree descent --
+def f64_sort_keys(x: np.ndarray) -> np.ndarray:
+    """IEEE-754 doubles -> order-isomorphic int64 sort keys (host, exact).
+
+    The classic total-order flip: positives keep their bit pattern with the
+    sign bit toggled, negatives are complemented; -0.0 is canonicalized to
+    +0.0 first so the two zero encodings stay equal. int64 comparisons on
+    the keys then agree bit-for-bit with f64 ``<=`` on the inputs. Finite
+    inputs map strictly inside (int64-min, int64-max), so both extremes
+    remain free for never-matching padding sentinels.
+    """
+    x = np.where(x == 0.0, 0.0, np.asarray(x, dtype=np.float64))
+    u = np.asarray(x, dtype=np.float64).view(np.uint64)
+    sign = np.uint64(1) << np.uint64(63)
+    key_u = np.where(u & sign != 0, ~u, u | sign)
+    return (key_u ^ sign).view(np.int64)
+
+
+# never-intersecting padding box in f64_sort_keys space: mins above every
+# real max key, maxs below every real min key (rows are x0, y0, x2, y3)
+DESCEND_PAD_BOX = np.array(
+    [(1 << 63) - 1, (1 << 63) - 1, -(1 << 63), -(1 << 63)], dtype=np.int64)
+
+
+def tree_descend(node_keys: torch.Tensor, cs_path: torch.Tensor,
+                 box_keys: torch.Tensor) -> torch.Tensor:
+    """Fused Phase-1 candidate-node pass (see csrc/tree_descend.cu).
+
+    node_keys (4, N) int64 `f64_sort_keys` planes of the node MBRs (rows
+    x0, y0, x2, y3); cs_path (N,) bool root-path Bloom verdicts; box_keys
+    (B, M, 4) int64 keys of the expanded driver boxes, padding rows set to
+    `DESCEND_PAD_BOX`. Returns the (B, N) bool candidate masks.
+    """
+    if not _on_cuda("tree_descend", node_keys, cs_path, box_keys):
+        return ref.tree_descend_ref(node_keys, cs_path, box_keys)
+    n = node_keys.shape[1]
+    nb, m = box_keys.shape[0], box_keys.shape[1]
+    _check("tree_descend", node_keys, torch.int64, (4, n), 8)
+    _check("tree_descend", cs_path, torch.bool, (n,))
+    _check("tree_descend", box_keys, torch.int64, (nb, m, 4), 8)
+    if nb > 65535:
+        raise ValueError(f"tree_descend: {nb} blocks exceed the grid's y axis")
+    out = torch.empty((nb, n), dtype=torch.bool, device=node_keys.device)
+    if n and nb:
+        _launch("tree_descend", _ptr(node_keys), _ptr(cs_path),
+                _ptr(box_keys), _ptr(out), ctypes.c_int(n), ctypes.c_int(nb),
+                ctypes.c_int(m))
+    return out
+
+
+# --------------------------------------------------- merge-join rank pass --
+# Rank-pass backends of the relational merge join (core/join.py). This slice
+# of the port runs numpy's searchsorted only; the CUDA `merge_join_ranks`
+# kernel is the next slice, so asking for "kernel" raises.
+RANK_BACKENDS = ("auto", "numpy")
+
+
+def resolve_rank_backend(backend: str | None) -> str:
+    b = backend or "auto"
+    if b == "kernel":
+        raise ValueError("the merge_join_ranks kernel is not ported yet "
+                         "(next slice of the port); use rank='numpy'")
+    if b not in RANK_BACKENDS:
+        raise ValueError(f"unknown merge-join rank backend {b!r}")
+    return "numpy"
+
+
+def merge_join_ranks(table: np.ndarray, probes: np.ndarray,
+                     backend: str | None = None, side: str = "both"):
+    """Insertion ranks of `probes` in the sorted int64 `table`: with
+    side="both" returns (lo, hi) int64 where lo = searchsorted-left and
+    hi = searchsorted-right; side="left"/"right" returns that bound only."""
+    if side not in ("both", "left", "right"):
+        raise ValueError(f"unknown rank side {side!r}")
+    resolve_rank_backend(backend)
+    table = np.asarray(table, dtype=np.int64)
+    probes = np.asarray(probes, dtype=np.int64)
+    if side != "both":
+        return np.searchsorted(table, probes, side)
+    return (np.searchsorted(table, probes, "left"),
+            np.searchsorted(table, probes, "right"))

@@ -1,0 +1,107 @@
+"""Plain PyTorch versions of the port's CUDA kernels.
+
+Each function here computes exactly what its kernel in `csrc/` computes, with
+the same f32 operation order and no fused multiply-add, so on the same inputs
+the two agree bit-for-bit. `kernels/ops.py` runs these for tensors that lie
+on the CPU; the tests and `chip_smoke.py` hold each kernel against them.
+"""
+from __future__ import annotations
+
+import torch
+
+
+# ----------------------------------------------------------- distance join --
+def distance_join_ref(driver: torch.Tensor, driven: torch.Tensor
+                      ) -> torch.Tensor:
+    """Pairwise min distance between boxes. driver (M, 4), driven (N, 4)
+    f32 -> (M, N) f32 (0 where boxes intersect), unfused:
+    ``v = dx*dx; v = v + dy*dy; sqrt(v)``, each step rounded to f32."""
+    a = driver[:, None, :]
+    b = driven[None, :, :]
+    zero = torch.zeros((), dtype=torch.float32, device=driver.device)
+    dx = torch.maximum(zero, torch.maximum(a[..., 0] - b[..., 2],
+                                           b[..., 0] - a[..., 2]))
+    dy = torch.maximum(zero, torch.maximum(a[..., 1] - b[..., 3],
+                                           b[..., 1] - a[..., 3]))
+    v = dx * dx
+    v = v + dy * dy
+    # torch's vectorized f32 sqrt on the CPU is not correctly rounded (it
+    # differs from IEEE sqrt on about 0.6% of inputs); the f64 sqrt rounded
+    # once to f32 is, on every device, as the kernel's __fsqrt_rn is
+    return torch.sqrt(v.double()).float()
+
+
+# ------------------------------------------------- fused top-k distance join --
+def fused_topk_join_ref(driver: torch.Tensor, driven: torch.Tensor,
+                        driver_keys: torch.Tensor, driven_keys: torch.Tensor,
+                        dist: torch.Tensor, theta: torch.Tensor,
+                        row_qid: torch.Tensor, col_qid: torch.Tensor, k: int
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dense version of the fused kernel.
+
+    Pair (i, j) survives iff ``dist_ij <= dist[i]`` and ``driver_keys[i] +
+    driven_keys[j] > theta[i]`` and ``row_qid[i] == col_qid[j]``. Per row:
+    the k best survivors by key bound, ties to the lowest column, padded
+    with -inf / -1, plus the total survivor count. Returns (scores (M, k)
+    f32, idx (M, k) int32, counts (M,) int32).
+    """
+    d = distance_join_ref(driver, driven)
+    bound = driver_keys[:, None] + driven_keys[None, :]
+    valid = ((d <= dist[:, None]) & (bound > theta[:, None])
+             & (row_qid[:, None] == col_qid[None, :]))
+    m, n = d.shape
+    s = torch.where(valid, bound,
+                    torch.full((), float("-inf"), device=d.device))
+    # stable descending sort: equal bounds keep column order (lowest first)
+    top_s, pos = torch.sort(s, dim=1, descending=True, stable=True)
+    kk = min(k, n)
+    top_s = top_s[:, :kk]
+    top_i = torch.where(top_s == float("-inf"), -1, pos[:, :kk]
+                        ).to(torch.int32)
+    out_s = torch.full((m, k), float("-inf"), dtype=torch.float32,
+                       device=d.device)
+    out_i = torch.full((m, k), -1, dtype=torch.int32, device=d.device)
+    out_s[:, :kk] = top_s
+    out_i[:, :kk] = top_i
+    return out_s, out_i, valid.sum(dim=1, dtype=torch.int32)
+
+
+# ------------------------------------------- bucketed geometry refinement --
+def bucketed_min_core_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-row min over point pairs of ``sum_d (a_d - b_d)²``.
+
+    a (dims, B, m_pad), b (dims, B, n_pad) f32 coordinate planes whose
+    padding replicates real points. The sum runs ``v = d0*d0; v = v +
+    d1*d1 [; v = v + d2*d2]`` with every step rounded. Returns (B,) f32.
+    """
+    dims, nb, m_pad = a.shape
+    best = torch.full((nb,), float("inf"), dtype=torch.float32,
+                      device=a.device)
+    for i in range(m_pad):
+        v = None
+        for dd in range(dims):
+            diff = a[dd, :, i:i + 1] - b[dd]               # (B, n_pad)
+            v = diff * diff if v is None else v + diff * diff
+        best = torch.minimum(best, v.min(dim=1).values)
+    return best
+
+
+# ------------------------------------------------------------ tree descent --
+def tree_descend_ref(node_keys: torch.Tensor, cs_path: torch.Tensor,
+                     box_keys: torch.Tensor) -> torch.Tensor:
+    """Candidate-node masks: ``in[b, n] = any_m hit(b, m, n) & cs_path[n]``.
+
+    node_keys (4, N) int64 sort keys of the node MBRs (rows x0, y0, x2, y3);
+    cs_path (N,) bool; box_keys (B, M, 4) int64 keys of the expanded driver
+    boxes. A hit is the closed interval test on the keys. Returns (B, N)
+    bool.
+    """
+    nx0, ny0, nx2, ny3 = (node_keys[c][None, :] for c in range(4))
+    out = torch.empty((box_keys.shape[0], node_keys.shape[1]),
+                      dtype=torch.bool, device=node_keys.device)
+    for bi in range(box_keys.shape[0]):
+        bx = box_keys[bi]
+        hit = ((nx0 <= bx[:, 2:3]) & (bx[:, 0:1] <= nx2)
+               & (ny0 <= bx[:, 3:4]) & (bx[:, 1:2] <= ny3))
+        out[bi] = hit.any(dim=0) & cs_path
+    return out

@@ -1,0 +1,93 @@
+"""The port stands alone and runs where it is told to.
+
+`repro_torch` and `chip_smoke.py` import neither JAX nor the reference
+package; the engine runs on CUDA unless the caller asks for the CPU and
+raises when CUDA is missing; stages whose kernels are not ported yet refuse
+a kernel backend instead of quietly running numpy.
+"""
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import BackendPolicy, ExecConfig, StreakEngine
+from repro_torch.data import synth_rdf
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def test_importing_the_port_loads_neither_jax_nor_the_reference():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.interop, repro_torch.kernels.ops\n"
+        "import repro_torch.kernels._build, repro_torch.data.synth_rdf\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin"})
+
+
+def test_no_port_source_names_jax_or_the_reference():
+    files = [p for p in PORT.rglob("*")
+             if p.suffix in (".py", ".cu", ".cuh")] + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    for path in files:
+        text = path.read_text()
+        assert "import jax" not in text, path
+        assert "repro." not in text, path
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    return synth_rdf.make_lgd(n_per_class=40, seed=0)
+
+
+def test_engine_defaults_to_cuda_and_raises_without_it(tiny, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StreakEngine(tiny.store)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StreakEngine(tiny.store, device="cuda")
+    eng = StreakEngine(tiny.store, device="cpu")
+    assert eng.device == torch.device("cpu")
+    scores, rows, stats = eng.execute(tiny.queries[0])
+    assert len(scores) and np.isfinite(scores).all()
+
+
+@pytest.mark.parametrize("stage", ["probe", "rank"])
+def test_unported_kernel_backends_raise(stage):
+    with pytest.raises(ValueError, match="not ported yet"):
+        ExecConfig(policy=BackendPolicy(**{stage: "kernel"}))
+    with pytest.raises(ValueError, match="unknown"):
+        ExecConfig(policy=BackendPolicy(**{stage: "interpret"}))
+
+
+def test_auto_policy_resolves_like_the_reference(monkeypatch):
+    for cuda, descend in ((True, "kernel"), (False, "numpy")):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda c=cuda: c)
+        pol = BackendPolicy().resolve()
+        assert (pol.join, pol.impl, pol.rank, pol.probe, pol.descend) == \
+            ("numpy", "merge", "numpy", "numpy", descend)
+
+
+def test_non_topk_shapes_are_not_ported(tiny):
+    q = tiny.queries[0]
+    join_q = type(q)(select=q.select, patterns=q.patterns, spatial=q.spatial,
+                     ranking=None, k=q.k)
+    eng = StreakEngine(tiny.store, device="cpu")
+    with pytest.raises(NotImplementedError, match="'join'"):
+        eng.execute(join_q)
+
+
+def test_public_surface_is_a_subset_of_the_reference():
+    import repro
+    assert set(repro_torch.__all__) < set(repro.__all__)
+    for name in repro_torch.__all__:
+        assert getattr(repro_torch, name).__name__ == \
+            getattr(repro, name).__name__
