@@ -7,23 +7,31 @@ Needs one CUDA device, the CUDA toolkit (nvcc) and this checkout's `src/`.
 In order it:
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the four CUDA kernels of `src/repro_torch/csrc/` and prints the
+2. builds the six CUDA kernels of `src/repro_torch/csrc/` and prints the
    build time and each kernel's ptxas register and shared-memory use;
 3. holds each kernel against its plain torch version on the card, at the
    shapes the main path gives it, and requires bit-identical output; times
    both per call with CUDA events (`ms`, `plain_ms`: the wrapper's host
    overhead included), the kernel alone from a torch.profiler trace
-   (`device_ms`), and computes the kernel's bound (bytes over the memory
-   rate or operations over the f32 rate, the larger);
+   (`device_ms`), one PyTorch call computing the same function where
+   there is one (`library_ms`), and computes the kernel's bound (bytes
+   over the memory rate or operations over the scalar rate, the larger);
 4. drives the main path — `StreakEngine.execute` on `device="cuda"`, top-k
    spatial distance joins over `make_lgd(n_per_class=6000)` (Q1-Q8) and
-   `make_scale(1_000_000)` (Q1-Q2), first with the fused Phase-3 join, then
-   with the matrix join — with the launch counts set to 0 just before and
-   read just after, requires every kernel to have launched, and requires
-   every answer, plan log and statistic to equal a `device="cpu"` run;
-5. traces one more pass of each query set on the card: host ms per
-   executor layer, device busy ms and the device's idle share;
-6. prints the kernels line (JSON), then the ok line (JSON) last.
+   `make_scale(1_000_000)` (Q1-Q2) with the fused Phase-3 join, then both
+   with the matrix join, under the accelerator policy (every stage on its
+   kernel) — with the launch counts set to 0 just before and read just
+   after, requires every kernel to have launched, and requires every
+   answer, plan log and statistic to equal a `device="cpu"` run;
+5. drives the second entry point the same way: the Geographica shapes
+   over the LGD data, spatial join and kNN under both joins, range and
+   within (which never reach the Phase-3 join) under one, each equal to its
+   `device="cpu"` run, every kernel launched;
+6. times LGD Q1-Q8 with the Bloom probes and the rank pass on numpy and on
+   their kernels, in turns, and traces one more pass of each query set on
+   the card: host ms per executor layer, device busy ms and the device's
+   idle share;
+7. prints the kernels line (JSON), then the ok line (JSON) last.
 
 Any failed phase raises, so the script exits non-zero without the ok line.
 """
@@ -43,16 +51,22 @@ import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
-# H100 SXM peaks (NVIDIA data sheet): HBM rate and f32 outside tensor cores
+# H100 SXM peaks (NVIDIA data sheet): HBM rate and the scalar rate outside
+# the tensor cores (f32; the integer kernels are held to the same rate)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-SLICE_POLICY = dict(probe="numpy", rank="numpy", impl="merge", kcap="fixed",
-                    descend="kernel")
+# the reference's accelerator policy: every stage on its kernel
+SLICE_POLICY = dict(probe="kernel", rank="kernel", impl="merge",
+                    kcap="fixed", descend="kernel")
+# the first slice's policy: Bloom probes and rank pass on the host
+HOST_PROBE_RANK = dict(SLICE_POLICY, probe="numpy", rank="numpy")
 REPLACES = {
     "fused_topk_join": "src/repro/kernels/fused_topk_join.py:110",
     "distance_join": "src/repro/kernels/distance_join.py:36",
     "bucketed_min_core": "src/repro/kernels/geom_refine.py:72",
     "tree_descend": "src/repro/kernels/tree_descend.py:75",
+    "bloom_probe": "src/repro/kernels/bloom_probe.py:54",
+    "merge_join_ranks": "src/repro/kernels/merge_join.py:106",
 }
 
 
@@ -242,6 +256,136 @@ def check_tree_descend(ops, ref, dev, entry, trees, cases):
                          bound_by=by)
 
 
+def check_bloom_probe(rt, ops, ref, dev, entry, lgd, cases):
+    """The main path's shape (every node of the LGD tree x the driven-CS
+    keys of LGD Q1, from the store's `bloom_self`), then random banks over
+    W in {8, 16, 32} x k in {2, 3, 4} with inserted keys and absent keys
+    that have the high bit set."""
+    from repro_torch.core.charsets import BloomBank
+    from repro_torch.core.planner import plan_query
+    tree = lgd.store.tree
+    plan = plan_query(lgd.store, lgd.queries[0],
+                      policy=rt.BackendPolicy(join="fused", **SLICE_POLICY))
+    bank, cs = tree.bloom_self, plan.driven_cs
+    n, c = tree.n_nodes, len(cs)
+    rows = torch.from_numpy(bank.bits[np.repeat(np.arange(n), c)]
+                            .view(np.int32)).to(dev)
+    keys = torch.from_numpy(np.tile(cs, n)).to(dev)
+    got = ops.bloom_probe(rows, keys, bank.k)
+    require_equal("bloom_probe lgd Q1", [got],
+                  [ref.bloom_probe_ref(rows, keys, bank.k)])
+    rng = np.random.default_rng(5)
+    for w in ops.BLOOM_WORDS:
+        for k in (2, 3, 4):
+            rbank = BloomBank.empty(1024, words=w, k=k)
+            ins = rng.integers(0, 1 << 62, 4096, dtype=np.int64)
+            ins_f = rng.integers(0, 1024, 4096)
+            rbank.add(ins_f, ins)
+            absent = rng.integers(-(1 << 63), -1, 4096, dtype=np.int64)
+            fi = np.concatenate([ins_f, rng.integers(0, 1024, 4096)])
+            r = torch.from_numpy(rbank.bits[fi].view(np.int32)).to(dev)
+            kk = torch.from_numpy(np.concatenate([ins, absent])).to(dev)
+            g = ops.bloom_probe(r, kk, k)
+            require_equal(f"bloom_probe W={w} k={k}", [g],
+                          [ref.bloom_probe_ref(r, kk, k)])
+            if not bool(g[:4096].all()):
+                raise AssertionError(f"bloom_probe W={w} k={k}: an "
+                                     "inserted key tested absent")
+            cases.append(dict(kernel="bloom_probe", W=w, k=k, B=8192,
+                              members=int(g.sum())))
+    # what this data needs: per row its key, its verdict, and the words up
+    # to its first clear bit; ~40 integer ops of hashing plus ~7 a word
+    pos = ref.bloom_positions(keys, bank.k, bank.nbits)
+    words = rows.to(torch.int64) & 0xFFFFFFFF
+    bit = (torch.gather(words, 1, pos // 32) >> (pos % 32)) & 1
+    tested = torch.where((bit == 0).any(1),
+                         (bit == 0).int().argmax(1) + 1, bank.k)
+    n_words = int(tested.sum())
+    b = n * c
+    entry.update(
+        shape=f"B={b} (N={n} nodes x C={c} keys) W={bank.words} k={bank.k}",
+        max_abs_err=0.0,
+        ms=time_ms(lambda: ops.bloom_probe(rows, keys, bank.k), 50),
+        device_ms=device_ms(lambda: ops.bloom_probe(rows, keys, bank.k),
+                            "bloom_probe_kernel"),
+        plain_ms=time_ms(lambda: ref.bloom_probe_ref(rows, keys, bank.k),
+                         10),
+        library_note="no PyTorch call computes a double-hashed Bloom test")
+    entry["bound_ms"], entry["bound_by"] = bound_ms(
+        b * (8 + 1) + n_words * 4, b * 40 + n_words * 7)
+
+
+def rank_words_touched(table, probes) -> tuple[int, int]:
+    """Distinct table words, and distinct 32-byte sectors, that the rank
+    kernel's binary-lifting searches (lower and upper bound) read for these
+    probes: the same search run in torch, its positions marked. Raises if
+    the search's ranks differ from torch.searchsorted's."""
+    n = table.shape[0]
+    seen = torch.zeros(n + (-n) % 4, dtype=torch.bool, device=table.device)
+    step0 = 1 << (n.bit_length() - 1)
+    for side, strict in (("left", True), ("right", False)):
+        pos = torch.zeros_like(probes)
+        step = step0
+        while step:
+            nxt = pos + step
+            ok = nxt <= n
+            idx = (nxt - 1).clamp(max=n - 1)
+            seen[idx[ok]] = True
+            v = table[idx]
+            pred = (v < probes) if strict else (v <= probes)
+            pos = torch.where(ok & pred, nxt, pos)
+            step >>= 1
+        if not torch.equal(pos, torch.searchsorted(table, probes, side=side)):
+            raise AssertionError(f"rank search model disagrees ({side})")
+    return int(seen.sum()), int(seen.view(-1, 4).any(1).sum())
+
+
+def check_merge_join_ranks(ops, ref, dev, entry, cases):
+    """A sorted table of ~1M int64 keys with runs of duplicates; probes of
+    M = 4096 and M ~ N below, inside (exact hits included) and above the
+    table; every side."""
+    rng = np.random.default_rng(6)
+    n = 1_000_003
+    base = np.sort(rng.integers(-(1 << 40), 1 << 40, n))
+    table_np = np.repeat(base, rng.integers(1, 5, n))[:n]
+    table = torch.from_numpy(table_np).to(dev)
+    lo_v, hi_v = int(table_np[0]), int(table_np[-1])
+    for m in (4096, n):
+        probes_np = np.concatenate([
+            rng.integers(lo_v - (1 << 41), lo_v, m // 8),          # below
+            rng.integers(hi_v + 1, hi_v + (1 << 41), m // 8),      # above
+            rng.choice(table_np, m // 4),                          # hits
+            rng.integers(lo_v, hi_v, m - m // 8 * 2 - m // 4)])    # inside
+        probes = torch.from_numpy(rng.permutation(probes_np)).to(dev)
+        for side in ("both", "left", "right"):
+            got = ops.insertion_ranks(table, probes, side)
+            want = ref.merge_join_ranks_ref(table, probes, side)
+            require_equal(f"merge_join_ranks M={m} side={side}",
+                          got if side == "both" else [got],
+                          want if side == "both" else [want])
+        words, sectors = rank_words_touched(table, probes)
+        ms = time_ms(lambda: ops.insertion_ranks(table, probes), 20)
+        dms = device_ms(lambda: ops.insertion_ranks(table, probes),
+                        "merge_join_ranks_kernel")
+        plain = time_ms(lambda: ref.merge_join_ranks_ref(table, probes), 5)
+        lib = time_ms(lambda: (torch.searchsorted(table, probes, side="left"),
+                               torch.searchsorted(table, probes,
+                                                  side="right")), 20)
+        # probes read and both ranks written once, each distinct table word
+        # that this run's searches reach read once; ~4 integer operations
+        # per search step, two searches per probe
+        bnd, by = bound_ms(m * 8 * 3 + words * 8,
+                           2 * m * int(n).bit_length() * 4)
+        cases.append(dict(kernel="merge_join_ranks", N=n, M=m, side="both",
+                          table_words=words, table_sectors=sectors,
+                          ms=ms, device_ms=dms, plain_ms=plain,
+                          library_ms=lib, bound_ms=bnd, bound_by=by))
+        if m == 4096:
+            entry.update(shape=f"N={n} M={m} side=both", max_abs_err=0.0,
+                         ms=ms, device_ms=dms, plain_ms=plain,
+                         library_ms=lib, bound_ms=bnd, bound_by=by)
+
+
 # ------------------------------------------------------- end-to-end phase --
 def run_queries(rt, datasets, join, device):
     """{(dataset, qi): ((scores, rows, stats), wall ms)} for one backend."""
@@ -257,6 +401,63 @@ def run_queries(rt, datasets, join, device):
                 torch.cuda.synchronize()
             out[(name, qi)] = (res, (time.perf_counter() - t0) * 1e3)
     return out
+
+
+def shape_queries(rt, ds) -> dict:
+    """The Geographica shapes over hotels <-> parks, built as in
+    tests/test_shapes.py: {name: Query}."""
+    ns, Var, TP = ds.ns, rt.Var, rt.TriplePattern
+    pa, pb = Var("place"), Var("nplace")
+    patterns = (
+        TP(pa, Var("typePred1"), ns["class:hotel"], g=Var("r")),
+        TP(Var("r"), ns["hasConfidence"], Var("conf")),
+        TP(pa, ns["hasGeometry"], Var("g1")),
+        TP(pb, Var("typePred2"), ns["class:park"], g=Var("r1")),
+        TP(Var("r1"), ns["hasConfidence"], Var("conf1")),
+        TP(pb, ns["hasGeometry"], Var("g2")))
+    filters = {
+        "range": rt.SpatialFilter(Var("g1"), None,
+                                  window=(15.0, 10.0, 70.0, 60.0)),
+        "within": rt.SpatialFilter(Var("g1"), None, dist=18.0,
+                                   center=(50.0, 30.0)),
+        "join": rt.SpatialFilter(Var("g1"), Var("g2"), dist=1.0),
+        "knn": rt.SpatialFilter(Var("g1"), Var("g2"), knn=4),
+    }
+    return {name: rt.Query(select=(pa, pb), patterns=patterns, spatial=f,
+                           ranking=None) for name, f in filters.items()}
+
+
+def run_shapes(rt, ds, queries, join, device) -> dict:
+    """{shape: ((scores, rows, stats), wall ms)} for one backend."""
+    cfg = rt.ExecConfig(policy=rt.BackendPolicy(join=join, **SLICE_POLICY))
+    eng = rt.StreakEngine(ds.store, cfg, device=device)
+    out = {}
+    for name, q in queries.items():
+        t0 = time.perf_counter()
+        res = eng.execute(q)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out[name] = (res, (time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def compare_probe_rank(rt, ds, n_q) -> list:
+    """LGD Q1-Q8 (fused join) with the Bloom probes and the rank pass on
+    the host and on their kernels, in turns (host, kernel, kernel, host):
+    one fresh engine per pass, wall ms per pass on the card."""
+    passes = []
+    for label, pol in (("numpy", HOST_PROBE_RANK), ("kernel", SLICE_POLICY),
+                       ("kernel", SLICE_POLICY), ("numpy", HOST_PROBE_RANK)):
+        cfg = rt.ExecConfig(policy=rt.BackendPolicy(join="fused", **pol))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = rt.StreakEngine(ds.store, cfg, device="cuda")
+        for qi in range(n_q):
+            eng.execute(ds.queries[qi])
+        torch.cuda.synchronize()
+        passes.append(dict(probe_rank=label,
+                           wall_ms=(time.perf_counter() - t0) * 1e3))
+    return passes
 
 
 @contextlib.contextmanager
@@ -292,12 +493,12 @@ def timed_layers():
     totals["phase 3"] -= totals["refine + top-k"]
 
 
-def trace_queries(rt, name, ds, n_q, join) -> dict:
+def trace_queries(rt, name, ds, n_q, join, policy=SLICE_POLICY) -> dict:
     """One traced pass of a query set on the card: host ms per executor
     layer, device busy ms (the union of the kernel and copy intervals of a
     torch.profiler trace) and the device's idle share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
-    cfg = rt.ExecConfig(policy=rt.BackendPolicy(join=join, **SLICE_POLICY))
+    cfg = rt.ExecConfig(policy=rt.BackendPolicy(join=join, **policy))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof, \
             timed_layers() as layers:
@@ -320,7 +521,8 @@ def trace_queries(rt, name, ds, n_q, join) -> dict:
         by_kind[kind] += (stop - start) / 1e3
     host = {k: v * 1e3 for k, v in layers.items()}
     host["other"] = wall_ms - sum(host.values())
-    return dict(dataset=name, join=join, queries=n_q, wall_ms=wall_ms,
+    return dict(dataset=name, join=join, probe=policy["probe"],
+                rank=policy["rank"], queries=n_q, wall_ms=wall_ms,
                 device_busy_ms=busy_us / 1e3 if spans else None,
                 device_idle_share=1 - busy_us / 1e3 / wall_ms
                 if spans else None,
@@ -332,6 +534,24 @@ def same_answer(got, want) -> bool:
     return (np.array_equal(gs, ws) and list(gr) == list(wr)
             and all(np.array_equal(gr[c], wr[c]) for c in wr)
             and dataclasses.asdict(gst) == dataclasses.asdict(wst))
+
+
+def check_answers(label: str, runs: dict, cpu_runs: dict) -> None:
+    """Every CUDA answer well formed and equal to its CPU run, or raise."""
+    for key, (res, _) in runs.items():
+        scores, rows, _ = res
+        if not (np.isfinite(scores).all()
+                and all(len(v) == len(scores) for v in rows.values())):
+            raise AssertionError(f"{label} {key}: malformed answer")
+        if not same_answer(res, cpu_runs[key][0]):
+            raise AssertionError(f"{label} {key}: CUDA answer differs from "
+                                 "the CPU run")
+
+
+def require_launched(path: str, launches: dict) -> None:
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"{name} never launched on {path}")
 
 
 def main() -> None:
@@ -355,6 +575,11 @@ def main() -> None:
     kind = torch.cuda.get_device_name(0)
     dev = torch.device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
+    phase_s: dict = {}
+
+    def phase_done(name: str, t0: float) -> None:
+        phase_s[name] = time.perf_counter() - t0
+        print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
 
     t0 = time.perf_counter()
     _build.build_all()
@@ -363,19 +588,22 @@ def main() -> None:
     for name, log in _build.build_logs.items():
         used = [ln.strip() for ln in log.splitlines() if "Used" in ln]
         print(f"  {name}: {'; '.join(used)}")
+    phase_done("build", t0)
 
     t0 = time.perf_counter()
     datasets = {
         "lgd": (synth_rdf.make_lgd(n_per_class=6000, seed=0, block=1024), 8),
         "scale1m": (synth_rdf.make_scale(1_000_000, seed=0), 2),
     }
+    lgd = datasets["lgd"][0]
     for name, (ds, _) in datasets.items():
         print(f"data {name}: {ds.store.n_quads} quads, "
               f"{ds.store.tree.n_objects} spatial, "
               f"{ds.store.tree.n_nodes} nodes")
-    print(f"data build: {time.perf_counter() - t0:.1f} s", flush=True)
+    phase_done("data build", t0)
 
     # ---- per-kernel phase: kernel vs plain version, bit for bit ----------
+    t0 = time.perf_counter()
     entries = {name: dict(name=name, route="cuda",
                           source=f"src/repro_torch/csrc/{name}.cu",
                           replaces=REPLACES[name], library_ms=None)
@@ -387,35 +615,49 @@ def main() -> None:
     check_tree_descend(ops, ref, dev, entries["tree_descend"],
                        {n: ds.store.tree for n, (ds, _) in datasets.items()},
                        cases)
+    check_bloom_probe(rt, ops, ref, dev, entries["bloom_probe"], lgd, cases)
+    check_merge_join_ranks(ops, ref, dev, entries["merge_join_ranks"], cases)
     for e in entries.values():
+        lib = ("" if e["library_ms"] is None
+               else f", library {e['library_ms']:.4f} ms")
         print(f"kernel {e['name']} [{e['shape']}] on {kind}: bit-identical; "
               f"{e['ms']:.4f} ms a call, {e['device_ms']} ms on the device, "
-              f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.5f} ms "
-              f"({e['bound_by']})")
+              f"plain {e['plain_ms']:.4f} ms{lib}, bound "
+              f"{e['bound_ms']:.5f} ms ({e['bound_by']})")
     for c in cases:
         print("case " + json.dumps(c))
     sys.stdout.flush()
+    phase_done("kernels", t0)
 
     # ---- end-to-end phase: the main path on the card ---------------------
+    t0 = time.perf_counter()
+    rank_shapes: list = []      # (N, M) of every rank call of the main path
+    insertion_ranks = ops.insertion_ranks
+
+    def recording_ranks(table, probes, side="both"):
+        rank_shapes.append((table.shape[0], probes.shape[0]))
+        return insertion_ranks(table, probes, side)
+
+    checked = {"fused": datasets, "kernel": datasets}
+    ops.insertion_ranks = recording_ranks
     ops.reset_launch_counts()
-    cuda_runs = {join: run_queries(rt, datasets, join, "cuda")
-                 for join in ("fused", "kernel")}
+    cuda_runs = {join: run_queries(rt, sets, join, "cuda")
+                 for join, sets in checked.items()}
     launches = dict(ops.LAUNCHES)
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"{name} never launched on the main path")
+    ops.insertion_ranks = insertion_ranks
+    require_launched("the main path", launches)
+    n_m = np.array(rank_shapes, dtype=np.int64).reshape(-1, 2)
+    print(f"rank calls on the main path: {len(n_m)}; table N median "
+          f"{int(np.median(n_m[:, 0]))} max {int(n_m[:, 0].max())}; probes "
+          f"M median {int(np.median(n_m[:, 1]))} max {int(n_m[:, 1].max())}")
     queries = []
     for join, runs in cuda_runs.items():
-        cpu_runs = run_queries(rt, datasets, join, "cpu")
+        cpu_runs = run_queries(rt, checked[join], join, "cpu")
+        check_answers(join, runs, cpu_runs)
         for key, (res, ms) in runs.items():
             scores, rows, stats = res
-            q = datasets[key[0]][0].queries[key[1]]
-            if not (len(scores) <= q.k and np.isfinite(scores).all()
-                    and all(len(v) == len(scores) for v in rows.values())):
-                raise AssertionError(f"{join} {key}: malformed answer")
-            if not same_answer(res, cpu_runs[key][0]):
-                raise AssertionError(f"{join} {key}: CUDA answer differs "
-                                     "from the CPU run")
+            if len(scores) > datasets[key[0]][0].queries[key[1]].k:
+                raise AssertionError(f"{join} {key}: more rows than k")
             queries.append(dict(join=join, dataset=key[0], q=key[1] + 1,
                                 rows=len(scores), cuda_ms=ms,
                                 cpu_ms=cpu_runs[key][1],
@@ -425,17 +667,52 @@ def main() -> None:
             print(f"query {join} {key[0]} Q{key[1] + 1}: {len(scores)} rows "
                   f"= cpu; cuda {ms:.1f} ms, cpu {cpu_runs[key][1]:.1f} ms "
                   f"({kind})")
-
     if not any(qr["rows"] == datasets[qr["dataset"]][0].queries[0].k
                for qr in queries):
         raise AssertionError("no query filled its top-k")
+    phase_done("main path", t0)
 
-    # ---- where the time goes: one traced pass per query set --------------
+    # ---- second entry point: the Geographica shapes -----------------------
+    t0 = time.perf_counter()
+    shape_qs = shape_queries(rt, lgd)
+    ops.reset_launch_counts()
+    # range and within never reach the Phase-3 join, so the join backend
+    # cannot change their work: they run under one join only
+    shape_sets = {"kernel": shape_qs,
+                  "fused": {n: shape_qs[n] for n in ("join", "knn")}}
+    shape_cuda = {join: run_shapes(rt, lgd, qs, join, "cuda")
+                  for join, qs in shape_sets.items()}
+    shape_launches = dict(ops.LAUNCHES)
+    require_launched("the shapes path", shape_launches)
+    print("shape launches " + json.dumps(shape_launches))
+    shapes = []
+    for join, runs in shape_cuda.items():
+        cpu_runs = run_shapes(rt, lgd, shape_sets[join], join, "cpu")
+        check_answers(f"shape {join}", runs, cpu_runs)
+        for name, (res, ms) in runs.items():
+            n_rows = len(res[0])
+            if name != "join" and n_rows == 0:
+                raise AssertionError(f"shape {name}: no rows")
+            shapes.append(dict(join=join, shape=name, rows=n_rows,
+                               cuda_ms=ms, cpu_ms=cpu_runs[name][1],
+                               driver_blocks=res[2].driver_blocks))
+            print(f"shape {join} {name}: {n_rows} rows = cpu; cuda "
+                  f"{ms:.1f} ms, cpu {cpu_runs[name][1]:.1f} ms ({kind})")
+    phase_done("shapes", t0)
+
+    # ---- where the time goes ---------------------------------------------
+    t0 = time.perf_counter()
+    ab = compare_probe_rank(rt, lgd, datasets["lgd"][1])
+    for a in ab:
+        print("probe/rank " + json.dumps(a))
     traces = [trace_queries(rt, name, ds, n_q, join)
               for join in ("fused", "kernel")
               for name, (ds, n_q) in datasets.items()]
+    traces.append(trace_queries(rt, "lgd", lgd, datasets["lgd"][1], "fused",
+                                HOST_PROBE_RANK))
     for t in traces:
         print("trace " + json.dumps(t))
+    phase_done("traces", t0)
 
     kernels = [dict(entries[n], launches=launches[n], match=True)
                for n in _build.KERNELS]
@@ -443,7 +720,10 @@ def main() -> None:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps(dict(
             card=smi, kind=kind, torch=torch.__version__, kernels=kernels,
-            cases=cases, queries=queries, traces=traces), indent=1))
+            cases=cases, queries=queries, shapes=shapes,
+            shape_launches=shape_launches, probe_rank_passes=ab,
+            rank_call_shapes=n_m.tolist(), traces=traces,
+            phase_seconds=phase_s), indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

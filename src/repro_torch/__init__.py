@@ -15,11 +15,11 @@ hand-written CUDA C++ in `csrc/`, built with nvcc at first use, each with a
 plain torch version in `kernels/ref.py` that the CPU path runs.
 """
 from .core import (BackendPolicy, ExecConfig, ExecStats, Query, QuadStore,
-                   Ranking, Relation, SpatialFilter, StreakEngine,
-                   TriplePattern, Var, build_store)
+                   QueryDeadline, Ranking, Relation, SpatialFilter,
+                   StreakEngine, TriplePattern, Var, build_store)
 
 __all__ = [
     "BackendPolicy", "ExecConfig", "ExecStats", "Query", "QuadStore",
-    "Ranking", "Relation", "SpatialFilter", "StreakEngine", "TriplePattern",
-    "Var", "build_store",
+    "QueryDeadline", "Ranking", "Relation", "SpatialFilter", "StreakEngine",
+    "TriplePattern", "Var", "build_store",
 ]

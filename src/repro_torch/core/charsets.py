@@ -15,6 +15,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+
+from ..kernels import ops
 
 # 64-bit splitmix-style avalanche.
 _C1 = np.uint64(0xBF58476D1CE4E5B9)
@@ -136,20 +139,20 @@ class PreparedKeys:
         return len(self.keys)
 
 
-# Probe-backend dispatch for the query path. This slice of the port has
-# only the numpy oracle; the CUDA `bloom_probe` kernel is the next slice,
-# so asking for "kernel" raises instead of quietly running numpy.
-PROBE_BACKENDS = ("auto", "numpy")
+# Probe-backend dispatch for the query path: "numpy" probes on the host;
+# "kernel" runs `kernels/ops.bloom_probe` on the engine's device (the CUDA
+# kernel on CUDA, its plain torch version on the CPU). "auto" resolves to
+# the kernel when CUDA is available, numpy otherwise.
+PROBE_BACKENDS = ("auto", "numpy", "kernel")
 
 
 def resolve_probe_backend(backend: str | None) -> str:
     b = backend or "auto"
-    if b == "kernel":
-        raise ValueError("the bloom_probe kernel is not ported yet (next "
-                         "slice of the port); use probe='numpy'")
     if b not in PROBE_BACKENDS:
         raise ValueError(f"unknown probe backend {b!r}")
-    return "numpy"
+    if b != "auto":
+        return b
+    return "kernel" if torch.cuda.is_available() else "numpy"
 
 
 @dataclasses.dataclass
@@ -207,15 +210,28 @@ class BloomBank:
         return ((word >> prep.shift[None]) & np.uint32(1)).all(axis=-1)
 
     def contains_any_batch(self, filter_idx: np.ndarray, prep: PreparedKeys,
-                           backend: str | None = None) -> np.ndarray:
+                           backend: str | None = None,
+                           device: torch.device | str | None = None
+                           ) -> np.ndarray:
         """Per-filter ANY over a prepared key set -> (len(filter_idx),) bool.
 
-        This is the Phase-1 frontier probe (see PROBE_BACKENDS)."""
+        This is the Phase-1 frontier probe: `backend` picks the numpy probe
+        or the `bloom_probe` kernel on `device` (see PROBE_BACKENDS). Both
+        run the same 32-bit integer math, so the verdicts are identical.
+        """
         fi = np.asarray(filter_idx, dtype=np.int64)
         if len(fi) == 0 or len(prep) == 0:
             return np.zeros(len(fi), dtype=bool)
-        resolve_probe_backend(backend)
-        return self.contains_prepared(fi, prep).any(axis=-1)
+        if resolve_probe_backend(backend) == "numpy":
+            return self.contains_prepared(fi, prep).any(axis=-1)
+        if device is None:
+            raise ValueError("the kernel probe backend needs a device")
+        # rows go up as int32 views of the uint32 words
+        rows = self.bits[np.repeat(fi, len(prep))].view(np.int32)  # (F*C, W)
+        keys = np.tile(prep.keys, len(fi))                          # (F*C,)
+        hit = ops.bloom_probe(torch.from_numpy(rows).to(device),
+                              torch.from_numpy(keys).to(device), self.k)
+        return hit.cpu().numpy().reshape(len(fi), len(prep)).any(axis=-1)
 
     def nbytes(self) -> int:
         return self.bits.nbytes

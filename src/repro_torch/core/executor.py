@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from . import aps, node_select, shard as shard_mod, spatial_join
+from .fault import QueryDeadline
 from .join import Relation, filter_in_ranges, join, scan_pattern
 from .planner import QueryPlan, SidePlan, plan_query
 from .policy import BackendPolicy
@@ -120,6 +121,8 @@ class StreakEngine:
     def _join_chain(self, base: Relation, patterns: list,
                     impl: str | None = None,
                     backend: str | None = None) -> Relation:
+        """Join `base` with each pattern's scan in turn; rank kernels run
+        on the engine's device."""
         rel = base
         for tp in patterns:
             if rel.n == 0:
@@ -133,7 +136,8 @@ class StreakEngine:
                         cols[c] = np.empty(0, dtype=np.int64)
                 rel = Relation(cols)
                 continue
-            rel = join(rel, self._cached_scan(tp), impl=impl, backend=backend)
+            rel = join(rel, self._cached_scan(tp), impl=impl, backend=backend,
+                       device=self.device)
         return rel
 
     def _block_relation(self, side: SidePlan, b: int) -> tuple[Relation, np.ndarray]:
@@ -262,9 +266,9 @@ class StreakEngine:
             pair_rel = Relation({driver.entity_var: uniq_ents[ci],
                                  driven.entity_var: dvn_ents[cj]})
             out = join(drv_rel, pair_rel, impl=plan.join_impl,
-                       backend=plan.rank_backend)
+                       backend=plan.rank_backend, device=self.device)
             out = join(out, dvn_rel, impl=plan.join_impl,
-                       backend=plan.rank_backend)
+                       backend=plan.rank_backend, device=self.device)
             if out.n == 0:
                 continue
             keys = self._score_key(out, plan)
@@ -274,20 +278,20 @@ class StreakEngine:
             topk.push(keys, out)
 
     # ------------------------------------------------------------------
-    def execute(self, q: Query, deadline=None
+    def execute(self, q: Query, deadline: QueryDeadline | None = None
                 ) -> tuple[np.ndarray, Relation, ExecStats]:
         cur = self.cursor(q, deadline=deadline)
         while not cur.done:
             cur.step()
         return cur.results()
 
-    def cursor(self, q: Query, deadline=None) -> "QueryCursor":
-        """Steppable execution state (one driver block per step). This
-        slice of the port runs the top-k distance-join shape only."""
+    def cursor(self, q: Query, deadline: QueryDeadline | None = None):
+        """Steppable execution state (one driver block per step). Non-top-k
+        shapes (range / within / kNN / spatial join, core/shapes.py) return
+        a `ShapeCursor` speaking the same protocol."""
         if q.spatial is not None and q.shape() != "topk":
-            raise NotImplementedError(
-                f"{q.shape()!r}-shaped queries are not ported yet; this "
-                "engine runs top-k spatial distance joins")
+            from .shapes import ShapeCursor   # shapes imports this module
+            return ShapeCursor(self, q, deadline=deadline)
         return QueryCursor(self, q, deadline=deadline)
 
     # ------------------------------------------------------------------
@@ -321,7 +325,8 @@ class StreakEngine:
             else:
                 rel = filter_in_ranges(rel, driven.entity_var, intervals,
                                        explicit, impl=plan.join_impl,
-                                       backend=plan.rank_backend)
+                                       backend=plan.rank_backend,
+                                       device=self.device)
                 if key is not None:
                     sc[key] = rel
         stats.driven_rows_after_sip += rel.n
@@ -358,7 +363,8 @@ class StreakEngine:
                                                  driven.entity_var,
                                                  intervals, explicit,
                                                  impl=plan.join_impl,
-                                                 backend=plan.rank_backend)
+                                                 backend=plan.rank_backend,
+                                                 device=self.device)
                 joined = self._join_chain(block_rel, driven.join_patterns,
                                           plan.join_impl, plan.rank_backend)
                 if cfg.use_sip and driven.entity_var not in block_rel \
@@ -366,7 +372,8 @@ class StreakEngine:
                     joined = filter_in_ranges(joined, driven.entity_var,
                                               intervals, explicit,
                                               impl=plan.join_impl,
-                                              backend=plan.rank_backend)
+                                              backend=plan.rank_backend,
+                                              device=self.device)
                 if key is not None:
                     sc[key] = (scanned, joined)
             stats.driven_rows_after_sip += joined.n
@@ -389,9 +396,9 @@ class QueryCursor:
     Kernels run on the engine's device; everything else is host numpy.
     """
 
-    def __init__(self, engine: StreakEngine, q: Query, deadline=None):
+    def __init__(self, engine: StreakEngine, q: Query,
+                 deadline: QueryDeadline | None = None):
         self.engine = engine
-        # duck-typed: any object with expired(driver_blocks) -> bool
         self.deadline = deadline
         cfg = engine.config
         store = engine.store
@@ -428,7 +435,8 @@ class QueryCursor:
         self.cs_path = (
             [sh.tree.cs_path_mask(self.plan.driven_cs,
                                   prepared=self.prepared,
-                                  probe_backend=self.plan.probe_backend)
+                                  probe_backend=self.plan.probe_backend,
+                                  device=engine.device)
              for sh in self.shards]
             if cfg.use_sip and self.plan.descend_backend != "numpy" else None)
         self.window = max(int(cfg.sip_lookahead), 1) if cfg.use_sip else 1

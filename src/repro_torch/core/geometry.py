@@ -106,3 +106,19 @@ def box_min_dist(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     dx = np.maximum(0.0, np.maximum(a[..., 0] - b[..., 2], b[..., 0] - a[..., 2]))
     dy = np.maximum(0.0, np.maximum(a[..., 1] - b[..., 3], b[..., 1] - a[..., 3]))
     return np.sqrt(dx * dx + dy * dy)
+
+
+def euclid_dist(p: np.ndarray, q: np.ndarray) -> np.ndarray:
+    d = p - q
+    return np.sqrt((d * d).sum(axis=-1))
+
+
+def haversine_km(p: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """Great-circle distance in km; p, q are (..., 2) [lon, lat] degrees."""
+    lon1, lat1 = np.radians(p[..., 0]), np.radians(p[..., 1])
+    lon2, lat2 = np.radians(q[..., 0]), np.radians(q[..., 1])
+    dlat = lat2 - lat1
+    dlon = lon2 - lon1
+    h = (np.sin(dlat / 2.0) ** 2
+         + np.cos(lat1) * np.cos(lat2) * np.sin(dlon / 2.0) ** 2)
+    return 2.0 * EARTH_RADIUS_KM * np.arcsin(np.sqrt(np.clip(h, 0.0, 1.0)))

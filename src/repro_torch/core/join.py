@@ -9,8 +9,9 @@ shares one machinery: `composite_keys` packs the `on` columns of both sides
 into order-isomorphic int64 scalars (arithmetic range packing, with a dense
 np.unique ranking fallback when the domain product would overflow), and the
 two-phase rank/gather core turns the rank pass into a single call on the
-`kernels/ops.merge_join_ranks` backend (numpy searchsorted in this slice of
-the port) followed by a CSR cumsum/repeat gather (`squadtree.csr_gather`).
+`kernels/ops.merge_join_ranks` backend (numpy searchsorted on the host, or
+the rank kernel on the engine's device) followed by a CSR cumsum/repeat
+gather (`squadtree.csr_gather`).
 
 Two bit-identical fast paths sit in front of the sort: relations carry
 `sorted_by` (index scans report their permutation-index order, join outputs
@@ -283,17 +284,19 @@ def _sort_with_perm(k: np.ndarray, scale: int) -> tuple[np.ndarray,
 
 
 def _ranks(table: np.ndarray, probes: np.ndarray,
-           backend: str | None, side: str = "both"):
+           backend: str | None, side: str = "both", device=None):
     """Insertion ranks of probes in the sorted table, via the dispatched
-    rank backend; side="both" -> (left, right), else the one bound."""
-    return ops.merge_join_ranks(table, probes, backend=backend, side=side)
+    rank backend (a kernel backend runs on `device`); side="both" ->
+    (left, right), else the one bound."""
+    return ops.merge_join_ranks(table, probes, backend=backend, side=side,
+                                device=device)
 
 
 def _member_sorted(table: np.ndarray, probes: np.ndarray,
-                   backend: str | None) -> np.ndarray:
+                   backend: str | None, device=None) -> np.ndarray:
     """Membership of probes in the sorted (not necessarily unique) table:
     one left-rank pass plus a gather-compare."""
-    lo = _ranks(table, probes, backend, side="left")
+    lo = _ranks(table, probes, backend, side="left", device=device)
     hit = table[np.minimum(lo, len(table) - 1)] == probes
     return hit  # lo == len(table) ⇒ probe > table[-1] ⇒ compare is False
 
@@ -315,14 +318,16 @@ def _cartesian(a: Relation, b: Relation) -> Relation:
 # ---------------------------------------------------------------------------
 
 def join(a: Relation, b: Relation, on: list[str] | None = None,
-         impl: str | None = None, backend: str | None = None) -> Relation:
+         impl: str | None = None, backend: str | None = None,
+         device=None) -> Relation:
     """Natural equi-join on shared variables (two-phase sort-merge).
 
     Phase 1 (rank/count): stable-sort both packed key arrays, then one
     backend call yields each probe row's [lo, hi) match range and CSR width
     `hi - lo`. Phase 2 (gather): cumsum/repeat materializes the matching
     (a-row, b-row) index pairs with static shapes and gathers the output
-    columns once. Output order is bit-identical to `join_looped`.
+    columns once. Output order is bit-identical to `join_looped`. A
+    kernel rank `backend` runs on `device`.
     """
     if on is None:
         on = sorted(set(a.keys()) & set(b.keys()))
@@ -355,7 +360,7 @@ def join(a: Relation, b: Relation, on: list[str] | None = None,
         _store_pack(b, on_t, params, scale, kbs, ob)
         sides = (kas, oa, kbs, ob)
     kas, oa, kbs, ob = sides
-    lo, hi = _ranks(kbs, kas, backend)
+    lo, hi = _ranks(kbs, kas, backend, device=device)
     cnt = hi - lo
     ia = np.repeat(np.arange(a.n), cnt)
     ib = csr_gather(lo, cnt)
@@ -443,7 +448,7 @@ def _expand_ranges(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
 
 def semijoin(a: Relation, b: Relation, on: list[str] | None = None,
              impl: str | None = None,
-             backend: str | None = None) -> Relation:
+             backend: str | None = None, device=None) -> Relation:
     """Rows of `a` that have at least one match in `b` (original order).
 
     Same machinery as `join`, but only the b side is sorted and a single
@@ -465,7 +470,7 @@ def semijoin(a: Relation, b: Relation, on: list[str] | None = None,
     else:
         ka, kb, _ = composite_keys(a, b, on)
         kbs = kb if b.sorted_by[:len(on_t)] == on_t else np.sort(kb)
-    out = a.take(np.flatnonzero(_member_sorted(kbs, ka, backend)))
+    out = a.take(np.flatnonzero(_member_sorted(kbs, ka, backend, device)))
     out.sorted_by = a.sorted_by  # flatnonzero keeps row order
     return out
 
@@ -496,7 +501,7 @@ def semijoin_looped(a: Relation, b: Relation,
 
 def filter_in_ranges(rel: Relation, col: str, intervals: np.ndarray,
                      explicit: np.ndarray, impl: str | None = None,
-                     backend: str | None = None) -> Relation:
+                     backend: str | None = None, device=None) -> Relation:
     """SIP filter (paper §3.2.2): keep rows whose `col` id lies in any I-Range
     interval or equals an E-list id. Intervals are closed [lo, hi] rows.
 
@@ -519,12 +524,12 @@ def filter_in_ranges(rel: Relation, col: str, intervals: np.ndarray,
         iv = intervals[np.argsort(intervals[:, 0])]
         starts = iv[:, 0]
         ends = np.maximum.accumulate(iv[:, 1])
-        pos = _ranks(starts, vals, backend, side="right") - 1
+        pos = _ranks(starts, vals, backend, side="right", device=device) - 1
         ok = pos >= 0
         keep[ok] = vals[ok] <= ends[np.clip(pos[ok], 0, len(ends) - 1)]
     if len(explicit):
         keep |= _member_sorted(np.asarray(explicit, dtype=np.int64), vals,
-                               backend)
+                               backend, device)
     out = rel.take(np.flatnonzero(keep))
     out.sorted_by = rel.sorted_by  # flatnonzero keeps row order
     return out

@@ -33,9 +33,9 @@ class BackendPolicy:
     - ``impl``:    relational join primitive — core/join.JOIN_IMPLS
                    ("auto" | "merge" | "looped")
     - ``rank``:    merge-join rank pass — kernels/ops.RANK_BACKENDS
-                   ("auto" | "numpy")
+                   ("auto" | "numpy" | "kernel")
     - ``probe``:   Bloom CS probes — charsets.PROBE_BACKENDS
-                   ("auto" | "numpy")
+                   ("auto" | "numpy" | "kernel")
     - ``descend``: Phase-1 candidate-node traversal —
                    squadtree.DESCEND_BACKENDS ("auto" | "numpy" | "kernel")
     - ``kcap``:    fused partial-width mode — KCAP_MODES ("fixed" | "auto")

@@ -32,6 +32,7 @@ import torch
 
 from ..kernels import ops
 from . import geometry, topk as topk_mod
+from .squadtree import csr_gather
 
 # Phase-3 MBR-join backend registry (see module docstring). "auto" resolves
 # to the dense numpy broadcast: the kernel path pays (M, N) materialization
@@ -416,3 +417,64 @@ def refine(pairs_i: np.ndarray, pairs_j: np.ndarray,
     if stats is not None:
         stats.refined += int(keep.sum())
     return keep
+
+
+def exact_pair_distance(pool, rows_a: np.ndarray, rows_b: np.ndarray,
+                        metric: str = "euclid",
+                        device: torch.device | str | None = None
+                        ) -> np.ndarray:
+    """Exact min distance per candidate pair, on the bucketed kernel path
+    on `device` (the query shapes' Phase-3 scoring)."""
+    return pool_min_dist(pool, rows_a, rows_b, metric, device)
+
+
+def _pool_gather(pool, rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(point indices, owning row segment) for the given pool rows."""
+    rows = np.asarray(rows, dtype=np.int64)
+    cnt = pool.counts(rows)
+    idx = csr_gather(pool.offsets[rows], cnt)
+    seg = np.repeat(np.arange(len(rows), dtype=np.int64), cnt)
+    return idx, seg
+
+
+def pool_points_in_box(pool, rows: np.ndarray, box) -> np.ndarray:
+    """Per pool row: does any exact point lie inside the CLOSED world box?
+
+    ``box`` is (xmin, ymin, xmax, ymax) in world units. The boundary counts
+    (consistent with `geometry.boxes_intersect`), and a zero-area box still
+    matches coincident points exactly. Exact — no MBR approximation.
+    """
+    rows = np.asarray(rows, dtype=np.int64)
+    out = np.zeros(len(rows), dtype=bool)
+    if len(rows) == 0:
+        return out
+    idx, seg = _pool_gather(pool, rows)
+    x = pool.points[idx, 0].astype(np.float64)
+    y = pool.points[idx, 1].astype(np.float64)
+    xmin, ymin, xmax, ymax = (float(box[0]), float(box[1]),
+                              float(box[2]), float(box[3]))
+    inb = (x >= xmin) & (x <= xmax) & (y >= ymin) & (y <= ymax)
+    np.logical_or.at(out, seg, inb)
+    return out
+
+
+def pool_point_min_dist(pool, rows: np.ndarray, point,
+                        metric: str = "euclid") -> np.ndarray:
+    """Exact min distance from each pool row's point set to a world point.
+
+    f64 throughout (over the pool's f32 coordinates), so coincident points
+    come back as exactly 0.0 — the within-distance selection shape scores
+    with this routine.
+    """
+    rows = np.asarray(rows, dtype=np.int64)
+    out = np.full(len(rows), np.inf, dtype=np.float64)
+    if len(rows) == 0:
+        return out
+    idx, seg = _pool_gather(pool, rows)
+    pts = pool.points[idx].astype(np.float64)
+    p = np.asarray(point, dtype=np.float64)
+    dist_fn = (geometry.haversine_km if metric == "haversine"
+               else geometry.euclid_dist)
+    d = dist_fn(pts, p[None, :])
+    np.minimum.at(out, seg, d)
+    return out

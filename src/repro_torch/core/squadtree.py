@@ -344,7 +344,8 @@ class SQuadTree:
         (`DESCEND_BACKENDS`): "numpy" runs the host frontier, "kernel" the
         fused descent on `device`, whose per-query root-path Bloom mask may
         be precomputed once via `cs_path_mask` and passed as `cs_path`. Both
-        routes give the same masks; the kernel route needs a `device`.
+        routes give the same masks; the kernel routes of the descent and of
+        the Bloom probes (`probe_backend`) run on `device`.
         """
         bank = {"self": self.bloom_self, "in": self.bloom_in,
                 "out": self.bloom_out}[which]
@@ -354,23 +355,26 @@ class SQuadTree:
         driven_cs = np.asarray(driven_cs, dtype=np.int64)
         if dback == "numpy":
             in_v = self._frontier(boxes, dist_norm, driven_cs, bank,
-                                  prepared, probe_backend)
+                                  prepared, probe_backend, device)
         elif not (len(boxes) and len(driven_cs) and boxes.shape[1]):
             in_v = np.zeros((len(boxes), self.n_nodes), dtype=bool)
         else:
             if cs_path is None:
                 cs_path = self.cs_path_mask(driven_cs, which=which,
                                             prepared=prepared,
-                                            probe_backend=probe_backend)
+                                            probe_backend=probe_backend,
+                                            device=device)
             in_v = self._descend(boxes, dist_norm, cs_path, device)
         return in_v[0] if single else in_v
 
     def _frontier(self, boxes: np.ndarray, dist_norm, driven_cs: np.ndarray,
                   bank: BloomBank, prepared: PreparedKeys | None,
-                  probe_backend: str | None) -> np.ndarray:
+                  probe_backend: str | None,
+                  device: torch.device | str | None) -> np.ndarray:
         """The batched level-synchronous frontier over one shared CS set.
 
         boxes (B, M, 4) NaN-padded; dist_norm scalar or per-block (B,).
+        A kernel `probe_backend` probes on `device`.
         """
         n_b = len(boxes)
         in_v = np.zeros((n_b, self.n_nodes), dtype=bool)
@@ -402,7 +406,7 @@ class SQuadTree:
                 # every block whose frontier reached it
                 uniq_nodes = np.unique(tn)
                 cs_hit = bank.contains_any_batch(uniq_nodes, prepared,
-                                                 probe_backend)
+                                                 probe_backend, device)
                 node_cs = cs_hit[np.searchsorted(uniq_nodes, tn)]
                 tboxes = expanded[tb, tx]                       # (T, 4)
                 hit = node_cs & geometry.boxes_intersect(
@@ -441,7 +445,8 @@ class SQuadTree:
 
     def cs_path_mask(self, driven_cs: np.ndarray, which: str = "self",
                      prepared: PreparedKeys | None = None,
-                     probe_backend: str | None = None) -> np.ndarray:
+                     probe_backend: str | None = None,
+                     device: torch.device | str | None = None) -> np.ndarray:
         """(N,) bool: the Bloom verdict ANDed down each node's root path.
 
         The fused descent's whole per-query Bloom contribution. Because
@@ -451,7 +456,8 @@ class SQuadTree:
         per-node verdict factorizes as ``geo_hit(n) & cs_path(n)``, with
         this mask the only part that depends on the query's CS set. One
         batch probe over all nodes plus a per-level parent AND (parents
-        precede children in the level sweep).
+        precede children in the level sweep). A kernel `probe_backend`
+        probes on `device`.
         """
         bank = {"self": self.bloom_self, "in": self.bloom_in,
                 "out": self.bloom_out}[which]
@@ -464,7 +470,7 @@ class SQuadTree:
                 or not np.array_equal(prepared.keys, driven_cs):
             prepared = bank.prepare(driven_cs)
         path = bank.contains_any_batch(np.arange(n, dtype=np.int64),
-                                       prepared, probe_backend)
+                                       prepared, probe_backend, device)
         for lvl in range(1, self.n_levels):
             nodes = self.level_nodes(lvl)
             path[nodes] &= path[self.node_parent[nodes]]

@@ -35,6 +35,9 @@ KERNELS = {
     "bucketed_min_core": ("bucketed_min_core_launch",
                           [_P, _P, _P, _I, _I, _I, _I, _P]),
     "tree_descend": ("tree_descend_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "bloom_probe": ("bloom_probe_launch", [_P, _P, _P, _L, _I, _I, _P]),
+    "merge_join_ranks": ("merge_join_ranks_launch",
+                         [_P, _P, _P, _P, _L, _L, _I, _P]),
 }
 
 _launchers: dict[str, object] = {}   # kernel name -> ctypes launcher

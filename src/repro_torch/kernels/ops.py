@@ -8,8 +8,9 @@ it runs the kernel's plain torch version from `ref.py`. Tensors on any other
 device raise. There is no fallback from the kernel to the plain version.
 
 The host-side helpers the kernel paths need (`f64_sort_keys`,
-`DESCEND_PAD_BOX`) and the merge-join rank pass, which this slice of the port
-runs in numpy only, live here too.
+`DESCEND_PAD_BOX`) and the rank-pass dispatch of the relational merge join
+(`merge_join_ranks`: numpy arrays in and out, numpy's searchsorted or the
+kernel on a device) live here too.
 """
 from __future__ import annotations
 
@@ -206,33 +207,110 @@ def tree_descend(node_keys: torch.Tensor, cs_path: torch.Tensor,
     return out
 
 
+# ------------------------------------------------------------ bloom probe --
+BLOOM_WORDS = (8, 16, 32)
+
+
+def bloom_probe(bits: torch.Tensor, keys: torch.Tensor, k: int
+                ) -> torch.Tensor:
+    """Bloom membership of keys[b] in the pre-gathered filter row bits[b]
+    (see csrc/bloom_probe.cu).
+
+    bits (B, W) uint32 (or int32 holding the uint32 bit patterns) words,
+    W in BLOOM_WORDS; keys (B,) int64; k >= 1 hash probes. Returns (B,)
+    bool: all k double-hashed bits set.
+    """
+    if not _on_cuda("bloom_probe", bits, keys):
+        return ref.bloom_probe_ref(bits, keys, k)
+    nb = keys.shape[0]
+    if bits.dim() != 2 or bits.shape[1] not in BLOOM_WORDS or k < 1:
+        raise ValueError(f"bloom_probe: rows {tuple(bits.shape)}, k={k}; "
+                         f"needs W in {BLOOM_WORDS} and k >= 1")
+    if bits.dtype == torch.uint32:
+        bits = bits.view(torch.int32)
+    _check("bloom_probe", bits, torch.int32, (nb, bits.shape[1]), 4)
+    _check("bloom_probe", keys, torch.int64, (nb,), 8)
+    out = torch.empty(nb, dtype=torch.bool, device=keys.device)
+    if nb:
+        _launch("bloom_probe", _ptr(bits), _ptr(keys), _ptr(out),
+                ctypes.c_longlong(nb), ctypes.c_int(bits.shape[1]),
+                ctypes.c_int(k))
+    return out
+
+
 # --------------------------------------------------- merge-join rank pass --
-# Rank-pass backends of the relational merge join (core/join.py). This slice
-# of the port runs numpy's searchsorted only; the CUDA `merge_join_ranks`
-# kernel is the next slice, so asking for "kernel" raises.
-RANK_BACKENDS = ("auto", "numpy")
+RANK_SIDES = {"left": 1, "right": 2, "both": 3}
+
+
+def insertion_ranks(table: torch.Tensor, probes: torch.Tensor,
+                    side: str = "both"):
+    """The merge-join rank kernel's wrapper (see csrc/merge_join_ranks.cu).
+
+    table (N,) sorted int64, probes (M,) int64. Returns int64 (M,) ranks:
+    ``lo = #{table < p}`` for side "left", ``hi = #{table <= p}`` for
+    "right", (lo, hi) for "both". An empty table or empty probes give zeros
+    without a launch.
+    """
+    if side not in RANK_SIDES:
+        raise ValueError(f"unknown rank side {side!r}")
+    if not _on_cuda("merge_join_ranks", table, probes):
+        return ref.merge_join_ranks_ref(table, probes, side)
+    n, m = table.shape[0], probes.shape[0]
+    _check("merge_join_ranks", table, torch.int64, (n,), 8)
+    _check("merge_join_ranks", probes, torch.int64, (m,), 8)
+    if n >= 1 << 31:
+        raise ValueError(f"merge_join_ranks: table of {n} rows exceeds 2^31")
+    alloc = torch.zeros if n == 0 else torch.empty
+    outs = [alloc(m, dtype=torch.int64, device=probes.device)
+            for _ in range(2 if side == "both" else 1)]
+    if n and m:
+        # one-sided: the kernel writes only the asked bound, into outs[0]
+        _launch("merge_join_ranks", _ptr(table), _ptr(probes),
+                _ptr(outs[0]), _ptr(outs[-1]), ctypes.c_longlong(n),
+                ctypes.c_longlong(m), ctypes.c_int(RANK_SIDES[side]))
+    return tuple(outs) if side == "both" else outs[0]
+
+
+# Rank-pass backends of the relational merge join (core/join.py): "numpy"
+# is numpy's searchsorted on the host; "kernel" runs `insertion_ranks` on
+# the engine's device (the CUDA kernel on CUDA, its plain torch version on
+# the CPU). "auto" resolves to the kernel when CUDA is available, numpy
+# otherwise.
+RANK_BACKENDS = ("auto", "numpy", "kernel")
 
 
 def resolve_rank_backend(backend: str | None) -> str:
     b = backend or "auto"
-    if b == "kernel":
-        raise ValueError("the merge_join_ranks kernel is not ported yet "
-                         "(next slice of the port); use rank='numpy'")
     if b not in RANK_BACKENDS:
         raise ValueError(f"unknown merge-join rank backend {b!r}")
-    return "numpy"
+    if b != "auto":
+        return b
+    return "kernel" if torch.cuda.is_available() else "numpy"
 
 
 def merge_join_ranks(table: np.ndarray, probes: np.ndarray,
-                     backend: str | None = None, side: str = "both"):
+                     backend: str | None = None, side: str = "both",
+                     device: torch.device | str | None = None):
     """Insertion ranks of `probes` in the sorted int64 `table`: with
     side="both" returns (lo, hi) int64 where lo = searchsorted-left and
-    hi = searchsorted-right; side="left"/"right" returns that bound only."""
-    if side not in ("both", "left", "right"):
+    hi = searchsorted-right; side="left"/"right" returns that bound only.
+
+    numpy arrays in and out. The "kernel" backend uploads both arrays to
+    `device`, runs `insertion_ranks` there and copies the ranks back."""
+    if side not in RANK_SIDES:
         raise ValueError(f"unknown rank side {side!r}")
-    resolve_rank_backend(backend)
+    backend = resolve_rank_backend(backend)
     table = np.asarray(table, dtype=np.int64)
     probes = np.asarray(probes, dtype=np.int64)
+    if backend == "kernel":
+        if device is None:
+            raise ValueError("the kernel rank backend needs a device")
+        out = insertion_ranks(
+            torch.from_numpy(np.ascontiguousarray(table)).to(device),
+            torch.from_numpy(np.ascontiguousarray(probes)).to(device), side)
+        if side != "both":
+            return out.cpu().numpy()
+        return out[0].cpu().numpy(), out[1].cpu().numpy()
     if side != "both":
         return np.searchsorted(table, probes, side)
     return (np.searchsorted(table, probes, "left"),

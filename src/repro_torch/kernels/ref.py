@@ -105,3 +105,58 @@ def tree_descend_ref(node_keys: torch.Tensor, cs_path: torch.Tensor,
                & (ny0 <= bx[:, 3:4]) & (bx[:, 1:2] <= ny3))
         out[bi] = hit.any(dim=0) & cs_path
     return out
+
+
+# ------------------------------------------------------------ bloom probe --
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor, seed: int) -> torch.Tensor:
+    """The 32-bit murmur3 finalizer of `core/charsets.mix32` on int64
+    tensors holding uint32 values. torch's CPU uint32 has no shift, add or
+    modulo, so every add and multiply runs in int64 and is masked back to
+    32 bits: the low 32 bits of a wrapped int64 product are exact."""
+    x = (x + ((0x9E3779B9 * (seed + 1)) & _M32)) & _M32
+    x = x ^ (x >> 16)
+    x = (x * 0x85EBCA6B) & _M32
+    x = x ^ (x >> 13)
+    x = (x * 0xC2B2AE35) & _M32
+    return x ^ (x >> 16)
+
+
+def bloom_positions(keys: torch.Tensor, k: int, nbits: int) -> torch.Tensor:
+    """(B, k) int64 bit positions ``(h1 + i*h2) mod nbits`` of int64 keys,
+    with ``h1 = hash32(key, 0)`` and ``h2 = hash32(key, 1) | 1`` and the
+    sum wrapped to 32 bits, as `core/charsets.BloomBank` places them."""
+    lo = keys & _M32
+    hi = (keys >> 32) & _M32
+    h1 = _mix32(lo ^ _mix32(hi, 7), 0)
+    h2 = _mix32(lo ^ _mix32(hi, 8), 1) | 1
+    i = torch.arange(k, dtype=torch.int64, device=keys.device)
+    return ((h1[:, None] + i[None, :] * h2[:, None]) & _M32) % nbits
+
+
+def bloom_probe_ref(bits: torch.Tensor, keys: torch.Tensor, k: int
+                    ) -> torch.Tensor:
+    """Bloom membership of keys[b] in the pre-gathered filter row bits[b].
+
+    bits (B, W) int32 or uint32 words (the uint32 bit patterns), keys (B,)
+    int64. Returns (B,) bool: all k double-hashed bits set."""
+    words = bits.view(torch.int32).to(torch.int64) & _M32
+    pos = bloom_positions(keys, k, words.shape[1] * 32)
+    word = torch.gather(words, 1, pos // 32)
+    return ((word >> (pos % 32)) & 1).bool().all(dim=1)
+
+
+# --------------------------------------------------- merge-join rank pass --
+def merge_join_ranks_ref(table: torch.Tensor, probes: torch.Tensor,
+                         side: str = "both"):
+    """Insertion ranks of int64 probes in the sorted int64 table:
+    ``lo = #{table < p}`` (side "left"), ``hi = #{table <= p}`` (side
+    "right"); side "both" returns (lo, hi). int64 (M,) outputs."""
+    if side == "left":
+        return torch.searchsorted(table, probes, side="left")
+    if side == "right":
+        return torch.searchsorted(table, probes, side="right")
+    return (torch.searchsorted(table, probes, side="left"),
+            torch.searchsorted(table, probes, side="right"))

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each one bit-identical to its plain
 torch version, launch counts that move only on a kernel launch, and the
-engine on CUDA answering exactly as on the CPU.
+engine on CUDA answering exactly as on the CPU, top-k queries and the
+Geographica shapes alike.
 
 Every test here needs an NVIDIA GPU and nvcc; elsewhere they skip. On the
 card: ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -11,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import BackendPolicy, ExecConfig, StreakEngine
+import repro_torch
+from repro_torch import BackendPolicy, ExecConfig, StreakEngine, Var
 from repro_torch.data import synth_rdf
 from repro_torch.kernels import ops, ref
 
@@ -99,11 +101,75 @@ def test_launch_counts_move_only_on_kernel_launches(dev):
         ops.distance_join(a.t().contiguous().t(), b)
 
 
+@pytest.mark.parametrize("w", [8, 16, 32])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_bloom_probe_kernel_matches_plain(dev, w, k):
+    from repro_torch.core.charsets import BloomBank
+    rng = np.random.default_rng(5)
+    bank = BloomBank.empty(64, words=w, k=k)
+    ins = rng.integers(0, 1 << 62, 500, dtype=np.int64)
+    ins_f = rng.integers(0, 64, 500)
+    bank.add(ins_f, ins)
+    keys = np.concatenate([ins, rng.integers(-(1 << 63), -1, 777,
+                                             dtype=np.int64)])
+    fi = np.concatenate([ins_f, rng.integers(0, 64, 777)])
+    rows = torch.from_numpy(bank.bits[fi]).to(dev)
+    kt = torch.from_numpy(keys).to(dev)
+    got = ops.bloom_probe(rows, kt, k)
+    _equal([got], [ref.bloom_probe_ref(rows, kt, k)])
+    assert bool(got[:500].all())
+
+
+def test_bloom_probe_kernel_rejects_unsupported_rows(dev):
+    keys = torch.zeros(4, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="W in"):
+        ops.bloom_probe(torch.zeros((4, 12), dtype=torch.int32,
+                                    device=dev), keys, 3)
+    with pytest.raises(ValueError, match="k >= 1"):
+        ops.bloom_probe(torch.zeros((4, 8), dtype=torch.int32,
+                                    device=dev), keys, 0)
+
+
+@pytest.mark.parametrize("side", ["both", "left", "right"])
+@pytest.mark.parametrize("n,m", [(1, 1), (2, 300), (1000, 33),
+                                 (4097, 4096), (100_003, 7)])
+def test_rank_kernel_matches_plain(dev, n, m, side):
+    rng = np.random.default_rng(n + m)
+    table = np.sort(np.repeat(rng.integers(-(1 << 40), 1 << 40, n),
+                              rng.integers(1, 4, n))[:n])
+    probes = rng.integers(-(1 << 41), 1 << 41, m)
+    probes[: m // 2] = rng.choice(table, m // 2)
+    t = torch.from_numpy(table).to(dev)
+    p = torch.from_numpy(probes).to(dev)
+    got = ops.insertion_ranks(t, p, side)
+    want = ref.merge_join_ranks_ref(t, p, side)
+    _equal(got if side == "both" else [got],
+           want if side == "both" else [want])
+
+
+def test_rank_kernel_empty_inputs_launch_nothing(dev):
+    ops.reset_launch_counts()
+    empty = torch.empty(0, dtype=torch.int64, device=dev)
+    probes = torch.arange(5, dtype=torch.int64, device=dev)
+    lo, hi = ops.insertion_ranks(empty, probes)
+    assert not lo.any() and not hi.any() and lo.shape == (5,)
+    assert ops.insertion_ranks(probes, empty, "left").shape == (0,)
+    lo, hi = ops.merge_join_ranks(np.array([], np.int64), np.array([2, 9]),
+                                  backend="kernel", device=dev)
+    assert lo.tolist() == [0, 0] and hi.tolist() == [0, 0]
+    assert ops.LAUNCHES["merge_join_ranks"] == 0
+    lo, hi = ops.merge_join_ranks(np.arange(4), np.array([2, 9]),
+                                  backend="kernel", device=dev)
+    assert lo.tolist() == [2, 4] and hi.tolist() == [3, 4]
+    assert ops.LAUNCHES["merge_join_ranks"] == 1
+
+
 @pytest.mark.parametrize("join", ["fused", "kernel"])
-def test_engine_on_cuda_equals_cpu(dev, join):
+@pytest.mark.parametrize("probe_rank", ["numpy", "kernel"])
+def test_engine_on_cuda_equals_cpu(dev, join, probe_rank):
     ds = synth_rdf.make_lgd(n_per_class=300, seed=0)
     cfg = ExecConfig(policy=BackendPolicy(
-        join=join, descend="kernel", probe="numpy", rank="numpy"))
+        join=join, descend="kernel", probe=probe_rank, rank=probe_rank))
     ops.reset_launch_counts()
     for q in ds.queries:
         got = StreakEngine(ds.store, cfg).execute(q)
@@ -116,3 +182,49 @@ def test_engine_on_cuda_equals_cpu(dev, join):
     assert ops.LAUNCHES["bucketed_min_core"] > 0
     assert ops.LAUNCHES["fused_topk_join" if join == "fused"
                         else "distance_join"] > 0
+    for name in ("bloom_probe", "merge_join_ranks"):
+        assert (ops.LAUNCHES[name] > 0) == (probe_rank == "kernel")
+
+
+SHAPE_FILTERS = {      # hotels <-> parks, as in tests/test_torch_shapes.py
+    "range": dict(b=None, window=(15.0, 10.0, 70.0, 60.0)),
+    "within": dict(b=None, dist=18.0, center=(50.0, 30.0)),
+    "join": dict(b=Var("g2"), dist=5.0),
+    "knn4": dict(b=Var("g2"), knn=4),
+    "knn_over": dict(b=Var("g2"), knn=10 ** 7),
+}
+
+
+def _shape_query(ds, name):
+    ns, TP = ds.ns, repro_torch.TriplePattern
+    pa, pb = Var("place"), Var("nplace")
+    patterns = (
+        TP(pa, Var("typePred1"), ns["class:hotel"], g=Var("r")),
+        TP(Var("r"), ns["hasConfidence"], Var("conf")),
+        TP(pa, ns["hasGeometry"], Var("g1")),
+        TP(pb, Var("typePred2"), ns["class:park"], g=Var("r1")),
+        TP(Var("r1"), ns["hasConfidence"], Var("conf1")),
+        TP(pb, ns["hasGeometry"], Var("g2")))
+    return repro_torch.Query(
+        select=(pa, pb), patterns=patterns, ranking=None,
+        spatial=repro_torch.SpatialFilter(Var("g1"), **SHAPE_FILTERS[name]))
+
+
+@pytest.mark.parametrize("join", ["fused", "kernel", "numpy"])
+def test_shapes_on_cuda_equal_cpu(dev, join):
+    ds = synth_rdf.make_lgd(n_per_class=300, seed=0)
+    cfg = ExecConfig(policy=BackendPolicy(
+        join=join, descend="kernel", probe="kernel", rank="kernel"))
+    ops.reset_launch_counts()
+    for name in SHAPE_FILTERS:
+        q = _shape_query(ds, name)
+        got = StreakEngine(ds.store, cfg).execute(q)
+        want = StreakEngine(ds.store, cfg, device="cpu").execute(q)
+        np.testing.assert_array_equal(got[0], want[0])
+        assert sorted(got[1].keys()) == sorted(want[1].keys())
+        for c in want[1].keys():
+            np.testing.assert_array_equal(got[1][c], want[1][c])
+        assert dataclasses.asdict(got[2]) == dataclasses.asdict(want[2])
+    for name in ("tree_descend", "bloom_probe", "merge_join_ranks",
+                 "bucketed_min_core"):
+        assert ops.LAUNCHES[name] > 0

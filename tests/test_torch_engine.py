@@ -1,13 +1,15 @@
 """Port vs reference, end to end: the same query over the same data gives
 the same answer, row order, plan log and statistics.
 
-Both engines run the slice's policy (probe and rank on numpy, merge joins,
-fixed partial width) with the Phase-3 join and the Phase-1 descent as the
-axes; the port runs on ``device="cpu"``, where its kernel backends run their
-plain torch versions. Each case runs over the port's own build and over
-`repro_torch.interop.store_from_state` of the reference store. This file
-covers the quickstart workload and the numpy join; `test_torch_engine_fused`
-and `test_torch_engine_kernel` cover the other joins on make_lgd.
+Both engines run one policy (merge joins, fixed partial width; probe and
+rank on numpy unless a test asks for their kernels) with the Phase-3 join
+and the Phase-1 descent as the axes; the port runs on ``device="cpu"``,
+where its kernel backends run their plain torch versions. Each case runs
+over the port's own build and over `repro_torch.interop.store_from_state`
+of the reference store. This file covers the quickstart workload and the
+numpy join; `test_torch_engine_fused` and `test_torch_engine_kernel` cover
+the other joins on make_lgd, `test_torch_engine_probe_rank` the Bloom-probe
+and rank kernels.
 """
 import dataclasses
 import pathlib
@@ -29,10 +31,12 @@ QUICKSTART = pathlib.Path(__file__).resolve().parents[1] / "examples" \
 
 
 def run(pkg, store, q, join, descend, block=None, impl="merge",
-        **engine_kw):
-    """(scores, rows, stats) of one query under the slice policy."""
-    cfg = dict(policy=pkg.BackendPolicy(join=join, descend=descend,
-                                        **dict(SLICE_POLICY, impl=impl)))
+        probe_rank="numpy", **engine_kw):
+    """(scores, rows, stats) of one query; `probe_rank` names the backend
+    of both the Bloom probes and the rank pass."""
+    cfg = dict(policy=pkg.BackendPolicy(
+        join=join, descend=descend,
+        **dict(SLICE_POLICY, impl=impl, probe=probe_rank, rank=probe_rank)))
     if block is not None:
         cfg["block"] = block
     return pkg.StreakEngine(store, pkg.ExecConfig(**cfg), **engine_kw) \
@@ -59,14 +63,15 @@ class Workload:
                        "state": store_from_state(state_of(ref_ds.store))}
         self._answers = {}
 
-    def check(self, join, descend, qi, store, impl="merge"):
-        key = (join, descend, qi, impl)
+    def check(self, join, descend, qi, store, impl="merge",
+              probe_rank="numpy"):
+        key = (join, descend, qi, impl, probe_rank)
         if key not in self._answers:
             self._answers[key] = run(repro, self.ref.store,
                                      self.ref.queries[qi], join, descend,
-                                     self.block, impl)
+                                     self.block, impl, probe_rank)
         got = run(repro_torch, self.stores[store], self.port.queries[qi],
-                  join, descend, self.block, impl, device="cpu")
+                  join, descend, self.block, impl, probe_rank, device="cpu")
         assert_same_answer(got, self._answers[key])
 
 

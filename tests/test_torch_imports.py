@@ -2,8 +2,8 @@
 
 `repro_torch` and `chip_smoke.py` import neither JAX nor the reference
 package; the engine runs on CUDA unless the caller asks for the CPU and
-raises when CUDA is missing; stages whose kernels are not ported yet refuse
-a kernel backend instead of quietly running numpy.
+raises when CUDA is missing; backends the port does not have (the
+reference's interpret and jitted-CPU routes) are refused by name.
 """
 import pathlib
 import subprocess
@@ -62,27 +62,39 @@ def test_engine_defaults_to_cuda_and_raises_without_it(tiny, monkeypatch):
 
 @pytest.mark.parametrize("stage", ["probe", "rank"])
 def test_unported_kernel_backends_raise(stage):
-    with pytest.raises(ValueError, match="not ported yet"):
-        ExecConfig(policy=BackendPolicy(**{stage: "kernel"}))
-    with pytest.raises(ValueError, match="unknown"):
-        ExecConfig(policy=BackendPolicy(**{stage: "interpret"}))
+    """The reference's interpret-mode and jitted-CPU routes are not ported
+    and raise; the kernel backend resolves as itself."""
+    pol = ExecConfig(policy=BackendPolicy(**{stage: "kernel"})).policy
+    assert getattr(pol, stage) == "kernel"
+    for unported in ("interpret", "cpu"):
+        with pytest.raises(ValueError, match="unknown"):
+            ExecConfig(policy=BackendPolicy(**{stage: unported}))
 
 
 def test_auto_policy_resolves_like_the_reference(monkeypatch):
-    for cuda, descend in ((True, "kernel"), (False, "numpy")):
+    """"auto" takes the kernels where the accelerator is, numpy elsewhere,
+    for the descent, the Bloom probes and the rank pass alike."""
+    for cuda, kern in ((True, "kernel"), (False, "numpy")):
         monkeypatch.setattr(torch.cuda, "is_available", lambda c=cuda: c)
         pol = BackendPolicy().resolve()
         assert (pol.join, pol.impl, pol.rank, pol.probe, pol.descend) == \
-            ("numpy", "merge", "numpy", "numpy", descend)
+            ("numpy", "merge", kern, kern, kern)
 
 
 def test_non_topk_shapes_are_not_ported(tiny):
+    """Non-top-k shapes run through a `ShapeCursor`; what is not ported is
+    its serving half (`begin_block`), which comes with the serve loop."""
     q = tiny.queries[0]
     join_q = type(q)(select=q.select, patterns=q.patterns, spatial=q.spatial,
                      ranking=None, k=q.k)
     eng = StreakEngine(tiny.store, device="cpu")
-    with pytest.raises(NotImplementedError, match="'join'"):
-        eng.execute(join_q)
+    cur = eng.cursor(join_q)
+    assert type(cur).__name__ == "ShapeCursor"
+    assert not hasattr(cur, "begin_block")
+    scores, rows, stats = eng.execute(join_q)
+    assert stats.plan_log and set(stats.plan_log) == {"S"}
+    assert all(len(v) == len(scores) for v in rows.values())
+    assert np.isfinite(scores).all() and (scores >= 0).all()
 
 
 def test_public_surface_is_a_subset_of_the_reference():
