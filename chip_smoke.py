@@ -7,31 +7,45 @@ Needs one CUDA device, the CUDA toolkit (nvcc) and this checkout's `src/`.
 In order it:
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the six CUDA kernels of `src/repro_torch/csrc/` and prints the
+2. builds the nine CUDA kernels of `src/repro_torch/csrc/` and prints the
    build time and each kernel's ptxas register and shared-memory use;
 3. holds each kernel against its plain torch version on the card, at the
-   shapes the main path gives it, and requires bit-identical output; times
+   shapes the main path gives it: bit-identical output for the STREAK
+   kernels, `block_scan` and `morton_encode`, the reference's tolerances
+   (f32 2e-4, bf16 5e-2) for `flash_attention` (gemma-7b's prefill shape
+   and a sweep of GQA/MHA/MQA heads, dtypes, masks and lengths); times
    both per call with CUDA events (`ms`, `plain_ms`: the wrapper's host
    overhead included), the kernel alone from a torch.profiler trace
    (`device_ms`), one PyTorch call computing the same function where
-   there is one (`library_ms`), and computes the kernel's bound (bytes
-   over the memory rate or operations over the scalar rate, the larger);
+   there is one (`library_ms`, its device time), and computes the
+   kernel's bound (bytes over the memory rate or operations over the
+   f32 or bf16 rate, the larger);
 4. drives the main path — `StreakEngine.execute` on `device="cuda"`, top-k
    spatial distance joins over `make_lgd(n_per_class=6000)` (Q1-Q8) and
    `make_scale(1_000_000)` (Q1-Q2) with the fused Phase-3 join, then both
    with the matrix join, under the accelerator policy (every stage on its
    kernel) — with the launch counts set to 0 just before and read just
-   after, requires every kernel to have launched, and requires every
-   answer, plan log and statistic to equal a `device="cpu"` run;
+   after, requires every STREAK kernel to have launched, and requires
+   every answer, plan log and statistic to equal a `device="cpu"` run;
 5. drives the second entry point the same way: the Geographica shapes
    over the LGD data, spatial join and kNN under both joins, range and
    within (which never reach the Phase-3 join) under one, each equal to its
-   `device="cpu"` run, every kernel launched;
-6. times LGD Q1-Q8 with the Bloom probes and the rank pass on numpy and on
+   `device="cpu"` run, every STREAK kernel launched;
+6. calls the reference's kernel entry points `ops.block_scan` (64 x 1024)
+   and `ops.morton_encode` (1M codes), counts set to 0 before;
+7. drives the dense-LM serving stack at gemma-7b's full width and depth
+   (random bf16 weights from a seed, 8.54 B parameters): the 4,096-token
+   prefill through `forward_with_cache` with the flash kernel (28 launches
+   a call), held against the plain path and `forward` + `logits_fn`, with
+   an fp8-attention control that the tolerance must reject; then
+   `ServeEngine` on the launcher's requests, request 0's decode logits held
+   against the full forward over its prefix; then the three dense smoke
+   configs (f32) on the card against the CPU;
+8. times LGD Q1-Q8 with the Bloom probes and the rank pass on numpy and on
    their kernels, in turns, and traces one more pass of each query set on
    the card: host ms per executor layer, device busy ms and the device's
    idle share;
-7. prints the kernels line (JSON), then the ok line (JSON) last.
+9. prints the kernels line (JSON), then the ok line (JSON) last.
 
 Any failed phase raises, so the script exits non-zero without the ok line.
 """
@@ -41,6 +55,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import pathlib
 import subprocess
@@ -55,6 +70,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # the tensor cores (f32; the integer kernels are held to the same rate)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12         # dense, tensor cores
 # the reference's accelerator policy: every stage on its kernel
 SLICE_POLICY = dict(probe="kernel", rank="kernel", impl="merge",
                     kcap="fixed", descend="kernel")
@@ -67,12 +83,29 @@ REPLACES = {
     "tree_descend": "src/repro/kernels/tree_descend.py:75",
     "bloom_probe": "src/repro/kernels/bloom_probe.py:54",
     "merge_join_ranks": "src/repro/kernels/merge_join.py:106",
+    "block_scan": "src/repro/kernels/block_scan.py:27",
+    "morton_encode": "src/repro/kernels/morton_kernel.py:31",
+    "flash_attention": "src/repro/kernels/flash_attention.py:76",
 }
+STREAK_KERNELS = ("fused_topk_join", "distance_join", "bucketed_min_core",
+                  "tree_descend", "bloom_probe", "merge_join_ranks")
+OPS_KERNELS = ("block_scan", "morton_encode")
+# the reference's flash-attention tolerances (tests/test_kernels.py), held
+# as a floor: max |got - want| of at most these
+FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+# In bf16 every element is also held to |got - want| <= 2^-7 |want| + 1e-3.
+# The kernel and the plain version both compute in f32 from the same bf16
+# operands and round once to bf16, so they may differ by one rounding step,
+# at most 2^-7 |want|; 1e-3 covers the f32 sums' order near zero. Where a
+# row averages over ~2,000 keys, |o| ~ 0.04 and 5e-2 alone would pass a
+# kernel that dropped a kv tile (the planted faults in check_flash).
+FLASH_BF16_RTOL, FLASH_BF16_ATOL = 2 ** -7, 1e-3
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -91,18 +124,26 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, symbol: str, reps: int = 20) -> float | None:
-    """Mean device time of the kernels named `symbol` per call of `fn`, from
-    a torch.profiler trace; None when the trace holds no such kernel."""
+def device_ms(fn, symbol: str | None = None, reps: int = 20,
+              cold_l2: bool = False) -> float | None:
+    """Mean device time per call of `fn` of the kernels whose name holds
+    `symbol` (of everything `fn` runs on the device when None), from a
+    torch.profiler trace; None when the trace holds no such kernel. With
+    `cold_l2`, 64 MB are written before each call, so that `fn`'s inputs
+    come from device memory and not from the 50 MB L2 (needs `symbol`)."""
     from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda") \
+        if cold_l2 else None
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if flush is not None:
+                flush.zero_()
             fn()
         torch.cuda.synchronize()
-    total_us = sum(getattr(e, "device_time_total", 0.0)
-                   for e in prof.key_averages() if symbol in e.key)
+    total_us = sum(stop - start for start, stop, name in device_spans(prof)
+                   if symbol is None or symbol in name)
     return total_us / reps / 1e3 if total_us else None
 
 
@@ -368,9 +409,12 @@ def check_merge_join_ranks(ops, ref, dev, entry, cases):
         dms = device_ms(lambda: ops.insertion_ranks(table, probes),
                         "merge_join_ranks_kernel")
         plain = time_ms(lambda: ref.merge_join_ranks_ref(table, probes), 5)
-        lib = time_ms(lambda: (torch.searchsorted(table, probes, side="left"),
-                               torch.searchsorted(table, probes,
-                                                  side="right")), 20)
+        def library():
+            return (torch.searchsorted(table, probes, side="left"),
+                    torch.searchsorted(table, probes, side="right"))
+        # the library's device time, like the kernel's device_ms
+        lib = device_ms(library)
+        lib_call = time_ms(library, 20)
         # probes read and both ranks written once, each distinct table word
         # that this run's searches reach read once; ~4 integer operations
         # per search step, two searches per probe
@@ -379,11 +423,206 @@ def check_merge_join_ranks(ops, ref, dev, entry, cases):
         cases.append(dict(kernel="merge_join_ranks", N=n, M=m, side="both",
                           table_words=words, table_sectors=sectors,
                           ms=ms, device_ms=dms, plain_ms=plain,
-                          library_ms=lib, bound_ms=bnd, bound_by=by))
+                          library_ms=lib, library_call_ms=lib_call,
+                          bound_ms=bnd, bound_by=by))
         if m == 4096:
             entry.update(shape=f"N={n} M={m} side=both", max_abs_err=0.0,
                          ms=ms, device_ms=dms, plain_ms=plain,
-                         library_ms=lib, bound_ms=bnd, bound_by=by)
+                         library_ms=lib, library_call_ms=lib_call,
+                         bound_ms=bnd, bound_by=by)
+
+
+def check_block_scan(ops, ref, dev, entry, cases):
+    """The benchmark's shape (64 x 1024, benchmarks/bench_kernels.py:47) and
+    4096 x 4096, theta -1e30 (every score survives) and 0.5; bit-exact."""
+    rng = np.random.default_rng(7)
+    for nb, bsz in ((64, 1024), (4096, 4096)):
+        s = torch.from_numpy(rng.normal(0.5, 0.5, (nb, bsz))
+                             .astype(np.float32)).to(dev)
+        for theta in (-1e30, 0.5):
+            require_equal(f"block_scan {nb}x{bsz} theta={theta}",
+                          ops.block_scan(s, theta),
+                          ref.block_scan_ref(s, theta))
+        ms = time_ms(lambda: ops.block_scan(s, 0.5), 50)
+        dms = device_ms(lambda: ops.block_scan(s, 0.5), "block_scan_kernel",
+                        cold_l2=True)
+        plain = time_ms(lambda: ref.block_scan_ref(s, 0.5), 10)
+        # scores read once, the mask byte and 8 bytes a row written once
+        bnd, by = bound_ms(nb * bsz * 5 + nb * 8, nb * bsz * 3)
+        cases.append(dict(kernel="block_scan", nb=nb, B=bsz, ms=ms,
+                          device_ms=dms, plain_ms=plain, bound_ms=bnd,
+                          bound_by=by))
+        if nb == 64:
+            entry.update(shape=f"nb={nb} B={bsz}", max_abs_err=0.0, ms=ms,
+                         device_ms=dms, plain_ms=plain, bound_ms=bnd,
+                         bound_by=by, library_note="no single PyTorch call "
+                         "gives row max, count and mask together")
+
+
+def morton_inputs(dev, n: int = 1 << 20):
+    """n int32 coordinate pairs: 0, 0xFFFF, bit-15 (sign-bit code) cases
+    and negative inputs (masked to 16 bits) first, then random ones."""
+    rng = np.random.default_rng(8)
+    cx = rng.integers(-(1 << 31), (1 << 31) - 1, n).astype(np.int32)
+    cy = rng.integers(0, 1 << 16, n).astype(np.int32)
+    edge = [(0, 0), (0xFFFF, 0), (0, 0xFFFF), (0xFFFF, 0xFFFF),
+            (0x8000, 0x8000), (0, 0x8000), (-1, -1), (-(1 << 31), 0x7FFF)]
+    cx[:len(edge)], cy[:len(edge)] = zip(*edge)
+    return torch.from_numpy(cx).to(dev), torch.from_numpy(cy).to(dev)
+
+
+def check_morton(ops, ref, dev, entry):
+    x, y = morton_inputs(dev)
+    n = x.shape[0]
+    got = ops.morton_encode(x, y)
+    require_equal("morton_encode 1M", [got], [ref.morton_ref(x, y)])
+    if got[:4].tolist() != [0, 0x55555555, -0x55555556, -1]:
+        raise AssertionError(f"morton_encode edge codes {got[:4].tolist()}")
+    if not bool((got < 0).any()):
+        raise AssertionError("morton_encode: no sign-bit code")
+    bnd, by = bound_ms(n * 12, n * 16)
+    entry.update(
+        shape=f"n={n}", max_abs_err=0.0,
+        ms=time_ms(lambda: ops.morton_encode(x, y), 50),
+        device_ms=device_ms(lambda: ops.morton_encode(x, y),
+                            "morton_encode_kernel", cold_l2=True),
+        plain_ms=time_ms(lambda: ref.morton_ref(x, y), 10),
+        bound_ms=bnd, bound_by=by,
+        library_note="no PyTorch call interleaves bits")
+
+
+def _qkv(dev, dtype, b, hq, hkv, s, d, seed=0):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return [torch.randn((b, h, s, d), generator=g, device=dev).to(dtype)
+            for h in (hq, hkv, hkv)]
+
+
+def flash_bound(q, k, causal: bool) -> tuple[float, str]:
+    """q/k/v read and o written once; 4*B*Hq*S^2*D operations, halved when
+    causal; at the bf16 tensor-core rate or the f32 rate by the dtype."""
+    b, hq, s, d = q.shape
+    n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    n_ops = 4 * b * hq * s * s * d / (2 if causal else 1)
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    return bound_ms(n_bytes, n_ops, rate)
+
+
+def flash_errors(got, want) -> tuple[float, float]:
+    """(max |got - want|, max |got - want| / (2^-7 |want| + 1e-3)); the
+    second is at most 1 within the bf16 limit."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    return (float(diff.max()), float((diff / (
+        FLASH_BF16_RTOL * w.abs() + FLASH_BF16_ATOL)).max()))
+
+
+def require_flash(label: str, got, want) -> tuple[float, float]:
+    """The reference's tolerance, and in bf16 the elementwise limit."""
+    err, excess = flash_errors(got, want)
+    if not err <= FLASH_TOL[want.dtype]:
+        raise AssertionError(f"flash_attention {label}: max abs err {err} "
+                             f"> {FLASH_TOL[want.dtype]}")
+    if want.dtype == torch.bfloat16 and not excess <= 1:
+        raise AssertionError(
+            f"flash_attention {label}: an element is {excess:.3g}x its "
+            f"limit 2^-7 |want| + {FLASH_BF16_ATOL}")
+    return err, excess
+
+
+def check_flash(ops, ref, dev, entry, cases):
+    """The LM prefill's shape (gemma-7b: B=1, Hq=Hkv=16, S=4096, D=256,
+    bf16, causal), in f32 too, then a sweep: nemotron's GQA (48/8, D=128),
+    codeqwen's MHA (32/32, D=128), MQA (16/1, D=256) and gemma's heads at S
+    = 128, 256, 1024 (nemotron also 2048), f32 and bf16, causal and not;
+    each against the plain version within the reference's tolerance and,
+    in bf16, within 2^-7 |want| + 1e-3 elementwise. Two planted faults at
+    the prefill shape, computed by the plain version, must fail the bf16
+    limit: the last kv tile (32 keys) skipped, and q, k, v rounded to fp8
+    (e4m3)."""
+    import torch.nn.functional as F
+    sweep = [(name, hq, hkv, d, s)
+             for name, hq, hkv, d in (("nemotron", 48, 8, 128),
+                                      ("codeqwen", 32, 32, 128),
+                                      ("mqa", 16, 1, 256),
+                                      ("gemma", 16, 16, 256))
+             for s in (128, 256, 1024)] + [("nemotron", 48, 8, 128, 2048)]
+    for name, hq, hkv, d, s in sweep:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                q, k, v = _qkv(dev, dtype, 1, hq, hkv, s, d, seed=s + hq)
+                got = ops.flash_attention(q, k, v, causal)
+                want = ref.flash_attention_ref(q, k, v, causal)
+                err, excess = require_flash(
+                    f"{name} S={s} {dtype} causal={causal}", got, want)
+                case = dict(kernel="flash_attention", heads=name, Hq=hq,
+                            Hkv=hkv, D=d, S=s, dtype=str(dtype)[6:],
+                            causal=causal, max_abs_err=err,
+                            elements_differing=int((got != want).sum()))
+                if dtype == torch.bfloat16:
+                    case["max_err_over_limit"] = excess
+                    if causal:
+                        case["device_ms"] = device_ms(
+                            lambda: ops.flash_attention(q, k, v, causal),
+                            "flash_attention_kernel", 5)
+                        case["bound_ms"], case["bound_by"] = flash_bound(
+                            q, k, causal)
+                cases.append(case)
+    b, h, s, d = 1, 16, 4096, 256
+    q, k, v = _qkv(dev, torch.float32, b, h, h, s, d, seed=1)
+    err32, _ = require_flash("at the prefill shape in f32",
+                             ops.flash_attention(q, k, v, True),
+                             ref.flash_attention_ref(q, k, v, True))
+    cases.append(dict(kernel="flash_attention", heads="gemma", Hq=h, Hkv=h,
+                      D=d, S=s, dtype="float32", causal=True,
+                      max_abs_err=err32))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    got = ops.flash_attention(q, k, v, True)
+    want = ref.flash_attention_ref(q, k, v, True)
+    err, excess = require_flash("at the prefill shape", got, want)
+    # planted faults, each held to the same two limits as the kernel
+    tail = want.clone()
+    tail[:, :, -32:] = ref.flash_attention_ref(
+        q[:, :, -32:], k[:, :, :-32], v[:, :, :-32], False)
+    fp8 = ref.flash_attention_ref(
+        *(x.to(torch.float8_e4m3fn).to(x.dtype) for x in (q, k, v)), True)
+    faults = {}
+    for fault, out in (("last_kv_tile_skipped", tail),
+                       ("fp8_operands", fp8)):
+        f_err, f_excess = flash_errors(out, want)
+        faults[fault] = dict(max_abs_err=f_err, max_err_over_limit=f_excess,
+                             passes_reference_tol=f_err <= FLASH_TOL[
+                                 torch.bfloat16])
+        if not f_excess > 1:
+            raise AssertionError(f"flash_attention: the planted fault "
+                                 f"{fault} passes the bf16 limit")
+    del tail, fp8
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+    lib_err, lib_excess = flash_errors(library(), want)
+    entry["bound_ms"], entry["bound_by"] = flash_bound(q, k, True)
+    entry.update(
+        shape=f"B={b} Hq={h} Hkv={h} S={s} D={d} bf16 causal",
+        max_abs_err=err, max_err_over_limit=excess,
+        tolerance=f"{FLASH_TOL[torch.bfloat16]} abs and 2^-7|want| + "
+                  f"{FLASH_BF16_ATOL} elementwise",
+        agreement=f"max abs err {err:.3g} <= {FLASH_TOL[torch.bfloat16]}, "
+                  f"largest element {excess:.3g} of 2^-7|want| + "
+                  f"{FLASH_BF16_ATOL}; f32 {err32:.3g} <= "
+                  f"{FLASH_TOL[torch.float32]}",
+        f32_max_abs_err=err32, planted_faults=faults,
+        ms=time_ms(lambda: ops.flash_attention(q, k, v, True), 5),
+        device_ms=device_ms(lambda: ops.flash_attention(q, k, v, True),
+                            "flash_attention_kernel", 5),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, True), 3),
+        library_ms=device_ms(library, reps=5),
+        library_call_ms=time_ms(library, 5), library_max_abs_err=lib_err,
+        library_max_err_over_limit=lib_excess,
+        library_note="F.scaled_dot_product_attention(is_causal=True, "
+                     "enable_gqa=True), device time")
+    print("flash planted faults " + json.dumps(faults), flush=True)
 
 
 # ------------------------------------------------------- end-to-end phase --
@@ -460,6 +699,22 @@ def compare_probe_rank(rt, ds, n_q) -> list:
     return passes
 
 
+def device_spans(prof) -> list:
+    """(start us, end us, name) of every kernel and copy in a trace."""
+    return sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def busy_union_us(spans) -> float:
+    """Microseconds in which the device ran at least one of the spans."""
+    busy_us, end = 0.0, float("-inf")
+    for start, stop, _ in spans:
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    return busy_us
+
+
 @contextlib.contextmanager
 def timed_layers():
     """Wall-clock timers on the executor's layer entry points, for the
@@ -508,14 +763,10 @@ def trace_queries(rt, name, ds, n_q, join, policy=SLICE_POLICY) -> dict:
             eng.execute(ds.queries[qi])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy_us, end = 0.0, float("-inf")
+    spans = device_spans(prof)
+    busy_us = busy_union_us(spans)
     by_kind: dict = collections.defaultdict(float)
     for start, stop, ev_name in spans:
-        busy_us += max(0.0, stop - max(start, end))
-        end = max(end, stop)
         kind = next((k for k in REPLACES if f"{k}_kernel" in ev_name),
                     "memcpy" if "memcpy" in ev_name.lower() else "other")
         by_kind[kind] += (stop - start) / 1e3
@@ -548,10 +799,335 @@ def check_answers(label: str, runs: dict, cpu_runs: dict) -> None:
                                  "the CPU run")
 
 
-def require_launched(path: str, launches: dict) -> None:
-    for name, count in launches.items():
-        if count == 0:
+def require_launched(path: str, launches: dict, names) -> None:
+    for name in names:
+        if launches[name] == 0:
             raise AssertionError(f"{name} never launched on {path}")
+
+
+# ------------------------------------------------- the LM serving stack --
+# Full-width gemma-7b (bf16) agreements are held to a relative RMS error,
+# ||got - want|| / ||want|| over all elements, of at most LM_REL_TOL; see
+# check_lm_prefill for the reason and the two controls that calibrate it,
+# and check_lm_serve for the two planted decode faults it must catch.
+LM_REL_TOL = 4e-2
+SMOKE_TOL = 1e-4        # f32 smoke configs, card against CPU
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    g, w = got.double(), want.double()
+    return float((g - w).norm() / w.norm())
+
+
+def tree_leaves(tree: dict) -> list:
+    return [x for v in tree.values()
+            for x in (tree_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def tree_to(tree: dict, dev) -> dict:
+    return {k: tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def traced(fn) -> dict:
+    """One traced call of `fn`: wall ms (ending in a synchronise), device
+    busy ms (union of the kernel and copy intervals), idle share, and the
+    count and device ms of the kernels by name fragment."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = device_spans(prof)
+    busy_us = busy_union_us(spans)
+    flash_us = sum(stop - start for start, stop, name in spans
+                   if "flash_attention_kernel" in name)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
+                device_idle_share=1 - busy_us / 1e3 / wall_ms,
+                device_ops=len(spans), flash_device_ms=flash_us / 1e3)
+
+
+def check_lm_prefill(ops, ref, tr, cfg, params, dev,
+                     seq: int = 4096) -> dict:
+    """gemma-7b prefill at full width and depth, B=1 x S=4096:
+    `forward_with_cache` through the flash kernel against the plain path
+    (attn_chunk=2048, the reference prefill cell's setting) and against
+    `forward` + `logits_fn`.
+
+    Tolerance LM_REL_TOL = 4e-2 relative RMS on the last-token logits and
+    on the K/V caches. Both sides compute attention in f32 from the same
+    bf16 operands and round its output to bf16; they differ in the order
+    of the f32 sums, so an output element may round to the neighbouring
+    bf16 value (2^-8 relative), and those flips grow through 28 residual
+    layers of bf16 products: the first H100 run measured 1.8e-2 on the
+    logits and the caches, and up to 2.1e-2 for decode against the full
+    forward. Two controls bracket the tolerance, each run through the same
+    prefill in place of the kernel: PyTorch's own bf16 attention
+    (`scaled_dot_product_attention`), an independent correct
+    implementation, must pass it; attention in a lower precision than the
+    config's, q, k and v rounded to fp8 (e4m3, 2^-4 relative; 8.6e-2 in
+    that run), must fail it. Layer 0's caches precede any attention and
+    must be bit-identical."""
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, seq))).to(dev)
+    ops.reset_launch_counts()
+    logits_f, cache_f = tr.forward_with_cache(params, tok, cfg)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    if launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"prefill launched flash_attention "
+                             f"{launches['flash_attention']} times, not "
+                             f"{cfg.n_layers}")
+
+    def prefill(c):
+        def run():
+            t0 = time.perf_counter()
+            tr.forward_with_cache(params, tok, c)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+        return run
+    plain_cfg = dataclasses.replace(cfg, use_flash=False, attn_chunk=2048)
+    flash_ms = [prefill(cfg)() for _ in range(3)]
+    plain_ms = [prefill(plain_cfg)() for _ in range(2)]
+    trace = traced(prefill(cfg))
+    logits_p, cache_p = tr.forward_with_cache(params, tok, plain_cfg)
+    hidden = tr.forward(params, tok, cfg)
+    logits_fw = tr.logits_fn(params, hidden[:, -1], cfg)
+    del hidden
+    errs = dict(
+        logits_vs_plain=rel_err(logits_f, logits_p),
+        logits_vs_forward=rel_err(logits_f, logits_fw),
+        cache_vs_plain=max(rel_err(cache_f[n][i], cache_p[n][i])
+                           for n in ("k", "v")
+                           for i in range(cfg.n_layers)),
+        logits_max_abs_vs_plain=float((logits_f.float() - logits_p.float())
+                                      .abs().max()),
+        logits_max_abs=float(logits_p.float().abs().max()))
+    layer0_equal = all(torch.equal(cache_f[n][0], cache_p[n][0])
+                       for n in ("k", "v"))
+
+    def fp8_attention(q, k, v, causal=True):
+        r8 = [x.to(torch.float8_e4m3fn).to(x.dtype) for x in (q, k, v)]
+        return ref.flash_attention_ref(*r8, causal)
+
+    def library_attention(q, k, v, causal=True):
+        import torch.nn.functional as F
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                              enable_gqa=True)
+    flash = ops.flash_attention
+    for name, attention in (("fp8", fp8_attention),
+                            ("sdpa", library_attention)):
+        ops.flash_attention = attention
+        try:
+            logits_c, cache_c = tr.forward_with_cache(params, tok, cfg)
+        finally:
+            ops.flash_attention = flash
+        errs[f"control_{name}_logits"] = rel_err(logits_c, logits_p)
+        errs[f"control_{name}_cache"] = max(
+            rel_err(cache_c[n][i], cache_p[n][i])
+            for n in ("k", "v") for i in range(cfg.n_layers))
+        del cache_c
+    del cache_f, cache_p
+    # least time: the weights read once, and the layers' products (2
+    # operations a weight a token; the embedding is gathered and the head
+    # meets the last token only) plus causal attention at the bf16 rate
+    leaves = tree_leaves(params)
+    n_weights = sum(x.numel() for x in tree_leaves(params["layers"]))
+    n_ops = (2 * tok.numel() * n_weights + cfg.n_layers * 4 * cfg.n_heads
+             * seq * seq * cfg.head_dim / 2)
+    bnd, by = bound_ms(sum(x.numel() * x.element_size() for x in leaves),
+                       n_ops, BF16_OPS_PER_S)
+    report = dict(tokens=int(tok.numel()), flash_launches_per_call=launches[
+        "flash_attention"], flash_ms=flash_ms, plain_ms=plain_ms,
+        bound_ms=bnd, bound_by=by, trace=trace, errors=errs,
+        layer0_cache_equal=layer0_equal, tolerance_rel=LM_REL_TOL)
+    print("lm prefill " + json.dumps(report), flush=True)
+    for key in ("logits_vs_plain", "logits_vs_forward", "cache_vs_plain"):
+        if not errs[key] <= LM_REL_TOL:
+            raise AssertionError(f"lm prefill {key}: {errs[key]} > "
+                                 f"{LM_REL_TOL}")
+    if not layer0_equal:
+        raise AssertionError("lm prefill: layer 0 caches differ")
+    if not errs["control_fp8_logits"] > LM_REL_TOL:
+        raise AssertionError("lm prefill: the fp8-attention control passes "
+                             "the tolerance, which is then too loose")
+    if not max(errs["control_sdpa_logits"],
+               errs["control_sdpa_cache"]) <= LM_REL_TOL:
+        raise AssertionError("lm prefill: PyTorch's bf16 attention fails "
+                             "the tolerance, which is then too tight")
+    return report
+
+
+def with_planted_fault(mod, name: str, old: str, new: str):
+    """`mod.<name>` compiled again from its own source with `old` (found
+    exactly once) replaced by `new`, in a copy of the module's namespace:
+    a planted fault that leaves the module itself as it was."""
+    import inspect
+    src = inspect.getsource(getattr(mod, name))
+    if src.count(old) != 1:
+        raise AssertionError(f"planted fault: {old!r} is not in {name} once")
+    namespace = dict(vars(mod))
+    exec(compile(src.replace(old, new), f"<{name}, planted fault>", "exec"),
+         namespace)
+    return namespace[name]
+
+
+def serve_decode_errors(tr, cfg, params, dev, decode_step=None) -> dict:
+    """`ServeEngine` on the launcher's requests (4 slots, all active),
+    through `decode_step` (the model's own unless given). Request 0's
+    decode-step logits (its three prompt steps and its eight pool steps)
+    against `forward` + `logits_fn` over its own prefix on the card."""
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(tr, params, cfg, max_batch=launch.SLOTS,
+                      max_seq=launch.MAX_SEQ, device=dev)
+    reqs = launch.launcher_requests(cfg, launch.SLOTS)
+    steps = []
+    step = (eng._step if decode_step is None else
+            lambda p, c, t, q: decode_step(p, c, t, q, cfg))
+
+    def recorded(p, c, tokens, pos):
+        t0 = time.perf_counter()
+        logits, c = step(p, c, tokens, pos)
+        torch.cuda.synchronize()
+        steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                          token0=int(tokens[0]), pos0=int(pos[0]),
+                          logits0=logits[0].float().cpu()))
+        return logits, c
+    eng._step = recorded
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    # 4 prompts x 3 token-by-token prefill steps, then 8 pool steps
+    if len(steps) != 4 * 3 + 8 or not all(len(r.out) == 8 for r in reqs):
+        raise AssertionError(f"serve: {len(steps)} steps, outputs "
+                             f"{[len(r.out) for r in reqs]}")
+    seq = reqs[0].prompt + reqs[0].out
+    errs = []
+    for i in list(range(3)) + list(range(12, 20)):
+        s = steps[i]
+        if s["token0"] != seq[s["pos0"]]:
+            raise AssertionError(f"serve step {i}: slot 0 fed {s['token0']}"
+                                 f" at {s['pos0']}, not {seq[s['pos0']]}")
+        prefix = torch.tensor([seq[:s["pos0"] + 1]], device=dev)
+        want = tr.logits_fn(params, tr.forward(params, prefix, cfg)[:, -1],
+                            cfg)[0].float().cpu()
+        errs.append(rel_err(s["logits0"], want))
+    return dict(engine=eng, requests=reqs, steps=steps, wall_s=wall_s,
+                errors=errs)
+
+
+def check_lm_serve(tr, cfg, params, dev) -> dict:
+    """`ServeEngine` on gemma-7b with the launcher's requests: decode
+    through the cache against the full forward, within LM_REL_TOL (bf16
+    products of other shapes, so other summation orders, through 28
+    layers; see check_lm_prefill). Two planted cache faults, run through
+    the same engine and check, must fail it: each slot's K/V row written
+    one position early (pos - 1) in every layer, and the write lost in one
+    layer (the middle one), which leaves that layer's earlier rows at the
+    cache's initial zeros."""
+    from repro_torch.launch import serve as launch
+    run = serve_decode_errors(tr, cfg, params, dev)
+    reqs, steps, errs = run["requests"], run["steps"], run["errors"]
+    wall_s = run["wall_s"]
+    n_tok = sum(len(r.out) for r in reqs)
+    pool_ms = [s["ms"] for s in steps[12:]]
+    n_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    cache = run["engine"].cache
+    tokens = torch.zeros(launch.SLOTS, dtype=torch.int32, device=dev)
+    pos = torch.full((launch.SLOTS,), 11, dtype=torch.int32, device=dev)
+    trace = traced(lambda: tr.decode_step(params, cache, tokens, pos, cfg))
+    del run, cache
+    planted = {
+        "write_at_pos_minus_1": ("rows = pos.long()",
+                                 "rows = (pos.long() - 1).clamp(min=0)"),
+        "write_lost_in_one_layer": (
+            'k_cache, v_cache = cache["k"][i], cache["v"][i]',
+            'k_cache, v_cache = (cache["k"][i], cache["v"][i]) '
+            'if i != cfg.n_layers // 2 else '
+            '(cache["k"][i].clone(), cache["v"][i].clone())')}
+    faults = {}
+    for fault, (old, new) in planted.items():
+        bad = serve_decode_errors(
+            tr, cfg, params, dev,
+            with_planted_fault(tr, "decode_step", old, new))["errors"]
+        faults[fault] = dict(decode_vs_forward_rel_err=bad,
+                             max_rel_err=max(bad))
+    report = dict(requests=len(reqs), tokens=n_tok, wall_s=wall_s,
+                  tokens_per_s=n_tok / wall_s, steps=len(steps),
+                  step_ms=[s["ms"] for s in steps],
+                  pool_step_ms_mean=float(np.mean(pool_ms)),
+                  weight_bytes=n_bytes,
+                  step_bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+                  decode_vs_forward_rel_err=errs, decode_trace=trace,
+                  planted_faults=faults, tolerance_rel=LM_REL_TOL)
+    print("lm serve " + json.dumps(report), flush=True)
+    if not max(errs) <= LM_REL_TOL:
+        raise AssertionError(f"serve: decode logits differ from the full "
+                             f"forward by {max(errs)} > {LM_REL_TOL}")
+    for fault, f in faults.items():
+        if not f["max_rel_err"] > LM_REL_TOL:
+            raise AssertionError(f"serve: the planted fault {fault} passes "
+                                 f"the tolerance ({f['max_rel_err']})")
+    return report
+
+
+def check_lm_cuda_vs_cpu(ops, tr, dev) -> list:
+    """The three dense SMOKE configs (f32): flash prefill at B=2 x S=128 and
+    the launcher's requests through `ServeEngine`, on the card and on the
+    CPU, every logit within SMOKE_TOL = 1e-4 (absolute and relative): the
+    f32 products sum in other orders on the two devices (~1e-6 here), while
+    TF32 (10 bits of mantissa, ~1e-3) would fail it."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve.engine import ServeEngine
+    out = []
+    for arch in registry.ARCHS:
+        cfg = dataclasses.replace(registry.get(arch).smoke, use_flash=True)
+        params = tr.init_params(cfg, seed=0, device="cpu")
+        tok = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab, (2, 128)))
+        runs = []                       # the card's, then the CPU's
+        for d in (dev, torch.device("cpu")):
+            p = tree_to(params, d)
+            ops.reset_launch_counts()
+            logits, cache = tr.forward_with_cache(p, tok.to(d), cfg)
+            if d.type == "cuda" and \
+                    ops.LAUNCHES["flash_attention"] != cfg.n_layers:
+                raise AssertionError(f"{arch} smoke: flash not launched")
+            eng = ServeEngine(tr, p, cfg, max_batch=launch.SLOTS,
+                              max_seq=launch.MAX_SEQ, device=d)
+            log = []
+            eng._step = functools.partial(_logged, eng._step, log)
+            for r in launch.launcher_requests(cfg, 2):
+                eng.submit(r)
+            eng.run()
+            runs.append([logits.cpu(), cache["k"].cpu(), cache["v"].cpu()]
+                        + log)
+        if len(runs[0]) != len(runs[1]):
+            raise AssertionError(f"{arch} smoke: {len(runs[0])} results on "
+                                 f"the card, {len(runs[1])} on the CPU")
+        err = max(float((g - w).abs().max()) for g, w in zip(*runs))
+        for g, w in zip(*runs):
+            torch.testing.assert_close(g, w, rtol=SMOKE_TOL, atol=SMOKE_TOL)
+        out.append(dict(arch=arch, compared=len(runs[0]),
+                        max_abs_err=err, tolerance=SMOKE_TOL))
+        print("lm smoke " + json.dumps(out[-1]), flush=True)
+    return out
+
+
+def _logged(step, log, *args):
+    logits, cache = step(*args)
+    log.append(logits.cpu())
+    return logits, cache
+
+
 
 
 def main() -> None:
@@ -563,6 +1139,7 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False      # f32 means f32
     import repro_torch as rt
     from repro_torch.data import synth_rdf
     from repro_torch.kernels import _build, ops, ref
@@ -617,10 +1194,14 @@ def main() -> None:
                        cases)
     check_bloom_probe(rt, ops, ref, dev, entries["bloom_probe"], lgd, cases)
     check_merge_join_ranks(ops, ref, dev, entries["merge_join_ranks"], cases)
+    check_block_scan(ops, ref, dev, entries["block_scan"], cases)
+    check_morton(ops, ref, dev, entries["morton_encode"])
+    check_flash(ops, ref, dev, entries["flash_attention"], cases)
     for e in entries.values():
         lib = ("" if e["library_ms"] is None
                else f", library {e['library_ms']:.4f} ms")
-        print(f"kernel {e['name']} [{e['shape']}] on {kind}: bit-identical; "
+        print(f"kernel {e['name']} [{e['shape']}] on {kind}: "
+              f"{e.get('agreement', 'bit-identical')}; "
               f"{e['ms']:.4f} ms a call, {e['device_ms']} ms on the device, "
               f"plain {e['plain_ms']:.4f} ms{lib}, bound "
               f"{e['bound_ms']:.5f} ms ({e['bound_by']})")
@@ -645,7 +1226,7 @@ def main() -> None:
                  for join, sets in checked.items()}
     launches = dict(ops.LAUNCHES)
     ops.insertion_ranks = insertion_ranks
-    require_launched("the main path", launches)
+    require_launched("the main path", launches, STREAK_KERNELS)
     n_m = np.array(rank_shapes, dtype=np.int64).reshape(-1, 2)
     print(f"rank calls on the main path: {len(n_m)}; table N median "
           f"{int(np.median(n_m[:, 0]))} max {int(n_m[:, 0].max())}; probes "
@@ -683,7 +1264,7 @@ def main() -> None:
     shape_cuda = {join: run_shapes(rt, lgd, qs, join, "cuda")
                   for join, qs in shape_sets.items()}
     shape_launches = dict(ops.LAUNCHES)
-    require_launched("the shapes path", shape_launches)
+    require_launched("the shapes path", shape_launches, STREAK_KERNELS)
     print("shape launches " + json.dumps(shape_launches))
     shapes = []
     for join, runs in shape_cuda.items():
@@ -700,6 +1281,48 @@ def main() -> None:
                   f"{ms:.1f} ms, cpu {cpu_runs[name][1]:.1f} ms ({kind})")
     phase_done("shapes", t0)
 
+    # ---- the reference's kernel entry points (ops.block_scan, morton) ----
+    t0 = time.perf_counter()
+    scores = torch.from_numpy(np.random.default_rng(9).normal(
+        0.5, 0.5, (64, 1024)).astype(np.float32)).to(dev)
+    cx, cy = morton_inputs(dev)
+    ops.reset_launch_counts()
+    bmax, cnt, mask = ops.block_scan(scores, 0.5)
+    codes = ops.morton_encode(cx, cy)
+    torch.cuda.synchronize()
+    ops_launches = dict(ops.LAUNCHES)
+    require_launched("the ops entry points", ops_launches, OPS_KERNELS)
+    if not (torch.equal(cnt, mask.sum(1, dtype=torch.int32))
+            and torch.equal(bmax, scores.max(1).values)
+            and codes.shape == cx.shape):
+        raise AssertionError("ops entry points: malformed outputs")
+    print("ops launches " + json.dumps(ops_launches))
+    phase_done("ops entry points", t0)
+
+    # ---- the LM serving stack: gemma-7b at full width and depth ----------
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as tr
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(registry.get("gemma-7b").config,
+                              use_flash=True)
+    params = tr.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    print(f"gemma-7b: {sum(x.numel() for x in leaves)} parameters, "
+          f"{sum(x.numel() * x.element_size() for x in leaves)} bytes on "
+          f"{kind}, made in {time.perf_counter() - t0:.1f} s", flush=True)
+    del leaves
+    prefill = check_lm_prefill(ops, ref, tr, cfg, params, dev)
+    phase_done("lm prefill", t0)
+    t0 = time.perf_counter()
+    serve = check_lm_serve(tr, cfg, params, dev)
+    del params
+    torch.cuda.empty_cache()
+    phase_done("lm serve", t0)
+    t0 = time.perf_counter()
+    smoke_lms = check_lm_cuda_vs_cpu(ops, tr, dev)
+    phase_done("lm cuda vs cpu", t0)
+
     # ---- where the time goes ---------------------------------------------
     t0 = time.perf_counter()
     ab = compare_probe_rank(rt, lgd, datasets["lgd"][1])
@@ -714,7 +1337,10 @@ def main() -> None:
         print("trace " + json.dumps(t))
     phase_done("traces", t0)
 
-    kernels = [dict(entries[n], launches=launches[n], match=True)
+    path_launches = {**{n: launches[n] for n in STREAK_KERNELS},
+                     **{n: ops_launches[n] for n in OPS_KERNELS},
+                     "flash_attention": prefill["flash_launches_per_call"]}
+    kernels = [dict(entries[n], launches=path_launches[n], match=True)
                for n in _build.KERNELS]
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -723,7 +1349,9 @@ def main() -> None:
             cases=cases, queries=queries, shapes=shapes,
             shape_launches=shape_launches, probe_rank_passes=ab,
             rank_call_shapes=n_m.tolist(), traces=traces,
-            phase_seconds=phase_s), indent=1))
+            ops_launches=ops_launches, lm_prefill=prefill, lm_serve=serve,
+            lm_smoke_cuda_vs_cpu=smoke_lms, phase_seconds=phase_s),
+            indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

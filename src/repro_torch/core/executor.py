@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from . import aps, node_select, shard as shard_mod, spatial_join
+from ..device import resolve_device
 from .fault import QueryDeadline
 from .join import Relation, filter_in_ranges, join, scan_pattern
 from .planner import QueryPlan, SidePlan, plan_query
@@ -66,19 +67,6 @@ class ExecStats:
     v_star_sizes: list = dataclasses.field(default_factory=list)
     join: JoinStats = dataclasses.field(default_factory=JoinStats)
     plan_log: list = dataclasses.field(default_factory=list)
-
-
-def resolve_device(device: torch.device | str | None) -> torch.device:
-    """The engine's device: CUDA unless the caller asks for another one.
-
-    Raises when CUDA is asked for (explicitly, or by passing None) and is
-    not available — the engine never drops to the CPU on its own."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("StreakEngine runs on CUDA by default and no CUDA "
-                           "device is available; pass device='cpu' to run "
-                           "the plain torch versions of the kernels")
-    return device
 
 
 class StreakEngine:

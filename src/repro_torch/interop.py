@@ -28,6 +28,7 @@ database. The keys (`<part>.<field>`):
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core.charsets import BloomBank, NodeCSStats
 from .core.dictionary import Dictionary
@@ -114,3 +115,43 @@ def store_from_state(state: dict) -> QuadStore:
         _num_ids=np.asarray(state["num_ids"]),
         _num_vals=np.asarray(state["num_vals"]),
     )
+
+
+def _tensor_from_array(a, device) -> torch.Tensor:
+    """One array of another framework's state as a torch tensor. bfloat16
+    arrays (numpy's `ml_dtypes.bfloat16`, which torch.from_numpy refuses)
+    cross as their 16-bit patterns."""
+    a = np.array(a)                   # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def transformer_params_from_state(params: dict, cfg, device) -> dict:
+    """The port's transformer parameters from the reference's parameter
+    pytree as nested dicts of numpy arrays (stacked (L, ...) layer weights),
+    on `device`. Every leaf keeps its dtype; the layout is the same, so
+    `models.transformer` reads them as they are. Raises if a leaf's shape
+    differs from what `cfg` gives."""
+    from .models import transformer
+    want = transformer.param_shapes(cfg)
+    out = {}
+
+    def walk(src, ref_tree, dst, path):
+        if set(src) != set(ref_tree):
+            raise ValueError(f"parameter keys at {path or 'top'}: "
+                             f"{sorted(src)} != {sorted(ref_tree)}")
+        for k, v in src.items():
+            if isinstance(v, dict):
+                dst[k] = {}
+                walk(v, ref_tree[k], dst[k], f"{path}{k}.")
+                continue
+            t = _tensor_from_array(v, device)
+            if tuple(t.shape) != ref_tree[k]:
+                raise ValueError(f"{path}{k}: shape {tuple(t.shape)} != "
+                                 f"{ref_tree[k]}")
+            dst[k] = t
+
+    walk(params, want, out, "")
+    return out

@@ -28,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel name -> C launcher symbol and its ctypes argument types; every
 # launcher returns the cudaError_t of its launch
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F = ctypes.c_float
 KERNELS = {
     "fused_topk_join": ("fused_topk_join_launch",
                         [_P] * 11 + [_I, _I, _I, _P]),
@@ -38,6 +39,9 @@ KERNELS = {
     "bloom_probe": ("bloom_probe_launch", [_P, _P, _P, _L, _I, _I, _P]),
     "merge_join_ranks": ("merge_join_ranks_launch",
                          [_P, _P, _P, _P, _L, _L, _I, _P]),
+    "block_scan": ("block_scan_launch", [_P, _F, _P, _P, _P, _I, _I, _P]),
+    "morton_encode": ("morton_encode_launch", [_P, _P, _P, _L, _P]),
+    "flash_attention": ("flash_attention_launch", [_P] * 4 + [_I] * 7 + [_P]),
 }
 
 _launchers: dict[str, object] = {}   # kernel name -> ctypes launcher

@@ -315,3 +315,88 @@ def merge_join_ranks(table: np.ndarray, probes: np.ndarray,
         return np.searchsorted(table, probes, side)
     return (np.searchsorted(table, probes, "left"),
             np.searchsorted(table, probes, "right"))
+
+
+# -------------------------------------------------------------- block scan --
+def block_scan(scores: torch.Tensor, theta: float
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One pass over (nb, B) f32 score blocks (see csrc/block_scan.cu):
+    (row max f32 (nb,), count of scores > theta int32 (nb,), survivor mask
+    uint8 (nb, B)). theta is rounded to f32; B >= 1."""
+    if not _on_cuda("block_scan", scores):
+        return ref.block_scan_ref(scores, theta)
+    if scores.dim() != 2 or scores.shape[1] < 1:
+        raise ValueError(f"block_scan: expected (nb, B >= 1) scores, got "
+                         f"{tuple(scores.shape)}")
+    nb, bsz = scores.shape
+    _check("block_scan", scores, torch.float32, (nb, bsz), 16)
+    dev = scores.device
+    bmax = torch.empty(nb, dtype=torch.float32, device=dev)
+    cnt = torch.empty(nb, dtype=torch.int32, device=dev)
+    mask = torch.empty((nb, bsz), dtype=torch.uint8, device=dev)
+    if nb:
+        _launch("block_scan", _ptr(scores), ctypes.c_float(theta),
+                _ptr(bmax), _ptr(cnt), _ptr(mask), ctypes.c_int(nb),
+                ctypes.c_int(bsz))
+    return bmax, cnt, mask
+
+
+# ------------------------------------------------------------------ morton --
+def morton_encode(cx: torch.Tensor, cy: torch.Tensor) -> torch.Tensor:
+    """int32 cell coordinates cx, cy (n,) -> int32 Morton codes (n,) of their
+    low 16 bits (see csrc/morton_encode.cu); codes >= 2^31 are negative."""
+    if not _on_cuda("morton_encode", cx, cy):
+        return ref.morton_ref(cx, cy)
+    n = cx.shape[0]
+    _check("morton_encode", cx, torch.int32, (n,), 4)
+    _check("morton_encode", cy, torch.int32, (n,), 4)
+    out = torch.empty(n, dtype=torch.int32, device=cx.device)
+    if n:
+        _launch("morton_encode", _ptr(cx), _ptr(cy), _ptr(out),
+                ctypes.c_longlong(n))
+    return out
+
+
+# --------------------------------------------------------- flash attention --
+FLASH_HEAD_DIMS = (32, 64, 128, 256)
+_FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """GQA forward attention (see csrc/flash_attention.cu).
+
+    q (B, Hq, S, D); k, v (B, Hkv, S, D) with Hq % Hkv == 0, all f32 or all
+    bf16 and contiguous (the wrapper never copies); D in FLASH_HEAD_DIMS.
+    Scale D^-0.5, optional causal mask; returns (B, Hq, S, D) in q's dtype.
+    """
+    if not _on_cuda("flash_attention", q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal)
+    if q.dtype not in _FLASH_DTYPES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: q, k, v must all be float32 or "
+                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4:
+        raise ValueError(f"flash_attention: q must be (B, Hq, S, D), got "
+                         f"{tuple(q.shape)}")
+    b, hq, s, d = q.shape
+    hkv = k.shape[1] if k.dim() == 4 else 0
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"flash_attention: Hq={hq} is not a multiple of the "
+                         f"K/V heads of {tuple(k.shape)}")
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} not in "
+                         f"{FLASH_HEAD_DIMS}")
+    if b * hq > 65535:
+        raise ValueError(f"flash_attention: B*Hq={b * hq} exceeds the grid's "
+                         "y axis")
+    _check("flash_attention", q, q.dtype, (b, hq, s, d), 16)
+    _check("flash_attention", k, q.dtype, (b, hkv, s, d), 16)
+    _check("flash_attention", v, q.dtype, (b, hkv, s, d), 16)
+    out = torch.empty_like(q)
+    if b and s:
+        _launch("flash_attention", _ptr(q), _ptr(k), _ptr(v), _ptr(out),
+                ctypes.c_int(b), ctypes.c_int(hq), ctypes.c_int(hkv),
+                ctypes.c_int(s), ctypes.c_int(d), ctypes.c_int(int(causal)),
+                ctypes.c_int(_FLASH_DTYPES[q.dtype]))
+    return out

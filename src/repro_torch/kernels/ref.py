@@ -160,3 +160,53 @@ def merge_join_ranks_ref(table: torch.Tensor, probes: torch.Tensor,
         return torch.searchsorted(table, probes, side="right")
     return (torch.searchsorted(table, probes, side="left"),
             torch.searchsorted(table, probes, side="right"))
+
+
+# -------------------------------------------------------------- block scan --
+def block_scan_ref(scores: torch.Tensor, theta: float
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(nb, B) f32 scores -> (row max f32 (nb,), count of scores > theta
+    int32 (nb,), survivor mask uint8 (nb, B)); theta is rounded to f32."""
+    mask = scores > torch.tensor(theta, dtype=torch.float32)
+    return (scores.max(dim=1).values, mask.sum(dim=1, dtype=torch.int32),
+            mask.to(torch.uint8))
+
+
+# ------------------------------------------------------------------ morton --
+def _spread16(v: torch.Tensor) -> torch.Tensor:
+    v = v & 0xFFFF
+    v = (v | (v << 8)) & 0x00FF00FF
+    v = (v | (v << 4)) & 0x0F0F0F0F
+    v = (v | (v << 2)) & 0x33333333
+    return (v | (v << 1)) & 0x55555555
+
+
+def morton_ref(cx: torch.Tensor, cy: torch.Tensor) -> torch.Tensor:
+    """Interleave the low 16 bits of int32 cx, cy into int32 Morton codes.
+
+    torch has no uint32 shifts on the CPU, so the spread runs in int64 (every
+    intermediate stays below 2^32), and codes at or above 2^31 are mapped to
+    their negative int32 bit pattern explicitly."""
+    code = _spread16(cx.to(torch.int64)) | (_spread16(cy.to(torch.int64)) << 1)
+    code = torch.where(code >= 1 << 31, code - (1 << 32), code)
+    return code.to(torch.int32)
+
+
+# --------------------------------------------------------- flash attention --
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """GQA attention. q (B, Hq, S, D); k, v (B, Hkv, S, D), Hq % Hkv == 0.
+
+    K/V repeated over each group of Hq / Hkv query heads, f32 logits scaled
+    by D^-0.5, causal entries above the diagonal at -inf, softmax and the
+    weighted sum in f32, cast to q's dtype."""
+    s, d = q.shape[2], q.shape[3]
+    g = q.shape[1] // k.shape[1]
+    kk = k.repeat_interleave(g, dim=1).float()
+    vv = v.repeat_interleave(g, dim=1).float()
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * d ** -0.5
+    if causal:
+        keep = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~keep, float("-inf"))
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", w, vv).to(q.dtype)

@@ -1,0 +1,88 @@
+"""Shared model building blocks: norms, rotary embedding, activations, init.
+
+The port of the reference's `models/layers.py`: the same functions with the
+same arithmetic (f32 norms and rotary angles, results cast back to the
+input's dtype). Random initialisation takes an explicit `torch.Generator`.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + scale.float())).to(dt)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
+def apply_norm(x, p, kind: str):
+    if kind == "rms":
+        return rms_norm(x, p["scale"])
+    return layer_norm(x, p["scale"], p["bias"])
+
+
+def init_norm(kind: str, d: int, dtype=torch.float32, device=None):
+    if kind == "rms":
+        return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "gelu":
+        # jax.nn.gelu defaults to the tanh approximation; F.gelu does not
+        return F.gelu(x, approximate="tanh")
+    if kind == "silu":
+        return F.silu(x)
+    if kind == "relu":
+        return F.relu(x)
+    if kind == "sq_relu":      # squared ReLU (Primer; Nemotron-4)
+        r = F.relu(x)
+        return r * r
+    raise ValueError(f"unknown activation {kind}")
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4):
+    """Rotary embedding, half-split. x (..., S, H, Dh); positions (..., S)."""
+    dh = x.shape[-1]
+    half = dh // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., :, None].float() * freq          # (..., S, half)
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def shard_activations(x: torch.Tensor, batch_axes: tuple, seq_axes: tuple):
+    """The reference's residual-stream sharding constraint. On one device it
+    has no meaning: with no axes it returns x, with any it raises (sharding
+    comes with the port's distributed slice)."""
+    if batch_axes or seq_axes:
+        raise NotImplementedError(
+            "activation sharding (batch_axes/seq_axes) is not ported")
+    return x
+
+
+def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
+               dtype=torch.float32):
+    """Normal(0, 1) / sqrt(fan_in) drawn in f32 on `gen`'s device, then cast
+    to `dtype`, as the reference draws and casts."""
+    fan_in = shape[in_axis]
+    x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return x.mul_(fan_in ** -0.5).to(dtype)

@@ -1,0 +1,298 @@
+"""Dense decoder-only transformer with GQA, RoPE and pluggable FFN.
+
+The port of the reference's `models/transformer.py` (forward, prefill and
+decode; the training loss comes with the training slice). Covers
+nemotron-4-15b (squared-ReLU), codeqwen1.5-7b (SwiGLU) and gemma-7b (GeGLU,
+head_dim 256). Parameters are a plain dict in the reference's layout, layer
+weights STACKED with a leading `n_layers` axis; the forward passes loop over
+the layers in Python where the reference scans.
+
+Attention with `use_flash` and a square (S == T, S % 128 == 0) problem runs
+the flash-attention kernel (`kernels/ops.flash_attention`, CUDA on the card,
+its plain version on the CPU), as in the reference; every other branch is
+plain torch. The matrix products are `torch.matmul` in the config's dtype,
+with TF32 switched off so that f32 means f32.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..device import resolve_device
+from ..kernels import ops as kops
+from . import layers
+from .layers import activation, apply_norm, dense_init, init_norm, rope
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """The reference's `TransformerConfig`, field for field.
+
+    `remat`, `loss_chunks` and `scatter_cache_update` select nothing in the
+    port (no training here; both cache-update modes are one in-place write)
+    and `batch_axes`/`seq_axes` raise when set; they are kept only so that
+    the registry's configs equal the reference's.
+    """
+    name: str = "transformer"
+    n_layers: int = 4
+    d_model: int = 256
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    head_dim: int = 64
+    d_ff: int = 1024
+    vocab: int = 1024
+    act: str = "silu"          # silu | gelu | sq_relu
+    glu: bool = True           # gated FFN (SwiGLU/GeGLU); False = plain MLP
+    norm: str = "rms"
+    rope_theta: float = 1e4
+    tie_embeddings: bool = False
+    window: int | None = None  # sliding-window attention (serve-time bound)
+    dtype: str = "bfloat16"
+    remat: bool = True         # training-time setting; no effect here
+    loss_chunks: int = 8       # vocab-projection chunking for the LM loss
+    use_flash: bool = False    # route square attention through the kernel
+    attn_chunk: int | None = None  # query-chunked attention (long prefill):
+    #   bounds the (B,H,chunk,S) logit buffer instead of (B,H,S,S)
+    batch_axes: tuple = ()     # residual-stream sharding (not ported: raises)
+    seq_axes: tuple = ()
+    attn_bf16_operands: bool = False  # QK^T / PV operands in the cache dtype
+    #   with f32 accumulation
+    scatter_cache_update: bool = False  # decode: per-slot scatter instead of
+    #   the one-hot multiply-add (both are an in-place index write here)
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    def n_params(self) -> int:
+        qkv = self.d_model * self.head_dim * (self.n_heads
+                                              + 2 * self.n_kv_heads)
+        o = self.n_heads * self.head_dim * self.d_model
+        ff = self.d_model * self.d_ff * (3 if self.glu else 2)
+        per_layer = qkv + o + ff
+        emb = self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
+        return self.n_layers * per_layer + emb
+
+
+def _full_f32_matmuls() -> None:
+    """f32 products in full f32 on the card: TF32 off, and checked."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def param_shapes(cfg: TransformerConfig) -> dict:
+    """The shape of every parameter, in the reference's nested layout."""
+    L, D, H, Hk, Dh, F = (cfg.n_layers, cfg.d_model, cfg.n_heads,
+                          cfg.n_kv_heads, cfg.head_dim, cfg.d_ff)
+    norm = {"scale": (D,)} if cfg.norm == "rms" else {"scale": (D,),
+                                                      "bias": (D,)}
+    lay = {"wq": (L, D, H * Dh), "wk": (L, D, Hk * Dh), "wv": (L, D, Hk * Dh),
+           "wo": (L, H * Dh, D), "w_up": (L, D, F), "w_down": (L, F, D),
+           "ln1": {k: (L,) + s for k, s in norm.items()},
+           "ln2": {k: (L,) + s for k, s in norm.items()}}
+    if cfg.glu:
+        lay["w_gate"] = (L, D, F)
+    shapes = {"embed": (cfg.vocab, D), "layers": lay, "final_norm": norm}
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (D, cfg.vocab)
+    return shapes
+
+
+def init_params(cfg: TransformerConfig, seed: int = 0,
+                device: torch.device | str | None = None) -> dict:
+    """Random parameters of `param_shapes` in the reference's distributions
+    (normal / sqrt(fan_in) weights, the norms' identity init), drawn from a
+    generator seeded with `seed` on `device` (CUDA unless given; the draws
+    differ from the reference's jax.random ones)."""
+    device = resolve_device(device, "init_params")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    shapes = param_shapes(cfg)
+
+    def norm(stack: tuple = ()):
+        return {k: v.expand(stack + v.shape).contiguous() for k, v in
+                init_norm(cfg.norm, cfg.d_model, device=device).items()}
+
+    def weight(shape, in_axis):
+        return dense_init(gen, shape, in_axis=in_axis, dtype=cfg.torch_dtype)
+
+    params = {
+        "embed": weight(shapes["embed"], 1),
+        "layers": {k: norm((cfg.n_layers,)) if isinstance(s, dict)
+                   else weight(s, 1)
+                   for k, s in shapes["layers"].items()},
+        "final_norm": norm(),
+    }
+    if "lm_head" in shapes:
+        params["lm_head"] = weight(shapes["lm_head"], 0)
+    return params
+
+
+def _layer_params(params: dict, i: int) -> dict:
+    """Layer i's slice of the stacked layer parameters."""
+    return {k: ({kk: vv[i] for kk, vv in v.items()} if isinstance(v, dict)
+                else v[i]) for k, v in params["layers"].items()}
+
+
+def _attention(q, k, v, cfg: TransformerConfig, causal: bool,
+               kv_positions=None, q_positions=None):
+    """q (B,S,H,Dh), k/v (B,T,Hk,Dh) -> (B,S,H,Dh). fp32 softmax."""
+    b, s, h, dh = q.shape
+    t = k.shape[1]
+    hk = k.shape[2]
+    g = h // hk
+    if cfg.use_flash and s == t and s % 128 == 0:
+        # the kernel takes (B, H, S, D) and never copies: lay it out here
+        out = kops.flash_attention(
+            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+            v.transpose(1, 2).contiguous(), causal=causal)
+        return out.transpose(1, 2)
+    if cfg.attn_chunk is not None and s > cfg.attn_chunk \
+            and s % cfg.attn_chunk == 0:
+        if q_positions is None:
+            q_positions = torch.arange(s, device=q.device).expand(b, s)
+        ck = cfg.attn_chunk
+        base = dataclasses.replace(cfg, attn_chunk=None)
+        return torch.cat([
+            _attention(q[:, i:i + ck], k, v, base, causal,
+                       kv_positions=kv_positions,
+                       q_positions=q_positions[:, i:i + ck])
+            for i in range(0, s, ck)], dim=1)
+    qg = q.reshape(b, s, hk, g, dh)
+    # bf16 operands with f32 accumulation (attn_bf16_operands) are the same
+    # products as the f32 ones: each bf16 value and each product of two is
+    # exact in f32. What that option changes is the weights' cast to the
+    # cache dtype before the PV product, kept below.
+    logits = torch.einsum("bshgd,bthd->bhgst", qg.float(),
+                          k.float()) * dh ** -0.5
+    if q_positions is None:
+        q_positions = torch.arange(s, device=q.device)[None, :]
+    if kv_positions is None:
+        kv_positions = torch.arange(t, device=q.device)[None, :]
+    mask = kv_positions[:, None, :] <= q_positions[:, :, None]  # (B,S,T)
+    if cfg.window is not None:
+        mask &= kv_positions[:, None, :] > (q_positions[:, :, None]
+                                            - cfg.window)
+    if not causal:
+        mask = torch.ones_like(mask)
+    logits = torch.where(mask[:, None, None, :, :], logits,
+                         torch.tensor(-1e30, dtype=torch.float32,
+                                      device=q.device))
+    w = torch.softmax(logits, dim=-1)
+    if cfg.attn_bf16_operands:
+        w = w.to(v.dtype).float()
+    out = torch.einsum("bhgst,bthd->bshgd", w, v.float())
+    return out.reshape(b, s, h, dh).to(q.dtype)
+
+
+def _ffn(lp, x, cfg: TransformerConfig):
+    up = x @ lp["w_up"]
+    if cfg.glu:
+        up = activation(x @ lp["w_gate"], cfg.act) * up
+    else:
+        up = activation(up, cfg.act)
+    return up @ lp["w_down"]
+
+
+def _block(lp, x, cfg: TransformerConfig, positions):
+    """One layer over (B, S, D); returns (x, k, v) with k, v (B,S,Hk,Dh)."""
+    b, s, _ = x.shape
+    h = apply_norm(x, lp["ln1"], cfg.norm)
+    q = (h @ lp["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = (h @ lp["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = (h @ lp["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    attn = _attention(q, k, v, cfg, causal=True,
+                      q_positions=positions, kv_positions=positions)
+    x = x + attn.reshape(b, s, -1) @ lp["wo"]
+    x = x + _ffn(lp, apply_norm(x, lp["ln2"], cfg.norm), cfg)
+    return x, k, v
+
+
+def _embed(params, tokens, cfg: TransformerConfig):
+    return params["embed"][tokens].to(cfg.torch_dtype)
+
+
+def forward(params, tokens: torch.Tensor, cfg: TransformerConfig):
+    """tokens (B, S) int -> final hidden states (B, S, D)."""
+    _full_f32_matmuls()
+    x = _embed(params, tokens, cfg)
+    x = layers.shard_activations(x, cfg.batch_axes, cfg.seq_axes)
+    positions = torch.arange(tokens.shape[1],
+                             device=tokens.device).expand(tokens.shape)
+    for i in range(cfg.n_layers):
+        x, _, _ = _block(_layer_params(params, i), x, cfg, positions)
+    return apply_norm(x, params["final_norm"], cfg.norm)
+
+
+def logits_fn(params, hidden, cfg: TransformerConfig):
+    head = (params["embed"].T if cfg.tie_embeddings
+            else params["lm_head"])
+    return hidden @ head
+
+
+def forward_with_cache(params, tokens: torch.Tensor, cfg: TransformerConfig):
+    """Prefill: returns (last-token logits (B, V), kv cache dict).
+
+    Cache layout matches decode_step: (L, B, S, Hkv, Dh)."""
+    _full_f32_matmuls()
+    b, s = tokens.shape
+    x = _embed(params, tokens, cfg)
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        x, k, v = _block(_layer_params(params, i), x, cfg, positions)
+        ks.append(k)
+        vs.append(v)
+    x = apply_norm(x, params["final_norm"], cfg.norm)
+    logits = logits_fn(params, x[:, -1, :], cfg)
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+# ----------------------------------------------------------------- decode ---
+def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
+               device: torch.device | str | None = None):
+    device = resolve_device(device, "init_cache")
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
+
+
+def decode_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
+                cfg: TransformerConfig):
+    """One-token decode. tokens (B,) int; pos (B,) current positions.
+
+    Returns (logits (B, V), cache). The cache is updated IN PLACE and
+    returned: each slot's new K/V row is written at its position, which
+    overwrites whatever the slot held there, as both of the reference's
+    update modes (one-hot multiply-add and per-slot scatter) do; so
+    `scatter_cache_update` selects nothing here.
+    """
+    _full_f32_matmuls()
+    b = tokens.shape[0]
+    x = _embed(params, tokens, cfg)[:, None, :]                 # (B,1,D)
+    positions = pos[:, None]
+    max_seq = cache["k"].shape[2]
+    kv_pos = torch.arange(max_seq, device=tokens.device)[None, :]
+    slots = torch.arange(b, device=tokens.device)
+    rows = pos.long()
+    for i in range(cfg.n_layers):
+        lp = _layer_params(params, i)
+        h = apply_norm(x, lp["ln1"], cfg.norm)
+        q = (h @ lp["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+        k = (h @ lp["wk"]).reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
+        v = (h @ lp["wv"]).reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        k_cache, v_cache = cache["k"][i], cache["v"][i]
+        k_cache[slots, rows] = k[:, 0]
+        v_cache[slots, rows] = v[:, 0]
+        attn = _attention(q, k_cache, v_cache, cfg, causal=True,
+                          q_positions=positions, kv_positions=kv_pos)
+        x = x + attn.reshape(b, 1, -1) @ lp["wo"]
+        x = x + _ffn(lp, apply_norm(x, lp["ln2"], cfg.norm), cfg)
+    x = apply_norm(x, params["final_norm"], cfg.norm)
+    logits = logits_fn(params, x[:, 0, :], cfg)
+    return logits, cache

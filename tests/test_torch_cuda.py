@@ -228,3 +228,113 @@ def test_shapes_on_cuda_equal_cpu(dev, join):
     for name in ("tree_descend", "bloom_probe", "merge_join_ranks",
                  "bucketed_min_core"):
         assert ops.LAUNCHES[name] > 0
+
+
+# ------------------------------------ block scan, Morton, flash attention --
+@pytest.mark.parametrize("nb,bsz", [(1, 1), (3, 7), (64, 1024), (17, 4100)])
+@pytest.mark.parametrize("theta", [-1e30, 0.5])
+def test_block_scan_kernel_matches_plain(dev, nb, bsz, theta):
+    rng = np.random.default_rng(nb + bsz)
+    s = torch.from_numpy(rng.normal(0.5, 0.5, (nb, bsz))
+                         .astype(np.float32)).to(dev)
+    _equal(ops.block_scan(s, theta), ref.block_scan_ref(s, theta))
+
+
+def test_morton_kernel_matches_plain(dev):
+    rng = np.random.default_rng(9)
+    cx = rng.integers(-(1 << 31), (1 << 31) - 1, 100_003).astype(np.int32)
+    cy = rng.integers(-(1 << 31), (1 << 31) - 1, 100_003).astype(np.int32)
+    cx[:4], cy[:4] = [0, 0xFFFF, 0xFFFF, 0x8000], [0, 0, 0xFFFF, 0x8000]
+    x, y = torch.from_numpy(cx).to(dev), torch.from_numpy(cy).to(dev)
+    got = ops.morton_encode(x, y)
+    _equal([got], [ref.morton_ref(x, y)])
+    assert got[:4].tolist() == [0, 0x55555555, -1, -(1 << 31) + (1 << 30)]
+
+
+def _qkv(dev, dtype, b, hq, hkv, s, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(b, h, s, d)).astype(
+        np.float32)).to(dev, dtype) for h in (hq, hkv, hkv)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d", [
+    (1, 2, 2, 128, 64), (1, 4, 2, 128, 64), (2, 8, 1, 256, 32),
+    (1, 6, 2, 200, 128), (1, 2, 1, 64, 256)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-4, 2e-4),
+                                             (torch.bfloat16, 2 ** -7, 1e-3)])
+def test_flash_kernel_matches_plain(dev, b, hq, hkv, s, d, causal, dtype,
+                                    rtol, atol):
+    """f32 at the reference's 2e-4 (tests/test_kernels.py). bf16 at one
+    rounding step, |got - want| <= 2^-7 |want| + 1e-3, inside the
+    reference's 5e-2: both sides compute in f32 from the same operands and
+    round once to bf16. S = 200 is not a multiple of the kernel's tiles."""
+    q, k, v = _qkv(dev, dtype, b, hq, hkv, s, d)
+    got = ops.flash_attention(q, k, v, causal)
+    want = ref.flash_attention_ref(q, k, v, causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    q, k, v = _qkv(dev, torch.float32, 1, 4, 2, 128, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                            k, v)
+    with pytest.raises(ValueError, match="multiple"):
+        ops.flash_attention(*_qkv(dev, torch.float32, 1, 4, 3, 128, 64))
+    with pytest.raises(TypeError, match="bfloat16"):
+        ops.flash_attention(*_qkv(dev, torch.float16, 1, 4, 2, 128, 64))
+    with pytest.raises(TypeError, match="bfloat16"):
+        ops.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(*_qkv(dev, torch.float32, 1, 2, 2, 128, 48))
+
+
+def test_flash_launch_count_moves_only_on_launches(dev):
+    q, k, v = _qkv(dev, torch.bfloat16, 1, 2, 1, 128, 64)
+    ops.reset_launch_counts()
+    ops.flash_attention(q, k, v)
+    ops.flash_attention(q.cpu(), k.cpu(), v.cpu())
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k[:, :, :64].contiguous(), v)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert sum(ops.LAUNCHES.values()) == 1
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def test_lm_prefill_and_decode_on_cuda_equal_cpu(dev):
+    """gemma-7b's smoke config (f32): flash prefill at S = 128, then three
+    decode steps through the prefilled cache, on the card and on the CPU,
+    within 1e-4 (f32 products summed in other orders; TF32 would fail)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as ttr
+    cfg = dataclasses.replace(registry.get("gemma-7b").smoke, use_flash=True)
+    params = ttr.init_params(cfg, seed=3, device="cpu")
+    rng = np.random.default_rng(1)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 128)))
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 2)))
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        ops.reset_launch_counts()
+        p = _to(params, d)
+        logits, pre = ttr.forward_with_cache(p, tok.to(d), cfg)
+        if d.type == "cuda":
+            assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+        cache = ttr.init_cache(cfg, 2, 160, device=d)
+        for n in ("k", "v"):
+            cache[n][:, :, :128] = pre[n]
+        out = [logits]
+        for i in range(3):
+            pos = torch.full((2,), 128 + i, dtype=torch.int32, device=d)
+            step_logits, cache = ttr.decode_step(p, cache, nxt[i].to(d), pos,
+                                                 cfg)
+            out.append(step_logits)
+        runs.append([o.cpu() for o in out] + [cache["k"].cpu()])
+    for got, want in zip(*runs):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -26,6 +26,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import sys\n"
         "import repro_torch, repro_torch.interop, repro_torch.kernels.ops\n"
         "import repro_torch.kernels._build, repro_torch.data.synth_rdf\n"
+        "import repro_torch.models.transformer, repro_torch.serve.engine\n"
+        "import repro_torch.launch.serve, repro_torch.configs.registry\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")
@@ -58,6 +60,38 @@ def test_engine_defaults_to_cuda_and_raises_without_it(tiny, monkeypatch):
     assert eng.device == torch.device("cpu")
     scores, rows, stats = eng.execute(tiny.queries[0])
     assert len(scores) and np.isfinite(scores).all()
+
+
+def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    cfg = registry.get("codeqwen1.5-7b").smoke
+    params = transformer.init_params(cfg, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: transformer.init_params(cfg),
+                 lambda: transformer.init_cache(cfg, 2, 8),
+                 lambda: ServeEngine(transformer, params, cfg),
+                 lambda: ServeEngine(transformer, params, cfg,
+                                     device="cuda"),
+                 lambda: serve.serve_lm(cfg, 1)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    eng = ServeEngine(transformer, params, cfg, max_batch=2, max_seq=8,
+                      device="cpu")
+    assert eng.device == torch.device("cpu")
+    assert eng.cache["k"].device == torch.device("cpu")
+
+
+def test_serve_launcher_refuses_to_start_without_cuda():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "gemma-7b", "--smoke"], capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin",
+             "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0 and "CUDA" in out.stderr
+    assert "served" not in out.stdout
 
 
 @pytest.mark.parametrize("stage", ["probe", "rank"])

@@ -1,0 +1,102 @@
+"""Port vs reference: the continuous-batching `ServeEngine` on the CPU.
+
+Both engines serve the reference launcher's requests (4 slots, max_seq 64,
+4-token prompts from default_rng(0), 8 new tokens each; `launch/serve.py`)
+on a dense `SMOKE` config (f32) with the same weights
+(`interop.transformer_params_from_state`). Every pool-wide decode step's
+logits (all slots, idle ones too) must agree within 1e-4 absolute and
+relative (f32 products summed in other orders, see
+tests/test_torch_transformer.py). The greedy tokens must be equal wherever
+the top-2 logit gap exceeds that tolerance; a flip inside it is reported
+as a warning naming the step and slot, and the streams are compared up to
+that step only, since from there on they are fed different tokens.
+"""
+import warnings
+
+import jax
+import numpy as np
+import pytest
+
+from repro.configs import registry as ref_registry
+from repro.models import transformer as rtr
+from repro.serve.engine import Request as RefRequest
+from repro.serve.engine import ServeEngine as RefEngine
+from repro_torch.configs import registry
+from repro_torch.interop import transformer_params_from_state
+from repro_torch.launch import serve as launch
+from repro_torch.models import transformer as ttr
+from repro_torch.serve.engine import ServeEngine
+
+TOL = 1e-4
+
+
+def _recording(engine, log, to_numpy):
+    step = engine._step
+
+    def wrapped(*args):
+        logits, cache = step(*args)
+        log.append(to_numpy(logits))
+        return logits, cache
+    engine._step = wrapped
+
+
+def _serve(engine, reqs, to_numpy):
+    log = []
+    _recording(engine, log, to_numpy)
+    for r in reqs:
+        engine.submit(r)
+    engine.run()
+    return log
+
+
+@pytest.mark.parametrize("arch", ["gemma-7b", "codeqwen1.5-7b",
+                                  "nemotron-4-15b"])
+def test_serve_engine_matches_reference(arch):
+    ref_cfg = ref_registry.get(arch).SMOKE
+    cfg = registry.get(arch).smoke
+    ref_params = rtr.init_params(jax.random.PRNGKey(0), ref_cfg)
+    params = transformer_params_from_state(
+        jax.tree.map(np.asarray, ref_params), cfg, "cpu")
+
+    reqs = launch.launcher_requests(cfg, 4)
+    rng = np.random.default_rng(0)      # the reference launcher's requests
+    ref_reqs = [RefRequest(rid=i, prompt=rng.integers(1, ref_cfg.vocab,
+                                                      4).tolist(),
+                           max_new=8) for i in range(4)]
+    assert [r.prompt for r in reqs] == [r.prompt for r in ref_reqs]
+
+    ref_eng = RefEngine(rtr, ref_params, ref_cfg, max_batch=launch.SLOTS,
+                        max_seq=launch.MAX_SEQ)
+    eng = ServeEngine(ttr, params, cfg, max_batch=launch.SLOTS,
+                      max_seq=launch.MAX_SEQ, device="cpu")
+    want = _serve(ref_eng, ref_reqs, np.asarray)
+    got = _serve(eng, reqs, lambda t: t.numpy())
+
+    # 4 prompts x 3 prefill steps, then 8 pool steps
+    assert len(want) == 4 * 3 + 8
+    n = min(len(got), len(want))
+    flip = None
+    for i in range(n):
+        np.testing.assert_allclose(got[i], want[i], rtol=TOL, atol=TOL,
+                                   err_msg=f"step {i}")
+        g_tok, w_tok = got[i].argmax(-1), want[i].argmax(-1)
+        for slot in np.flatnonzero(g_tok != w_tok):
+            top2 = np.sort(want[i][slot])[-2:]
+            assert top2[1] - top2[0] <= TOL, (
+                f"step {i} slot {slot}: tokens {g_tok[slot]} vs "
+                f"{w_tok[slot]} with a top-2 gap above the tolerance")
+            flip = flip or (i, slot)
+        if flip:
+            warnings.warn(f"{arch}: greedy token flipped inside the "
+                          f"tolerance at step {flip[0]} slot {flip[1]}; "
+                          "streams compared up to there")
+            return
+    assert len(got) == len(want)
+    assert [r.out for r in reqs] == [r.out for r in ref_reqs]
+    assert all(len(r.out) == 8 and r.done for r in reqs)
+
+
+def test_launcher_serves_on_the_cpu_when_asked():
+    r = launch.serve_lm(registry.get("gemma-7b").smoke, 2, device="cpu")
+    assert r["tokens"] == 16 and r["device"] == "cpu"
+    assert all(len(o) == 8 for o in r["outputs"])
