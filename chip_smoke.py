@@ -8,7 +8,10 @@ In order it:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the nine CUDA kernels of `src/repro_torch/csrc/` and prints the
-   build time and each kernel's ptxas register and shared-memory use;
+   build time and each kernel's ptxas register and shared-memory use; for
+   each flash instantiation (dtype, head dim) its registers, spills,
+   shared memory and the tensor-core instructions in its SASS (cuobjdump),
+   failing on a spill or on a bf16 instantiation without them;
 3. holds each kernel against its plain torch version on the card, at the
    shapes the main path gives it: bit-identical output for the STREAK
    kernels, `block_scan` and `morton_encode`, the reference's tolerances
@@ -54,10 +57,12 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -94,11 +99,12 @@ OPS_KERNELS = ("block_scan", "morton_encode")
 # as a floor: max |got - want| of at most these
 FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 # In bf16 every element is also held to |got - want| <= 2^-7 |want| + 1e-3.
-# The kernel and the plain version both compute in f32 from the same bf16
-# operands and round once to bf16, so they may differ by one rounding step,
-# at most 2^-7 |want|; 1e-3 covers the f32 sums' order near zero. Where a
-# row averages over ~2,000 keys, |o| ~ 0.04 and 5e-2 alone would pass a
-# kernel that dropped a kv tile (the planted faults in check_flash).
+# The plain version computes in f32 from the bf16 operands, the kernel sums
+# in f32 with P kept to ~16 bits (bf16 hi + lo); both round once to bf16,
+# so they may differ by one rounding step, at most 2^-7 |want|; 1e-3
+# covers the f32 sums' order near zero. Where a row averages over ~2,000
+# keys, |o| ~ 0.04 and 5e-2 alone would pass a kernel that dropped a kv
+# tile (the planted faults in check_flash).
 FLASH_BF16_RTOL, FLASH_BF16_ATOL = 2 ** -7, 1e-3
 
 
@@ -498,14 +504,115 @@ def _qkv(dev, dtype, b, hq, hkv, s, d, seed=0):
             for h in (hq, hkv, hkv)]
 
 
-def flash_bound(q, k, causal: bool) -> tuple[float, str]:
-    """q/k/v read and o written once; 4*B*Hq*S^2*D operations, halved when
-    causal; at the bf16 tensor-core rate or the f32 rate by the dtype."""
+def flash_ops(q, causal: bool) -> float:
+    """The algorithm's operations: 4*B*Hq*S^2*D, halved when causal."""
     b, hq, s, d = q.shape
+    return 4 * b * hq * s * s * d / (2 if causal else 1)
+
+
+def flash_bound(q, k, causal: bool) -> tuple[float, str]:
+    """q/k/v read and o written once; flash_ops at the bf16 tensor-core
+    rate or the f32 rate by the dtype."""
     n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    n_ops = 4 * b * hq * s * s * d / (2 if causal else 1)
     rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
-    return bound_ms(n_bytes, n_ops, rate)
+    return bound_ms(n_bytes, flash_ops(q, causal), rate)
+
+
+def flash_p_bf16(q, k, v, causal: bool):
+    """The plain version with P = exp(logit - row max) rounded to bf16
+    before P V, l summed from the f32 P: a textbook FA2/FA3 kernel's
+    rounding, a planted fault of check_flash."""
+    s, d = q.shape[2], q.shape[3]
+    g = q.shape[1] // k.shape[1]
+    kk = k.repeat_interleave(g, dim=1).float()
+    vv = v.repeat_interleave(g, dim=1).float()
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * d ** -0.5
+    if causal:
+        keep = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~keep, float("-inf"))
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    del logits
+    l = p.sum(-1, keepdim=True)
+    return (torch.einsum("bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(), vv)
+            / l).to(q.dtype)
+
+
+def ptxas_entries(log: str) -> dict:
+    """Entry symbol -> registers, spill bytes, static shared memory and
+    whether ptxas serialized its wgmma instructions, from a `-Xptxas -v`
+    log."""
+    entries: dict = {}
+
+    def entry(symbol: str) -> dict:
+        return entries.setdefault(symbol, dict(
+            registers=None, spill_store_bytes=0, spill_load_bytes=0,
+            static_smem_bytes=0, wgmma_serialized=False))
+    cur = None
+    for ln in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", ln):
+            cur = entry(m.group(1))
+        elif "wgmma.mma_async instructions are serialized" in ln:
+            # ptxas names the function, before or after compiling it
+            m = re.search(r"function '([^']+)'", ln)
+            if m or cur is not None:
+                (entry(m.group(1)) if m else cur)["wgmma_serialized"] = True
+        elif cur is not None:
+            if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", ln):
+                cur["spill_store_bytes"] = int(m.group(1))
+                cur["spill_load_bytes"] = int(m.group(2))
+            if m := re.search(r"Used (\d+) registers", ln):
+                cur["registers"] = int(m.group(1))
+            if m := re.search(r"(\d+) bytes smem", ln):
+                cur["static_smem_bytes"] = int(m.group(1))
+    return entries
+
+
+def flash_build_report(build) -> list:
+    """One row per flash instantiation (dtype, D): ptxas's registers,
+    spills and static shared memory, the dynamic shared memory its launcher
+    asks for, and the tensor-core instructions (HGMMA, HMMA) in its SASS.
+    Raises on a spill, or on a bf16 instantiation without HGMMA."""
+    lib = build._target("flash_attention")
+    smem = ctypes.CDLL(str(lib)).flash_attention_smem_bytes
+    smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    sass = subprocess.run(
+        [str(pathlib.Path(build._nvcc()).parent / "cuobjdump"), "-sass",
+         str(lib)], capture_output=True, text=True, check=True,
+        timeout=300).stdout
+    mma: collections.Counter = collections.Counter()
+    fn = None
+    for ln in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", ln):
+            fn = m.group(1)
+        elif fn and (m := re.search(r"\b(HGMMA|HMMA)\.", ln)):
+            mma[fn, m.group(1)] += 1
+    rows = []
+    for sym, info in ptxas_entries(build.build_logs["flash_attention"]).items():
+        m = re.search(r"flash_attention_kernel_(bf16|f32)ILi(\d+)E", sym)
+        if m is None:
+            continue
+        dtype, d = m.group(1), int(m.group(2))
+        row = dict(dtype=dtype, D=d, **info,
+                   dynamic_smem_bytes=smem(d, int(dtype == "bf16")),
+                   hgmma=mma[sym, "HGMMA"], hmma=mma[sym, "HMMA"])
+        if dtype == "bf16":
+            row["registers_note"] = ("ptxas's count at launch; setmaxnreg "
+                                     "then gives consumer threads 240, the "
+                                     "producer's 24")
+        rows.append(row)
+    rows.sort(key=lambda r: (r["dtype"], r["D"]))
+    if len(rows) != 8:
+        raise AssertionError(f"flash build: {len(rows)} instantiations in "
+                             "the ptxas log, not 8")
+    for r in rows:
+        if r["spill_store_bytes"] or r["spill_load_bytes"]:
+            raise AssertionError(f"flash build: {r['dtype']} D={r['D']} "
+                                 "spills registers")
+        if r["dtype"] == "bf16" and not r["hgmma"]:
+            raise AssertionError(f"flash build: bf16 D={r['D']} has no "
+                                 "HGMMA in its SASS")
+    return rows
 
 
 def flash_errors(got, want) -> tuple[float, float]:
@@ -536,10 +643,13 @@ def check_flash(ops, ref, dev, entry, cases):
     codeqwen's MHA (32/32, D=128), MQA (16/1, D=256) and gemma's heads at S
     = 128, 256, 1024 (nemotron also 2048), f32 and bf16, causal and not;
     each against the plain version within the reference's tolerance and,
-    in bf16, within 2^-7 |want| + 1e-3 elementwise. Two planted faults at
+    in bf16, within 2^-7 |want| + 1e-3 elementwise. Three planted faults at
     the prefill shape, computed by the plain version, must fail the bf16
-    limit: the last kv tile (32 keys) skipped, and q, k, v rounded to fp8
-    (e4m3)."""
+    limit: the last kv tile (32 keys) skipped, q, k, v rounded to fp8
+    (e4m3), and P rounded to bf16 before P V (what the kernel's hi + lo
+    split avoids). The entry also gets the kernel's achieved TFLOP/s
+    (the algorithm's operations over its device time) and its share of
+    the bound."""
     import torch.nn.functional as F
     sweep = [(name, hq, hkv, d, s)
              for name, hq, hkv, d in (("nemotron", 48, 8, 128),
@@ -575,7 +685,9 @@ def check_flash(ops, ref, dev, entry, cases):
                              ref.flash_attention_ref(q, k, v, True))
     cases.append(dict(kernel="flash_attention", heads="gemma", Hq=h, Hkv=h,
                       D=d, S=s, dtype="float32", causal=True,
-                      max_abs_err=err32))
+                      max_abs_err=err32, device_ms=device_ms(
+                          lambda: ops.flash_attention(q, k, v, True),
+                          "flash_attention_kernel", 3)))
     q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
     got = ops.flash_attention(q, k, v, True)
     want = ref.flash_attention_ref(q, k, v, True)
@@ -586,9 +698,10 @@ def check_flash(ops, ref, dev, entry, cases):
         q[:, :, -32:], k[:, :, :-32], v[:, :, :-32], False)
     fp8 = ref.flash_attention_ref(
         *(x.to(torch.float8_e4m3fn).to(x.dtype) for x in (q, k, v)), True)
+    p_bf16 = flash_p_bf16(q, k, v, True)
     faults = {}
     for fault, out in (("last_kv_tile_skipped", tail),
-                       ("fp8_operands", fp8)):
+                       ("fp8_operands", fp8), ("p_rounded_to_bf16", p_bf16)):
         f_err, f_excess = flash_errors(out, want)
         faults[fault] = dict(max_abs_err=f_err, max_err_over_limit=f_excess,
                              passes_reference_tol=f_err <= FLASH_TOL[
@@ -596,7 +709,7 @@ def check_flash(ops, ref, dev, entry, cases):
         if not f_excess > 1:
             raise AssertionError(f"flash_attention: the planted fault "
                                  f"{fault} passes the bf16 limit")
-    del tail, fp8
+    del tail, fp8, p_bf16
 
     def library():
         return F.scaled_dot_product_attention(q, k, v, is_causal=True,
@@ -622,7 +735,12 @@ def check_flash(ops, ref, dev, entry, cases):
         library_max_err_over_limit=lib_excess,
         library_note="F.scaled_dot_product_attention(is_causal=True, "
                      "enable_gqa=True), device time")
+    entry["tflops"] = flash_ops(q, True) / entry["device_ms"] / 1e9
+    entry["bound_share"] = entry["bound_ms"] / entry["device_ms"]
     print("flash planted faults " + json.dumps(faults), flush=True)
+    print(f"flash rate: {entry['tflops']:.1f} TFLOP/s of the algorithm's "
+          f"{flash_ops(q, True) / 1e9:.1f} GFLOP, {entry['bound_share']:.3f}"
+          f" of the bound", flush=True)
 
 
 # ------------------------------------------------------- end-to-end phase --
@@ -889,9 +1007,12 @@ def check_lm_prefill(ops, ref, tr, cfg, params, dev,
             return (time.perf_counter() - t0) * 1e3
         return run
     plain_cfg = dataclasses.replace(cfg, use_flash=False, attn_chunk=2048)
-    flash_ms = [prefill(cfg)() for _ in range(3)]
-    plain_ms = [prefill(plain_cfg)() for _ in range(2)]
+    runs: dict = {"flash": [], "plain": []}
+    for path in ("flash", "plain", "flash", "plain", "flash"):   # in turns
+        runs[path].append(prefill(cfg if path == "flash" else plain_cfg)())
+    flash_ms, plain_ms = runs["flash"], runs["plain"]
     trace = traced(prefill(cfg))
+    plain_trace = traced(prefill(plain_cfg))
     logits_p, cache_p = tr.forward_with_cache(params, tok, plain_cfg)
     hidden = tr.forward(params, tok, cfg)
     logits_fw = tr.logits_fn(params, hidden[:, -1], cfg)
@@ -941,7 +1062,8 @@ def check_lm_prefill(ops, ref, tr, cfg, params, dev,
                        n_ops, BF16_OPS_PER_S)
     report = dict(tokens=int(tok.numel()), flash_launches_per_call=launches[
         "flash_attention"], flash_ms=flash_ms, plain_ms=plain_ms,
-        bound_ms=bnd, bound_by=by, trace=trace, errors=errs,
+        bound_ms=bnd, bound_by=by, trace=trace, plain_trace=plain_trace,
+        errors=errs,
         layer0_cache_equal=layer0_equal, tolerance_rel=LM_REL_TOL)
     print("lm prefill " + json.dumps(report), flush=True)
     for key in ("logits_vs_plain", "logits_vs_forward", "cache_vs_plain"):
@@ -1165,6 +1287,9 @@ def main() -> None:
     for name, log in _build.build_logs.items():
         used = [ln.strip() for ln in log.splitlines() if "Used" in ln]
         print(f"  {name}: {'; '.join(used)}")
+    flash_build = flash_build_report(_build)
+    for row in flash_build:
+        print("flash build " + json.dumps(row))
     phase_done("build", t0)
 
     t0 = time.perf_counter()
@@ -1196,6 +1321,7 @@ def main() -> None:
     check_merge_join_ranks(ops, ref, dev, entries["merge_join_ranks"], cases)
     check_block_scan(ops, ref, dev, entries["block_scan"], cases)
     check_morton(ops, ref, dev, entries["morton_encode"])
+    entries["flash_attention"]["ptxas"] = flash_build
     check_flash(ops, ref, dev, entries["flash_attention"], cases)
     for e in entries.values():
         lib = ("" if e["library_ms"] is None

@@ -2,9 +2,10 @@
 
 Each `csrc/<name>.cu` compiles on its own into `_build/<name>-<hash>.so`, a
 shared library with a plain C interface (no PyTorch headers, so a build takes
-seconds). All sources build in parallel, once per content hash, at the first
-launch of any kernel; nothing is built when the package is imported. A
-failed build raises with nvcc's output.
+seconds), with the flags `nvcc_flags(name)` gives it. All sources build in
+parallel, once per hash of their content and flags, at the first launch of
+any kernel; nothing is built when the package is imported. A failed build
+raises with nvcc's output.
 """
 from __future__ import annotations
 
@@ -19,29 +20,40 @@ PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 
-# --fmad=false: no multiply-add contraction anywhere, so every f32 step is
-# rounded as the plain torch versions round it
+# flags of every source; -Xptxas -v reports registers, shared memory and
+# spills into build_logs
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# --fmad=false: no multiply-add contraction, so every f32 step is rounded as
+# the plain torch versions round it (the STREAK kernels' exact f32
+# predicates, block_scan's compares, morton_encode's integers)
+EXACT_F32 = ["--fmad=false"]
 
-# kernel name -> C launcher symbol and its ctypes argument types; every
-# launcher returns the cudaError_t of its launch
+# kernel name -> C launcher symbol, its ctypes argument types and the
+# source's own nvcc flags; every launcher returns the cudaError_t of its
+# launch. flash_attention contracts multiply-adds: it is held to a tolerance,
+# not to its plain version's bits.
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F = ctypes.c_float
 KERNELS = {
     "fused_topk_join": ("fused_topk_join_launch",
-                        [_P] * 11 + [_I, _I, _I, _P]),
-    "distance_join": ("distance_join_launch", [_P, _P, _P, _L, _L, _P]),
+                        [_P] * 11 + [_I, _I, _I, _P], EXACT_F32),
+    "distance_join": ("distance_join_launch", [_P, _P, _P, _L, _L, _P],
+                      EXACT_F32),
     "bucketed_min_core": ("bucketed_min_core_launch",
-                          [_P, _P, _P, _I, _I, _I, _I, _P]),
-    "tree_descend": ("tree_descend_launch", [_P, _P, _P, _P, _I, _I, _I, _P]),
-    "bloom_probe": ("bloom_probe_launch", [_P, _P, _P, _L, _I, _I, _P]),
+                          [_P, _P, _P, _I, _I, _I, _I, _P], EXACT_F32),
+    "tree_descend": ("tree_descend_launch", [_P, _P, _P, _P, _I, _I, _I, _P],
+                     EXACT_F32),
+    "bloom_probe": ("bloom_probe_launch", [_P, _P, _P, _L, _I, _I, _P],
+                    EXACT_F32),
     "merge_join_ranks": ("merge_join_ranks_launch",
-                         [_P, _P, _P, _P, _L, _L, _I, _P]),
-    "block_scan": ("block_scan_launch", [_P, _F, _P, _P, _P, _I, _I, _P]),
-    "morton_encode": ("morton_encode_launch", [_P, _P, _P, _L, _P]),
-    "flash_attention": ("flash_attention_launch", [_P] * 4 + [_I] * 7 + [_P]),
+                         [_P, _P, _P, _P, _L, _L, _I, _P], EXACT_F32),
+    "block_scan": ("block_scan_launch", [_P, _F, _P, _P, _P, _I, _I, _P],
+                   EXACT_F32),
+    "morton_encode": ("morton_encode_launch", [_P, _P, _P, _L, _P],
+                      EXACT_F32),
+    "flash_attention": ("flash_attention_launch", [_P] * 4 + [_I] * 7 + [_P],
+                        []),
 }
 
 _launchers: dict[str, object] = {}   # kernel name -> ctypes launcher
@@ -59,9 +71,14 @@ def _nvcc() -> str:
     return found
 
 
+def nvcc_flags(name: str) -> list[str]:
+    """Every flag nvcc gets for kernel `name`'s source, output aside."""
+    return [*NVCC_FLAGS, *KERNELS[name][2]]
+
+
 def _target(name: str) -> pathlib.Path:
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(nvcc_flags(name)).encode())
     for dep in sorted(CSRC.glob("*.cuh")) + [src]:
         h.update(dep.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
@@ -80,7 +97,8 @@ def build_all() -> dict[str, pathlib.Path]:
         if so.exists():
             continue
         tmp = so.parent / f"{so.name}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *nvcc_flags(name), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, so)
@@ -108,7 +126,7 @@ def launcher(name: str):
     fn = _launchers.get(name)
     if fn is None:
         for kname, path in build_all().items():
-            symbol, argtypes = KERNELS[kname]
+            symbol, argtypes, _ = KERNELS[kname]
             f = getattr(ctypes.CDLL(str(path)), symbol)
             f.argtypes = argtypes
             f.restype = ctypes.c_int

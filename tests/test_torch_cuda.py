@@ -259,7 +259,7 @@ def _qkv(dev, dtype, b, hq, hkv, s, d, seed=0):
 
 @pytest.mark.parametrize("b,hq,hkv,s,d", [
     (1, 2, 2, 128, 64), (1, 4, 2, 128, 64), (2, 8, 1, 256, 32),
-    (1, 6, 2, 200, 128), (1, 2, 1, 64, 256)])
+    (1, 6, 2, 200, 128), (1, 2, 1, 64, 256), (1, 4, 1, 520, 256)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-4, 2e-4),
                                              (torch.bfloat16, 2 ** -7, 1e-3)])
@@ -267,8 +267,11 @@ def test_flash_kernel_matches_plain(dev, b, hq, hkv, s, d, causal, dtype,
                                     rtol, atol):
     """f32 at the reference's 2e-4 (tests/test_kernels.py). bf16 at one
     rounding step, |got - want| <= 2^-7 |want| + 1e-3, inside the
-    reference's 5e-2: both sides compute in f32 from the same operands and
-    round once to bf16. S = 200 is not a multiple of the kernel's tiles."""
+    reference's 5e-2: the plain version computes in f32, the kernel sums in
+    f32 with P kept to ~16 bits (bf16 hi + lo, see
+    tests/test_torch_flash_numerics.py), and both round once to bf16.
+    S = 200 and 520 are not multiples of the kernel's tiles; 520 spans
+    five query tiles."""
     q, k, v = _qkv(dev, dtype, b, hq, hkv, s, d)
     got = ops.flash_attention(q, k, v, causal)
     want = ref.flash_attention_ref(q, k, v, causal)
