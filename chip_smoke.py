@@ -11,10 +11,17 @@ In order it:
    build time and each kernel's ptxas register and shared-memory use; for
    each flash instantiation (dtype, head dim) its registers, spills,
    shared memory and the tensor-core instructions in its SASS (cuobjdump),
-   failing on a spill or on a bf16 instantiation without them;
+   failing on a spill or on a bf16 instantiation without them; then,
+   before any profiler session (once torch.profiler has traced the card,
+   every CUDA call of the process costs more on the host), times the
+   engine's rank call (numpy in and out) against numpy's search, and LGD
+   Q1-Q8 with the Bloom probes and the rank pass on numpy and on their
+   kernels, then both query sets with the rank pass alone, in turns;
 3. holds each kernel against its plain torch version on the card, at the
    shapes the main path gives it: bit-identical output for the STREAK
-   kernels, `block_scan` and `morton_encode`, the reference's tolerances
+   kernels (the rank kernel in both of its layouts, at the main path's
+   median and largest call shapes, at ~1M keys and on edge tables),
+   `block_scan` and `morton_encode`, the reference's tolerances
    (f32 2e-4, bf16 5e-2) for `flash_attention` (gemma-7b's prefill shape
    and a sweep of GQA/MHA/MQA heads, dtypes, masks and lengths); times
    both per call with CUDA events (`ms`, `plain_ms`: the wrapper's host
@@ -30,6 +37,9 @@ In order it:
    kernel) — with the launch counts set to 0 just before and read just
    after, requires every STREAK kernel to have launched, and requires
    every answer, plan log and statistic to equal a `device="cpu"` run;
+   records the (N, M) of every rank launch and the inputs of every
+   `tree_descend` launch, then holds `tree_descend` against its plain
+   version at each of those inputs and times it at each tree's median one;
 5. drives the second entry point the same way: the Geographica shapes
    over the LGD data, spatial join and kNN under both joins, range and
    within (which never reach the Phase-3 join) under one, each equal to its
@@ -44,10 +54,10 @@ In order it:
    `ServeEngine` on the launcher's requests, request 0's decode logits held
    against the full forward over its prefix; then the three dense smoke
    configs (f32) on the card against the CPU;
-8. times LGD Q1-Q8 with the Bloom probes and the rank pass on numpy and on
-   their kernels, in turns, and traces one more pass of each query set on
-   the card: host ms per executor layer, device busy ms and the device's
-   idle share;
+8. traces one more pass of each query set on the card: host ms per
+   executor layer, device busy ms and the device's idle share; then the
+   LGD and 1M-quad sets (fused join) with the rank pass alone on numpy and
+   on its kernel, in turns ("rank turn");
 9. prints the kernels line (JSON), then the ok line (JSON) last.
 
 Any failed phase raises, so the script exits non-zero without the ok line.
@@ -277,16 +287,7 @@ def check_tree_descend(ops, ref, dev, entry, trees, cases):
         got = ops.tree_descend(node_keys, cs, box_keys)
         require_equal(f"tree_descend {name}", [got],
                       [ref.tree_descend_ref(node_keys, cs, box_keys)])
-        # box tests this data needs: up to each live (b, n)'s first hit
-        tests = 0
-        for bi in range(nb):
-            bx = box_keys[bi]
-            hit = ((node_keys[0][None] <= bx[:, 2:3])
-                   & (bx[:, 0:1] <= node_keys[2][None])
-                   & (node_keys[1][None] <= bx[:, 3:4])
-                   & (bx[:, 1:2] <= node_keys[3][None]))
-            first = torch.where(hit.any(0), hit.int().argmax(0) + 1, m)
-            tests += int(first[cs].sum())
+        tests = descend_tests(node_keys, cs, box_keys)
         ms = time_ms(lambda: ops.tree_descend(node_keys, cs,
                                                      box_keys), 50)
         dms = device_ms(lambda: ops.tree_descend(node_keys, cs, box_keys),
@@ -301,6 +302,59 @@ def check_tree_descend(ops, ref, dev, entry, trees, cases):
             entry.update(shape=f"B={nb} M={m} N={n}", max_abs_err=0.0,
                          ms=ms, device_ms=dms, plain_ms=plain, bound_ms=bnd,
                          bound_by=by)
+
+
+def descend_tests(node_keys, cs, box_keys) -> int:
+    """Box tests that these inputs need: for each live (b, node), the
+    boxes up to its first hit, all M where nothing hits it."""
+    m = box_keys.shape[1]
+    tests = 0
+    for bi in range(box_keys.shape[0]):
+        bx = box_keys[bi]
+        hit = ((node_keys[0][None] <= bx[:, 2:3])
+               & (bx[:, 0:1] <= node_keys[2][None])
+               & (node_keys[1][None] <= bx[:, 3:4])
+               & (bx[:, 1:2] <= node_keys[3][None]))
+        first = torch.where(hit.any(0), hit.int().argmax(0) + 1, m)
+        tests += int(first[cs].sum())
+    return tests
+
+
+def check_descend_path(ops, ref, captured, entry, cases):
+    """`tree_descend` at the inputs the main path gave it: every captured
+    launch bit-identical to the plain version, then, per tree, the launch
+    at the median M timed (the kernel alone, a call, the plain version)
+    beside its bound. The kernels line takes LGD's."""
+    by_tree = collections.defaultdict(list)
+    for args in captured:
+        require_equal(f"tree_descend path B={args[2].shape[0]} "
+                      f"M={args[2].shape[1]} N={args[0].shape[1]}",
+                      [ops.tree_descend(*args)], [ref.tree_descend_ref(*args)])
+        by_tree[args[0].shape[1]].append(args)
+    for n, launches in sorted(by_tree.items()):
+        launches.sort(key=lambda a: a[2].shape[1])
+        node_keys, cs, box_keys = launches[len(launches) // 2]
+        nb, m = box_keys.shape[0], box_keys.shape[1]
+        tests = descend_tests(node_keys, cs, box_keys)
+        ms = time_ms(lambda: ops.tree_descend(node_keys, cs, box_keys), 50)
+        dms = device_ms(lambda: ops.tree_descend(node_keys, cs, box_keys),
+                        "tree_descend_kernel")
+        plain = time_ms(lambda: ref.tree_descend_ref(node_keys, cs,
+                                                     box_keys), 10)
+        bnd, by = bound_ms(4 * n * 8 + n + nb * m * 32 + nb * n, tests * 4)
+        case = dict(kernel="tree_descend", tree=f"path N={n}", B=nb, M=m,
+                    N=n, live=int(cs.sum()), launches=len(launches),
+                    box_tests=tests, ms=ms, device_ms=dms, plain_ms=plain,
+                    bound_ms=bnd, bound_by=by)
+        cases.append(case)
+        print("case " + json.dumps(case), flush=True)
+        if n == min(by_tree):
+            entry["synthetic"] = {k: entry[k] for k in (
+                "shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by")}
+            entry.update(shape=f"B={nb} M={m} N={n} (the LGD path's median "
+                         "launch)", ms=ms, device_ms=dms, plain_ms=plain,
+                         bound_ms=bnd, bound_by=by)
 
 
 def check_bloom_probe(rt, ops, ref, dev, entry, lgd, cases):
@@ -387,34 +441,123 @@ def rank_words_touched(table, probes) -> tuple[int, int]:
     return int(seen.sum()), int(seen.view(-1, 4).any(1).sum())
 
 
-def check_merge_join_ranks(ops, ref, dev, entry, cases):
-    """A sorted table of ~1M int64 keys with runs of duplicates; probes of
-    M = 4096 and M ~ N below, inside (exact hits included) and above the
-    table; every side."""
-    rng = np.random.default_rng(6)
-    n = 1_000_003
+# (N, M) of the rank timings: the main path's median and largest call
+# (the recorded shapes of its 998 calls), then the synthetic shapes of the
+# earlier runs: ~1M keys against 4,096 probes and against as many probes
+RANK_SHAPES = ((6_000, 304), (222_222, 111_111), (1_000_003, 4_096),
+               (1_000_003, 1_000_003))
+
+
+def _rank_inputs(rng, n, m):
+    """A sorted int64 table of n keys in runs of 1-4 duplicates, and m
+    probes below, above, at (exact hits) and inside the table."""
     base = np.sort(rng.integers(-(1 << 40), 1 << 40, n))
-    table_np = np.repeat(base, rng.integers(1, 5, n))[:n]
-    table = torch.from_numpy(table_np).to(dev)
-    lo_v, hi_v = int(table_np[0]), int(table_np[-1])
-    for m in (4096, n):
-        probes_np = np.concatenate([
-            rng.integers(lo_v - (1 << 41), lo_v, m // 8),          # below
-            rng.integers(hi_v + 1, hi_v + (1 << 41), m // 8),      # above
-            rng.choice(table_np, m // 4),                          # hits
-            rng.integers(lo_v, hi_v, m - m // 8 * 2 - m // 4)])    # inside
-        probes = torch.from_numpy(rng.permutation(probes_np)).to(dev)
-        for side in ("both", "left", "right"):
-            got = ops.insertion_ranks(table, probes, side)
-            want = ref.merge_join_ranks_ref(table, probes, side)
-            require_equal(f"merge_join_ranks M={m} side={side}",
-                          got if side == "both" else [got],
-                          want if side == "both" else [want])
+    table = np.repeat(base, rng.integers(1, 5, n))[:n]
+    lo_v, hi_v = int(table[0]), int(table[-1])
+    probes = np.concatenate([
+        rng.integers(lo_v - (1 << 41), lo_v, m // 8),          # below
+        rng.integers(hi_v + 1, hi_v + (1 << 41), m // 8),      # above
+        rng.choice(table, m // 4),                             # hits
+        rng.integers(lo_v, hi_v, m - m // 8 * 2 - m // 4)])    # inside
+    return table, rng.permutation(probes)
+
+
+def _rank_edge_inputs(rng):
+    """{name: (table, probes)}: a run of equal keys longer than the
+    warp's 32-key gallop window, one repeated key, int64 extremes."""
+    lo, hi = -(1 << 63), (1 << 63) - 1
+    run = np.sort(np.concatenate([rng.integers(-500, 500, 3000),
+                                  np.full(5000, 7)]))
+    return {
+        "long run": (run, np.array([7, 6, 8, 0, -501, 501] * 9)),
+        "one key": (np.full(4096, 42), np.array([42, 41, 43, lo, hi] * 9)),
+        "int64 extremes": (
+            np.sort(np.concatenate([[lo, lo, hi, hi],
+                                    rng.integers(lo, hi, 999)])),
+            np.array([lo, lo + 1, hi, hi - 1, 0, -1] * 9)),
+    }
+
+
+def _require_ranks(ops, ref, name, table, probes):
+    """Every side, through the wrapper and each layout (a thread a probe,
+    a warp a probe), bit-identical to the plain version."""
+    for side in ("both", "left", "right"):
+        want = ref.merge_join_ranks_ref(table, probes, side)
+        want = list(want) if side == "both" else [want]
+        got = ops.insertion_ranks(table, probes, side)
+        require_equal(f"merge_join_ranks {name} side={side}",
+                      list(got) if side == "both" else [got], want)
+        for lanes in (1, 32):
+            out = torch.empty((len(want), probes.shape[0]),
+                              dtype=torch.int64, device=probes.device)
+            ops._rank_launch(table, probes, out, side, lanes)
+            require_equal(f"merge_join_ranks {name} side={side} "
+                          f"lanes={lanes}", list(out), want)
+
+
+def host_call_ms(fn, reps: int) -> float:
+    """Mean host wall ms of `fn`, which synchronises itself, after two
+    warm-up calls."""
+    for _ in range(2):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def rank_call_times(ops, dev) -> dict:
+    """{(N, M): host ms} of the engine's numpy-in, numpy-out rank call at
+    RANK_SHAPES: on the kernel with the table resident on the card
+    (`numpy_call_ms`) and uploaded beside the probes
+    (`numpy_call_upload_ms`), and numpy's searchsorted left + right
+    (`host_searchsorted_ms`). Run before any profiler session: once
+    torch.profiler has traced the card, every CUDA call of the process
+    costs more on the host."""
+    rng = np.random.default_rng(6)
+    out = {}
+    for n, m in RANK_SHAPES:
+        table_np, probes_np = _rank_inputs(rng, n, m)
+        resident = ops.device_table(table_np, dev)
+        out[(n, m)] = dict(
+            numpy_call_ms=host_call_ms(lambda: ops.merge_join_ranks(
+                table_np, probes_np, "kernel", "both", dev,
+                table_on_device=resident), 50),
+            numpy_call_upload_ms=host_call_ms(lambda: ops.merge_join_ranks(
+                table_np, probes_np, "kernel", "both", dev), 50),
+            host_searchsorted_ms=host_call_ms(lambda: ops.merge_join_ranks(
+                table_np, probes_np, "numpy", "both"), 3 if m > 1e5 else 50))
+    return out
+
+
+def check_merge_join_ranks(ops, ref, dev, entry, cases, call_ms):
+    """RANK_SHAPES, every side and both kernel layouts bit-identical to the
+    plain version, then the edge tables; times per shape: the kernel alone
+    (device_ms) in the layout the wrapper picks and in each layout, a
+    tensor call (ms) and torch.searchsorted left + right, beside the
+    engine's call times from `rank_call_times` (`call_ms`)."""
+    for name, (t_np, p_np) in _rank_edge_inputs(
+            np.random.default_rng(7)).items():
+        _require_ranks(ops, ref, name, torch.from_numpy(t_np).to(dev),
+                       torch.from_numpy(p_np).to(dev))
+    rng = np.random.default_rng(6)      # the data of rank_call_times
+    for n, m in RANK_SHAPES:
+        table_np, probes_np = _rank_inputs(rng, n, m)
+        table = torch.from_numpy(table_np).to(dev)
+        probes = torch.from_numpy(probes_np).to(dev)
+        _require_ranks(ops, ref, f"N={n} M={m}", table, probes)
         words, sectors = rank_words_touched(table, probes)
         ms = time_ms(lambda: ops.insertion_ranks(table, probes), 20)
         dms = device_ms(lambda: ops.insertion_ranks(table, probes),
                         "merge_join_ranks_kernel")
+        out = torch.empty((2, m), dtype=torch.int64, device=dev)
+        layout_ms = {
+            f"lanes={lanes}": device_ms(
+                lambda: ops._rank_launch(table, probes, out, "both", lanes),
+                "merge_join_ranks_kernel")
+            for lanes in (1, 32)}
         plain = time_ms(lambda: ref.merge_join_ranks_ref(table, probes), 5)
+
         def library():
             return (torch.searchsorted(table, probes, side="left"),
                     torch.searchsorted(table, probes, side="right"))
@@ -422,20 +565,39 @@ def check_merge_join_ranks(ops, ref, dev, entry, cases):
         lib = device_ms(library)
         lib_call = time_ms(library, 20)
         # probes read and both ranks written once, each distinct table word
-        # that this run's searches reach read once; ~4 integer operations
-        # per search step, two searches per probe
+        # that a binary search of these probes reaches read once; ~4
+        # integer operations per search step, two searches per probe
         bnd, by = bound_ms(m * 8 * 3 + words * 8,
                            2 * m * int(n).bit_length() * 4)
-        cases.append(dict(kernel="merge_join_ranks", N=n, M=m, side="both",
-                          table_words=words, table_sectors=sectors,
-                          ms=ms, device_ms=dms, plain_ms=plain,
-                          library_ms=lib, library_call_ms=lib_call,
-                          bound_ms=bnd, bound_by=by))
-        if m == 4096:
-            entry.update(shape=f"N={n} M={m} side=both", max_abs_err=0.0,
-                         ms=ms, device_ms=dms, plain_ms=plain,
-                         library_ms=lib, library_call_ms=lib_call,
-                         bound_ms=bnd, bound_by=by)
+        case = dict(kernel="merge_join_ranks", N=n, M=m, side="both",
+                    lanes=32 if m <= ops.RANK_WARP_MAX_M else 1,
+                    table_words=words, table_sectors=sectors, ms=ms,
+                    device_ms=dms, device_ms_by_layout=layout_ms,
+                    **call_ms.get((n, m), {}), plain_ms=plain,
+                    library_ms=lib, library_call_ms=lib_call,
+                    bound_ms=bnd, bound_by=by)
+        cases.append(case)
+        if (n, m) == RANK_SHAPES[1]:
+            # where the wrapper's choice of layout by M (RANK_WARP_MAX_M)
+            # comes from: both layouts over M on the largest path table
+            for mm in (1024, 4096, 8192, 16384, 32768, 65536):
+                sub = probes[:mm].contiguous()
+                o = torch.empty((2, mm), dtype=torch.int64, device=dev)
+                cases.append(dict(
+                    kernel="merge_join_ranks", sweep="layout", N=n, M=mm,
+                    device_ms_by_layout={
+                        f"lanes={lanes}": device_ms(
+                            lambda: ops._rank_launch(table, sub, o, "both",
+                                                     lanes),
+                            "merge_join_ranks_kernel")
+                        for lanes in (1, 32)}))
+        if (n, m) == RANK_SHAPES[0]:
+            entry.update(shape=f"N={n} M={m} side=both (the main path's "
+                         "median call)", max_abs_err=0.0, ms=ms,
+                         device_ms=dms, plain_ms=plain, library_ms=lib,
+                         library_call_ms=lib_call,
+                         **call_ms.get((n, m), {}), bound_ms=bnd,
+                         bound_by=by)
 
 
 def check_block_scan(ops, ref, dev, entry, cases):
@@ -798,13 +960,11 @@ def run_shapes(rt, ds, queries, join, device) -> dict:
     return out
 
 
-def compare_probe_rank(rt, ds, n_q) -> list:
-    """LGD Q1-Q8 (fused join) with the Bloom probes and the rank pass on
-    the host and on their kernels, in turns (host, kernel, kernel, host):
-    one fresh engine per pass, wall ms per pass on the card."""
+def passes_in_turns(rt, ds, n_q, turns) -> list:
+    """A query set (fused join) once per (label, policy) of `turns`, one
+    fresh engine per pass, untraced: wall ms per pass on the card."""
     passes = []
-    for label, pol in (("numpy", HOST_PROBE_RANK), ("kernel", SLICE_POLICY),
-                       ("kernel", SLICE_POLICY), ("numpy", HOST_PROBE_RANK)):
+    for label, pol in turns:
         cfg = rt.ExecConfig(policy=rt.BackendPolicy(join="fused", **pol))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -812,9 +972,28 @@ def compare_probe_rank(rt, ds, n_q) -> list:
         for qi in range(n_q):
             eng.execute(ds.queries[qi])
         torch.cuda.synchronize()
-        passes.append(dict(probe_rank=label,
+        passes.append(dict(label=label,
                            wall_ms=(time.perf_counter() - t0) * 1e3))
     return passes
+
+
+def untraced_turns(rt, datasets) -> dict:
+    """Before any profiler session (see `rank_call_times`), after one
+    warm-up pass of each set: LGD Q1-Q8 with the Bloom probes and the rank
+    pass on the host and on their kernels, in turns (host, kernel, kernel,
+    host), then each set with the rank pass alone on numpy and on its
+    kernel, in turns."""
+    for ds, n_q in datasets.values():
+        passes_in_turns(rt, ds, n_q, [("warm-up", SLICE_POLICY)])
+    order = ("numpy", "kernel", "kernel", "numpy")
+    ds, n_q = datasets["lgd"]
+    out = {"probe/rank lgd": passes_in_turns(rt, ds, n_q, [
+        (x, HOST_PROBE_RANK if x == "numpy" else SLICE_POLICY)
+        for x in order])}
+    for name, (ds, n_q) in datasets.items():
+        out[f"rank {name}"] = passes_in_turns(
+            rt, ds, n_q, [(x, dict(SLICE_POLICY, rank=x)) for x in order])
+    return out
 
 
 def device_spans(prof) -> list:
@@ -1304,6 +1483,16 @@ def main() -> None:
               f"{ds.store.tree.n_nodes} nodes")
     phase_done("data build", t0)
 
+    # ---- untraced host times, before any profiler session ----------------
+    t0 = time.perf_counter()
+    rank_call_ms = rank_call_times(ops, dev)
+    for (n, m), row in rank_call_ms.items():
+        print(f"rank call N={n} M={m} " + json.dumps(row))
+    ab = untraced_turns(rt, datasets)
+    for label, passes in ab.items():
+        print(f"turns {label} " + json.dumps(passes))
+    phase_done("untraced turns", t0)
+
     # ---- per-kernel phase: kernel vs plain version, bit for bit ----------
     t0 = time.perf_counter()
     entries = {name: dict(name=name, route="cuda",
@@ -1318,7 +1507,8 @@ def main() -> None:
                        {n: ds.store.tree for n, (ds, _) in datasets.items()},
                        cases)
     check_bloom_probe(rt, ops, ref, dev, entries["bloom_probe"], lgd, cases)
-    check_merge_join_ranks(ops, ref, dev, entries["merge_join_ranks"], cases)
+    check_merge_join_ranks(ops, ref, dev, entries["merge_join_ranks"], cases,
+                           rank_call_ms)
     check_block_scan(ops, ref, dev, entries["block_scan"], cases)
     check_morton(ops, ref, dev, entries["morton_encode"])
     entries["flash_attention"]["ptxas"] = flash_build
@@ -1338,25 +1528,43 @@ def main() -> None:
 
     # ---- end-to-end phase: the main path on the card ---------------------
     t0 = time.perf_counter()
-    rank_shapes: list = []      # (N, M) of every rank call of the main path
-    insertion_ranks = ops.insertion_ranks
+    rank_shapes: list = []      # (N, M, resident table?) of every rank call
+    descend_in: list = []       # the inputs of every tree_descend launch
+    merge_join_ranks, tree_descend = ops.merge_join_ranks, ops.tree_descend
 
-    def recording_ranks(table, probes, side="both"):
-        rank_shapes.append((table.shape[0], probes.shape[0]))
-        return insertion_ranks(table, probes, side)
+    def recording_ranks(table, probes, *args, **kwargs):
+        if len(table) and len(probes):        # calls that launch
+            rank_shapes.append((len(table), len(probes),
+                                kwargs.get("table_on_device") is not None))
+        return merge_join_ranks(table, probes, *args, **kwargs)
+
+    def recording_descend(node_keys, cs, box_keys):
+        descend_in.append((node_keys, cs.clone(), box_keys.clone()))
+        return tree_descend(node_keys, cs, box_keys)
 
     checked = {"fused": datasets, "kernel": datasets}
-    ops.insertion_ranks = recording_ranks
+    ops.merge_join_ranks, ops.tree_descend = recording_ranks, \
+        recording_descend
     ops.reset_launch_counts()
+    uploads = ops.rank_table_uploads
     cuda_runs = {join: run_queries(rt, sets, join, "cuda")
                  for join, sets in checked.items()}
     launches = dict(ops.LAUNCHES)
-    ops.insertion_ranks = insertion_ranks
+    uploads = ops.rank_table_uploads - uploads
+    ops.merge_join_ranks, ops.tree_descend = merge_join_ranks, tree_descend
     require_launched("the main path", launches, STREAK_KERNELS)
-    n_m = np.array(rank_shapes, dtype=np.int64).reshape(-1, 2)
+    n_m = np.array(rank_shapes, dtype=np.int64).reshape(-1, 3)
+    resident = n_m[:, 2].astype(bool)
     print(f"rank calls on the main path: {len(n_m)}; table N median "
           f"{int(np.median(n_m[:, 0]))} max {int(n_m[:, 0].max())}; probes "
-          f"M median {int(np.median(n_m[:, 1]))} max {int(n_m[:, 1].max())}")
+          f"M median {int(np.median(n_m[:, 1]))} max {int(n_m[:, 1].max())}"
+          f"; {int(resident.sum())} against resident tables ({uploads} "
+          f"uploads), {int((~resident).sum())} against tables built per "
+          f"call ({int(n_m[~resident, 0].sum())} words)")
+    descend_shapes = [(b.shape[0], b.shape[1], nk.shape[1], int(cs.sum()))
+                      for nk, cs, b in descend_in]
+    print(f"descend calls on the main path: {len(descend_shapes)}; (B, M, "
+          f"N, live nodes) {sorted(collections.Counter(descend_shapes).items())}")
     queries = []
     for join, runs in cuda_runs.items():
         cpu_runs = run_queries(rt, checked[join], join, "cpu")
@@ -1378,6 +1586,12 @@ def main() -> None:
                for qr in queries):
         raise AssertionError("no query filled its top-k")
     phase_done("main path", t0)
+
+    # ---- the redesigned kernels at the main path's own inputs -------------
+    t0 = time.perf_counter()
+    check_descend_path(ops, ref, descend_in, entries["tree_descend"], cases)
+    del descend_in
+    phase_done("path shapes", t0)
 
     # ---- second entry point: the Geographica shapes -----------------------
     t0 = time.perf_counter()
@@ -1451,9 +1665,6 @@ def main() -> None:
 
     # ---- where the time goes ---------------------------------------------
     t0 = time.perf_counter()
-    ab = compare_probe_rank(rt, lgd, datasets["lgd"][1])
-    for a in ab:
-        print("probe/rank " + json.dumps(a))
     traces = [trace_queries(rt, name, ds, n_q, join)
               for join in ("fused", "kernel")
               for name, (ds, n_q) in datasets.items()]
@@ -1461,6 +1672,14 @@ def main() -> None:
                                 HOST_PROBE_RANK))
     for t in traces:
         print("trace " + json.dumps(t))
+    # the rank pass alone on numpy and on its kernel, in turns, traced:
+    # wall ms, memcpy device ms and host ms by layer of each pass
+    rank_turns = [trace_queries(rt, name, ds, n_q, "fused",
+                                dict(SLICE_POLICY, rank=rank))
+                  for name, (ds, n_q) in datasets.items()
+                  for rank in ("numpy", "kernel", "kernel", "numpy")]
+    for t in rank_turns:
+        print("rank turn " + json.dumps(t))
     phase_done("traces", t0)
 
     path_launches = {**{n: launches[n] for n in STREAK_KERNELS},
@@ -1473,8 +1692,10 @@ def main() -> None:
         pathlib.Path(args.out).write_text(json.dumps(dict(
             card=smi, kind=kind, torch=torch.__version__, kernels=kernels,
             cases=cases, queries=queries, shapes=shapes,
-            shape_launches=shape_launches, probe_rank_passes=ab,
-            rank_call_shapes=n_m.tolist(), traces=traces,
+            shape_launches=shape_launches, untraced_turns=ab,
+            rank_call_shapes=n_m.tolist(),
+            descend_call_shapes=descend_shapes, traces=traces,
+            rank_turns=rank_turns,
             ops_launches=ops_launches, lm_prefill=prefill, lm_serve=serve,
             lm_smoke_cuda_vs_cpu=smoke_lms, phase_seconds=phase_s),
             indent=1))

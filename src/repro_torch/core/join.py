@@ -28,6 +28,7 @@ np.unique dense ranking + range expansion — are kept verbatim as the
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..kernels import ops
 from .query import TriplePattern, Var
@@ -58,8 +59,9 @@ class Relation(dict):
       stable sorting permutation is the identity, so the argsort — the
       dominant cost at ≥32k rows — is skipped bit-identically.
     - ``_keycache``: per-``on`` packed composite keys (packing params +
-      sorted keys + permutation), reused across `_join_chain` steps and
-      driver blocks that re-join the same relation on the same columns.
+      sorted keys + permutation + the sorted keys' resident copies on the
+      devices that rank against them), reused across `_join_chain` steps
+      and driver blocks that re-join the same relation on the same columns.
     """
 
     sorted_by: tuple = ()
@@ -211,16 +213,29 @@ def _params_fit(rel: Relation, on: list[str], params: tuple) -> bool:
 
 
 # Per-Relation `_keycache` budget. Each entry holds the packed keys plus the
-# sorting permutation (two int64 arrays the length of the relation), so an
-# unbounded cache on a long-lived scan-cache relation grows with every
-# distinct `on` tuple it is ever joined by. Insertion order doubles as
-# recency order (hits are re-inserted at the end), so eviction is LRU.
+# sorting permutation (two int64 arrays the length of the relation) and the
+# keys' copies on the devices a kernel rank pass ran on, so an unbounded
+# cache on a long-lived scan-cache relation grows with every distinct `on`
+# tuple it is ever joined by. Insertion order doubles as recency order
+# (hits are re-inserted at the end), so eviction is LRU.
 KEYCACHE_MAX_ENTRIES = 8
-KEYCACHE_MAX_BYTES = 1 << 27        # 128 MiB of cached keys+perms per Relation
+KEYCACHE_MAX_BYTES = 1 << 27        # 128 MiB of cached keys, perms and
+#                                     resident copies per Relation
 
 
 def _cache_nbytes(ent) -> int:
-    return ent[2].nbytes + ent[3].nbytes
+    return ent[2].nbytes + ent[3].nbytes + sum(
+        t.numel() * t.element_size() for t in ent[4].values())
+
+
+def _evict(cache: dict) -> None:
+    """Drop least-recently-used entries beyond the budget; the most recent
+    entry always survives, even when alone over-budget."""
+    while len(cache) > 1 and (
+            len(cache) > KEYCACHE_MAX_ENTRIES
+            or sum(_cache_nbytes(e) for e in cache.values())
+            > KEYCACHE_MAX_BYTES):
+        cache.pop(next(iter(cache)))
 
 
 def _cached_pack(rel: Relation, on_t: tuple):
@@ -242,14 +257,29 @@ def _store_pack(rel: Relation, on_t: tuple, params, scale: int,
     if on_t in cache:               # keep the first packing, but touch it
         cache[on_t] = cache.pop(on_t)
         return
-    cache[on_t] = (params, scale, ks, perm)
-    # evict least-recently-used entries beyond the budget; the fresh entry
-    # (at the recent end) always survives, even when alone over-budget
-    while len(cache) > 1 and (
-            len(cache) > KEYCACHE_MAX_ENTRIES
-            or sum(_cache_nbytes(e) for e in cache.values())
-            > KEYCACHE_MAX_BYTES):
-        cache.pop(next(iter(cache)))
+    cache[on_t] = (params, scale, ks, perm, {})   # {}: resident copies
+    _evict(cache)
+
+
+def _resident_table(rel: Relation, on_t: tuple, ks: np.ndarray,
+                    backend: str | None, device):
+    """The copy on `device` of `rel`'s cached sorted keys `ks`, for a
+    kernel rank pass there: made on first use for the entry and device,
+    kept in the entry, counted in its bytes and evicted with it. None when
+    the rank pass runs on the host or `ks` is not the array `rel` caches
+    for `on_t` (a table built for this call)."""
+    if device is None or ops.resolve_rank_backend(backend) != "kernel":
+        return None
+    cache = rel.__dict__.get("_keycache")
+    ent = cache.get(on_t) if cache else None
+    if ent is None or ent[2] is not ks:
+        return None
+    device = torch.device(device)
+    t = ent[4].get(device)
+    if t is None:
+        t = ent[4][device] = ops.device_table(ks, device)
+        _evict(cache)
+    return t
 
 
 def _sorted_keys(rel: Relation, k: np.ndarray, scale: int,
@@ -284,19 +314,23 @@ def _sort_with_perm(k: np.ndarray, scale: int) -> tuple[np.ndarray,
 
 
 def _ranks(table: np.ndarray, probes: np.ndarray,
-           backend: str | None, side: str = "both", device=None):
+           backend: str | None, side: str = "both", device=None,
+           on_device=None):
     """Insertion ranks of probes in the sorted table, via the dispatched
-    rank backend (a kernel backend runs on `device`); side="both" ->
+    rank backend (a kernel backend runs on `device`, against the table's
+    resident copy `on_device` when there is one); side="both" ->
     (left, right), else the one bound."""
     return ops.merge_join_ranks(table, probes, backend=backend, side=side,
-                                device=device)
+                                device=device, table_on_device=on_device)
 
 
 def _member_sorted(table: np.ndarray, probes: np.ndarray,
-                   backend: str | None, device=None) -> np.ndarray:
+                   backend: str | None, device=None,
+                   on_device=None) -> np.ndarray:
     """Membership of probes in the sorted (not necessarily unique) table:
     one left-rank pass plus a gather-compare."""
-    lo = _ranks(table, probes, backend, side="left", device=device)
+    lo = _ranks(table, probes, backend, side="left", device=device,
+                on_device=on_device)
     hit = table[np.minimum(lo, len(table) - 1)] == probes
     return hit  # lo == len(table) ⇒ probe > table[-1] ⇒ compare is False
 
@@ -346,7 +380,7 @@ def join(a: Relation, b: Relation, on: list[str] | None = None,
     for cached, fresh, b_cached in ((b, a, True), (a, b, False)):
         ent = _cached_pack(cached, on_t)
         if ent is not None and _params_fit(fresh, on, ent[0]):
-            params, scale, kcs, oc = ent
+            params, scale, kcs, oc, _ = ent
             kf = _pack_with_params(fresh, on, params)
             kfs, of = _sorted_keys(fresh, kf, scale, on_t)
             _store_pack(fresh, on_t, params, scale, kfs, of)
@@ -360,7 +394,10 @@ def join(a: Relation, b: Relation, on: list[str] | None = None,
         _store_pack(b, on_t, params, scale, kbs, ob)
         sides = (kas, oa, kbs, ob)
     kas, oa, kbs, ob = sides
-    lo, hi = _ranks(kbs, kas, backend, device=device)
+    # kbs is b's cached table unless the packing came from a's cache and b
+    # already cached another one; only a cached table stays on the device
+    lo, hi = _ranks(kbs, kas, backend, device=device,
+                    on_device=_resident_table(b, on_t, kbs, backend, device))
     cnt = hi - lo
     ia = np.repeat(np.arange(a.n), cnt)
     ib = csr_gather(lo, cnt)
@@ -470,7 +507,9 @@ def semijoin(a: Relation, b: Relation, on: list[str] | None = None,
     else:
         ka, kb, _ = composite_keys(a, b, on)
         kbs = kb if b.sorted_by[:len(on_t)] == on_t else np.sort(kb)
-    out = a.take(np.flatnonzero(_member_sorted(kbs, ka, backend, device)))
+    keep = _member_sorted(kbs, ka, backend, device,
+                          _resident_table(b, on_t, kbs, backend, device))
+    out = a.take(np.flatnonzero(keep))
     out.sorted_by = a.sorted_by  # flatnonzero keeps row order
     return out
 

@@ -47,7 +47,7 @@ KERNELS = {
     "bloom_probe": ("bloom_probe_launch", [_P, _P, _P, _L, _I, _I, _P],
                     EXACT_F32),
     "merge_join_ranks": ("merge_join_ranks_launch",
-                         [_P, _P, _P, _P, _L, _L, _I, _P], EXACT_F32),
+                         [_P, _P, _P, _L, _L, _I, _I, _P], EXACT_F32),
     "block_scan": ("block_scan_launch", [_P, _F, _P, _P, _P, _I, _I, _P],
                    EXACT_F32),
     "morton_encode": ("morton_encode_launch", [_P, _P, _P, _L, _P],
@@ -56,7 +56,14 @@ KERNELS = {
                         []),
 }
 
-_launchers: dict[str, object] = {}   # kernel name -> ctypes launcher
+# further C entry points: symbol -> (kernel whose library has it, ctypes
+# argument types); each returns a cudaError_t
+HOST_CALLS = {
+    "merge_join_ranks_round_trip": ("merge_join_ranks",
+                                    [_P, _P, _P, _L, _L, _P, _I, _I, _P]),
+}
+
+_launchers: dict[str, object] = {}   # kernel or host-call name -> function
 build_logs: dict[str, str] = {}     # kernel name -> ptxas report of its build
 
 
@@ -121,15 +128,20 @@ def build_all() -> dict[str, pathlib.Path]:
 
 
 def launcher(name: str):
-    """The ctypes launcher of kernel `name`, building and loading all
-    kernels first if this process has loaded none yet."""
+    """The ctypes launcher of kernel `name` (or the host call `name` of
+    `HOST_CALLS`), building and loading all kernels first if this process
+    has loaded none yet."""
     fn = _launchers.get(name)
     if fn is None:
-        for kname, path in build_all().items():
-            symbol, argtypes, _ = KERNELS[kname]
-            f = getattr(ctypes.CDLL(str(path)), symbol)
+        libs = {kname: ctypes.CDLL(str(path))
+                for kname, path in build_all().items()}
+        entries = {kname: (kname, *KERNELS[kname][:2]) for kname in KERNELS}
+        entries.update((sym, (kname, sym, argtypes))
+                       for sym, (kname, argtypes) in HOST_CALLS.items())
+        for key, (kname, symbol, argtypes) in entries.items():
+            f = getattr(libs[kname], symbol)
             f.argtypes = argtypes
             f.restype = ctypes.c_int
-            _launchers[kname] = f
+            _launchers[key] = f
         fn = _launchers[name]
     return fn

@@ -10,11 +10,13 @@ device raise. There is no fallback from the kernel to the plain version.
 The host-side helpers the kernel paths need (`f64_sort_keys`,
 `DESCEND_PAD_BOX`) and the rank-pass dispatch of the relational merge join
 (`merge_join_ranks`: numpy arrays in and out, numpy's searchsorted or the
-kernel on a device) live here too.
+kernel on a device, against a table kept there by `device_table`) live
+here too.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -58,9 +60,19 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name}: tensor must be {align}-byte aligned")
 
 
+def _stream(device: torch.device | None = None) -> int:
+    """The raw handle of PyTorch's current stream on `device` (the current
+    device when None or index-less), from torch's own internal accessor:
+    the public `torch.cuda.current_stream()` builds a Python object a
+    call, which costs more host time than the small kernels run."""
+    index = device.index if device is not None else None
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def _launch(name: str, *args) -> None:
-    stream = torch.cuda.current_stream().cuda_stream
-    err = _build.launcher(name)(*args, ctypes.c_void_p(stream))
+    err = _build.launcher(name)(*args, ctypes.c_void_p(_stream()))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     LAUNCHES[name] += 1
@@ -240,6 +252,27 @@ def bloom_probe(bits: torch.Tensor, keys: torch.Tensor, k: int
 
 # --------------------------------------------------- merge-join rank pass --
 RANK_SIDES = {"left": 1, "right": 2, "both": 3}
+# Calls of up to this many probes run one warp a probe (a 32-ary search:
+# few dependent loads, and the small calls of the main path reach more
+# SMs); larger ones, whose threads alone fill the card, one thread a probe.
+RANK_WARP_MAX_M = 16384
+
+
+def _rank_lanes(m: int) -> int:
+    return 32 if m <= RANK_WARP_MAX_M else 1
+
+
+def _rank_launch(table: torch.Tensor, probes: torch.Tensor,
+                 out: torch.Tensor, side: str, lanes: int | None = None
+                 ) -> None:
+    """Launch the rank kernel on checked, non-empty CUDA inputs. out is a
+    contiguous (2, M) (side "both": lo, hi) or (1, M) int64 view; `lanes`
+    (32: a warp a probe, 1: a thread a probe) defaults to the choice by M."""
+    m = probes.shape[0]
+    _launch("merge_join_ranks", _ptr(table), _ptr(probes), _ptr(out),
+            ctypes.c_longlong(table.shape[0]), ctypes.c_longlong(m),
+            ctypes.c_int(RANK_SIDES[side]),
+            ctypes.c_int(_rank_lanes(m) if lanes is None else lanes))
 
 
 def insertion_ranks(table: torch.Tensor, probes: torch.Tensor,
@@ -261,21 +294,17 @@ def insertion_ranks(table: torch.Tensor, probes: torch.Tensor,
     if n >= 1 << 31:
         raise ValueError(f"merge_join_ranks: table of {n} rows exceeds 2^31")
     alloc = torch.zeros if n == 0 else torch.empty
-    outs = [alloc(m, dtype=torch.int64, device=probes.device)
-            for _ in range(2 if side == "both" else 1)]
+    out = alloc((2 if side == "both" else 1, m), dtype=torch.int64,
+                device=probes.device)
     if n and m:
-        # one-sided: the kernel writes only the asked bound, into outs[0]
-        _launch("merge_join_ranks", _ptr(table), _ptr(probes),
-                _ptr(outs[0]), _ptr(outs[-1]), ctypes.c_longlong(n),
-                ctypes.c_longlong(m), ctypes.c_int(RANK_SIDES[side]))
-    return tuple(outs) if side == "both" else outs[0]
+        _rank_launch(table, probes, out, side)
+    return (out[0], out[1]) if side == "both" else out[0]
 
 
 # Rank-pass backends of the relational merge join (core/join.py): "numpy"
-# is numpy's searchsorted on the host; "kernel" runs `insertion_ranks` on
-# the engine's device (the CUDA kernel on CUDA, its plain torch version on
-# the CPU). "auto" resolves to the kernel when CUDA is available, numpy
-# otherwise.
+# is numpy's searchsorted on the host; "kernel" runs the rank kernel on
+# the engine's device (its plain torch version on the CPU). "auto"
+# resolves to the kernel when CUDA is available, numpy otherwise.
 RANK_BACKENDS = ("auto", "numpy", "kernel")
 
 
@@ -288,15 +317,114 @@ def resolve_rank_backend(backend: str | None) -> str:
     return "kernel" if torch.cuda.is_available() else "numpy"
 
 
+# resident rank tables made by `device_table` so far, one upload each
+rank_table_uploads = 0
+
+
+def device_table(table: np.ndarray, device: torch.device | str
+                 ) -> torch.Tensor:
+    """A copy of the sorted int64 rank `table` on `device`, for a caller
+    that ranks against it again and keeps it (core/join.py, in the key
+    cache entry that holds the host keys). Counted in
+    `rank_table_uploads`."""
+    global rank_table_uploads
+    rank_table_uploads += 1
+    return torch.from_numpy(np.ascontiguousarray(table, dtype=np.int64)
+                            ).to(device, copy=True)
+
+
+class _RankStaging:
+    """Grow-only buffers of one device's rank round trips: pinned host
+    memory for the staged words (the table when it is not resident, then
+    the probes) and for the ranks, device memory for an uploaded table and
+    its probes. A call synchronises before it returns, so the next call
+    may reuse them."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.n_in = self.n_out = 0
+
+    def fit(self, n_in: int, n_out: int) -> None:
+        if n_in > self.n_in:
+            self.n_in = 1 << max(n_in - 1, 1023).bit_length()
+            self.host_in = torch.empty(self.n_in, dtype=torch.int64,
+                                       pin_memory=True)
+            self.dev_in = torch.empty(self.n_in, dtype=torch.int64,
+                                      device=self.device)
+            self.host_in_np = self.host_in.numpy()
+            self.ptrs_in = (self.host_in.data_ptr(), self.dev_in.data_ptr())
+        if n_out > self.n_out:
+            self.n_out = 1 << max(n_out - 1, 1023).bit_length()
+            self.host_out = torch.empty(self.n_out, dtype=torch.int64,
+                                        pin_memory=True)
+            self.host_out_np = self.host_out.numpy()
+            self.ptr_out = self.host_out.data_ptr()
+
+
+_staging: dict[torch.device, _RankStaging] = {}
+_staging_lock = threading.Lock()
+
+
+def _cuda_round_trip(table: np.ndarray, probes: np.ndarray, side: str,
+                     device: torch.device,
+                     table_on_device: torch.Tensor | None) -> np.ndarray:
+    """(rows, M) ranks through the kernel in one C call (see
+    csrc/merge_join_ranks.cu, merge_join_ranks_round_trip): the probes
+    staged in pinned memory; with a resident table the kernel reads them
+    and writes the ranks into pinned memory in place, else the staged table
+    and probes go up in one copy first; one synchronise."""
+    n, m = len(table), len(probes)
+    rows = 2 if side == "both" else 1
+    if n == 0 or m == 0:
+        return np.zeros((rows, m), dtype=np.int64)
+    if n >= 1 << 31:
+        raise ValueError(f"merge_join_ranks: table of {n} rows exceeds 2^31")
+    resident = None
+    if table_on_device is not None:
+        t = table_on_device
+        if t.dtype != torch.int64 or t.dim() != 1 \
+                or t.device.type != "cuda" or not t.is_contiguous():
+            raise ValueError("merge_join_ranks: the resident table must be "
+                             "a contiguous 1-d int64 CUDA tensor")
+        resident = t.data_ptr()
+    up = n if resident is None else 0
+    with _staging_lock:
+        st = _staging.get(device)
+        if st is None:
+            st = _staging[device] = _RankStaging(device)
+        st.fit(up + m, rows * m)
+        if up:
+            st.host_in_np[:n] = table
+        st.host_in_np[up:up + m] = probes
+        err = _build.launcher("merge_join_ranks_round_trip")(
+            *st.ptrs_in, resident, n, m, st.ptr_out, RANK_SIDES[side],
+            _rank_lanes(m), _stream(device))
+        if err != 0:
+            raise RuntimeError(f"merge_join_ranks: CUDA round trip failed "
+                               f"with error {err}")
+        LAUNCHES["merge_join_ranks"] += 1
+        return st.host_out_np[:rows * m].reshape(rows, m).copy()
+
+
 def merge_join_ranks(table: np.ndarray, probes: np.ndarray,
                      backend: str | None = None, side: str = "both",
-                     device: torch.device | str | None = None):
+                     device: torch.device | str | None = None,
+                     table_on_device: torch.Tensor | None = None):
     """Insertion ranks of `probes` in the sorted int64 `table`: with
     side="both" returns (lo, hi) int64 where lo = searchsorted-left and
     hi = searchsorted-right; side="left"/"right" returns that bound only.
 
-    numpy arrays in and out. The "kernel" backend uploads both arrays to
-    `device`, runs `insertion_ranks` there and copies the ranks back."""
+    numpy arrays in and out. The "kernel" backend ranks on `device`.
+    `table_on_device` is the table's resident copy there (`device_table`;
+    core/join.py keeps one in the key-cache entry of each per-pattern scan
+    it re-ranks every driver block), so the table crosses to the card once
+    per relation. On CUDA a call is one round trip, one C call with one
+    launch and one synchronise: the probes are staged in pinned host
+    memory, and the kernel writes both bounds into one (2, M) pinned
+    output. With the table resident the kernel reads the staged probes in
+    place over the bus and no copy runs; without it the table is staged
+    before the probes and both go up in one host-to-device copy. On the
+    CPU the plain version runs (`insertion_ranks`)."""
     if side not in RANK_SIDES:
         raise ValueError(f"unknown rank side {side!r}")
     backend = resolve_rank_backend(backend)
@@ -305,9 +433,20 @@ def merge_join_ranks(table: np.ndarray, probes: np.ndarray,
     if backend == "kernel":
         if device is None:
             raise ValueError("the kernel rank backend needs a device")
+        if not isinstance(device, torch.device):
+            device = torch.device(device)
+        if table_on_device is not None and len(table_on_device) != len(table):
+            raise ValueError("merge_join_ranks: the resident table has "
+                             f"{len(table_on_device)} rows, not {len(table)}")
+        if device.type == "cuda":
+            out = _cuda_round_trip(table, probes, side, device,
+                                   table_on_device)
+            return (out[0], out[1]) if side == "both" else out[0]
+        tab = (table_on_device if table_on_device is not None
+               else torch.from_numpy(np.ascontiguousarray(table)).to(device))
         out = insertion_ranks(
-            torch.from_numpy(np.ascontiguousarray(table)).to(device),
-            torch.from_numpy(np.ascontiguousarray(probes)).to(device), side)
+            tab, torch.from_numpy(np.ascontiguousarray(probes)).to(device),
+            side)
         if side != "both":
             return out.cpu().numpy()
         return out[0].cpu().numpy(), out[1].cpu().numpy()

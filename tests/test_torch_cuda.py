@@ -164,6 +164,150 @@ def test_rank_kernel_empty_inputs_launch_nothing(dev):
     assert ops.LAUNCHES["merge_join_ranks"] == 1
 
 
+I64_MIN, I64_MAX = -(1 << 63), (1 << 63) - 1
+
+
+def _rank_edge_case(name, rng):
+    """(sorted table, probes) of one edge case of the rank kernel."""
+    if name == "run_past_gallop_window":
+        table = np.sort(np.concatenate([rng.integers(-500, 500, 3000),
+                                        np.full(1000, 7), np.full(40, -3)]))
+        probes = np.array([7, 6, 8, -3, -4, -2, 0, 499, -501, 501] * 7)
+    elif name == "one_repeated_key":
+        table = np.full(5000, 42)
+        probes = np.array([42, 41, 43, I64_MIN, I64_MAX, 42, 42])
+    elif name == "n_1":
+        table = np.array([5])
+        probes = np.arange(-40, 50, 3)
+    elif name == "m_1":
+        table = np.sort(rng.integers(-100, 100, 777))
+        probes = np.array([table[300]])
+    elif name == "m_below_32":
+        table = np.sort(rng.integers(-100, 100, 777))
+        probes = rng.integers(-120, 120, 17)
+    elif name == "int64_extremes":
+        table = np.sort(np.concatenate([
+            [I64_MIN, I64_MIN, I64_MAX, I64_MAX, I64_MAX],
+            rng.integers(I64_MIN, I64_MAX, 500, dtype=np.int64)]))
+        probes = np.array([I64_MIN, I64_MIN + 1, I64_MAX, I64_MAX - 1, 0,
+                           -1, 1] * 5)
+    else:                   # "sorted_probes" / "unsorted_probes"
+        table = np.sort(np.repeat(rng.integers(-5000, 5000, 6000),
+                                  rng.integers(1, 5, 6000))[:6000])
+        probes = rng.integers(-5100, 5100, 300)
+        probes[:100] = rng.choice(table, 100)
+        probes = np.sort(probes) if name == "sorted_probes" \
+            else rng.permutation(probes)
+    return table.astype(np.int64), probes.astype(np.int64)
+
+
+RANK_EDGE_CASES = ["run_past_gallop_window", "one_repeated_key", "n_1",
+                   "m_1", "m_below_32", "int64_extremes", "sorted_probes",
+                   "unsorted_probes"]
+
+
+@pytest.mark.parametrize("lanes", [1, 32, None])
+@pytest.mark.parametrize("side", ["both", "left", "right"])
+@pytest.mark.parametrize("case", RANK_EDGE_CASES)
+def test_rank_kernel_edge_cases_match_plain(dev, case, side, lanes):
+    """Both layouts of the rank kernel (a thread a probe, a warp a probe)
+    and the wrapper's own choice, bit-for-bit against the plain version."""
+    table, probes = _rank_edge_case(case, np.random.default_rng(7))
+    t = torch.from_numpy(table).to(dev)
+    p = torch.from_numpy(probes).to(dev)
+    want = ref.merge_join_ranks_ref(t, p, side)
+    want = list(want) if side == "both" else [want]
+    if lanes is None:
+        got = ops.insertion_ranks(t, p, side)
+        got = list(got) if side == "both" else [got]
+    else:
+        out = torch.full((len(want), len(probes)), -7, dtype=torch.int64,
+                         device=dev)
+        ops._rank_launch(t, p, out, side, lanes)
+        got = list(out)
+    _equal(got, want)
+
+
+@pytest.mark.parametrize("m", [1, 300, ops.RANK_WARP_MAX_M + 1])
+def test_rank_round_trip_matches_numpy(dev, m):
+    """`ops.merge_join_ranks` on CUDA (numpy in and out, one launch a
+    call), with the table resident on the card and with it uploaded
+    beside the probes."""
+    rng = np.random.default_rng(m)
+    table = np.sort(rng.integers(-(1 << 40), 1 << 40, 20_000))
+    table[5000:5100] = table[5000]
+    probes = rng.integers(-(1 << 41), 1 << 41, m)
+    probes[: m // 2] = rng.choice(table, m // 2)
+    resident = ops.device_table(table, dev)
+    for side in ("both", "left", "right"):
+        want = ops.merge_join_ranks(table, probes, "numpy", side)
+        want = list(want) if side == "both" else [want]
+        for on_dev in (resident, None):
+            before = ops.LAUNCHES["merge_join_ranks"]
+            got = ops.merge_join_ranks(table, probes, "kernel", side, dev,
+                                       table_on_device=on_dev)
+            got = list(got) if side == "both" else [got]
+            assert ops.LAUNCHES["merge_join_ranks"] == before + 1
+            for g, w in zip(got, want):
+                assert isinstance(g, np.ndarray) and g.dtype == np.int64
+                np.testing.assert_array_equal(g, w)
+
+
+def _far_boxes(rng, nb, m):
+    """(nb, m, 4) f64 boxes far outside the LGD tree's unit square."""
+    lo = rng.random((nb, m, 2)) + 10.0
+    return np.concatenate([lo, lo + 0.01], axis=2)
+
+
+@pytest.fixture(scope="module")
+def small_tree():
+    return synth_rdf.make_lgd(n_per_class=200, seed=0).store.tree
+
+
+@pytest.mark.parametrize("case", ["m_45", "m_1027", "m_2500",
+                                  "only_padding", "no_live_node",
+                                  "hit_by_last_box"])
+def test_tree_descend_kernel_edge_cases_match_plain(dev, small_tree, case):
+    tree = small_tree
+    rng = np.random.default_rng(11)
+    n = tree.n_nodes
+    nodes = torch.from_numpy(ops.f64_sort_keys(
+        np.ascontiguousarray(tree.node_mbr.T))).to(dev)
+    cs_np = rng.random(n) < 0.8
+    nb, m = 3, 300
+    if case.startswith("m_"):
+        m = int(case[2:])
+        lo = rng.random((nb, m, 2))
+        boxes = np.concatenate([lo, lo + 0.002], axis=2)
+        boxes[:, m // 2:] += 10.0          # half the boxes hit nothing
+    else:
+        boxes = _far_boxes(rng, nb, m)
+    keys = ops.f64_sort_keys(boxes)
+    if case == "only_padding":
+        keys[1] = ops.DESCEND_PAD_BOX
+    if case == "no_live_node":
+        cs_np[:] = False
+        boxes = np.concatenate([rng.random((nb, m, 2))] * 2, axis=2)
+        keys = ops.f64_sort_keys(boxes + np.array([0, 0, 0.05, 0.05]))
+    if case == "hit_by_last_box":
+        # a leaf's MBR is the last box of block 0; everything else is far
+        leaf = int(np.flatnonzero(cs_np)[-1])
+        keys[0, -1] = ops.f64_sort_keys(tree.node_mbr[leaf])
+    cs = torch.from_numpy(cs_np).to(dev)
+    boxes_t = torch.from_numpy(keys).to(dev)
+    got = ops.tree_descend(nodes, cs, boxes_t)
+    want = ref.tree_descend_ref(nodes, cs, boxes_t)
+    _equal([got], [want])
+    if case == "only_padding":
+        assert not bool(got[1].any())
+    if case == "no_live_node":
+        assert not bool(got.any())
+    if case == "hit_by_last_box":
+        assert bool(got[0, leaf]) and not bool(got[1:].any())
+    if case.startswith("m_"):
+        assert bool(got.any())
+
+
 @pytest.mark.parametrize("join", ["fused", "kernel"])
 @pytest.mark.parametrize("probe_rank", ["numpy", "kernel"])
 def test_engine_on_cuda_equals_cpu(dev, join, probe_rank):
