@@ -27,9 +27,11 @@ In order it:
    both per call with CUDA events (`ms`, `plain_ms`: the wrapper's host
    overhead included), the kernel alone from a torch.profiler trace
    (`device_ms`), one PyTorch call computing the same function where
-   there is one (`library_ms`, its device time), and computes the
-   kernel's bound (bytes over the memory rate or operations over the
-   f32 or bf16 rate, the larger);
+   there is one (`library_ms`, its device time), the kernel alone from
+   CUDA events around calls queued back to back (`event_ms`, never empty
+   where a trace misses a kernel), and computes the kernel's bound (bytes
+   over the memory rate or operations over the f32 or bf16 rate, the
+   larger);
 4. drives the main path — `StreakEngine.execute` on `device="cuda"`, top-k
    spatial distance joins over `make_lgd(n_per_class=6000)` (Q1-Q8) and
    `make_scale(1_000_000)` (Q1-Q2) with the fused Phase-3 join, then both
@@ -37,9 +39,14 @@ In order it:
    kernel) — with the launch counts set to 0 just before and read just
    after, requires every STREAK kernel to have launched, and requires
    every answer, plan log and statistic to equal a `device="cpu"` run;
-   records the (N, M) of every rank launch and the inputs of every
-   `tree_descend` launch, then holds `tree_descend` against its plain
-   version at each of those inputs and times it at each tree's median one;
+   runs the YAGO queries (`make_yago(600)`, Q1-Q8) the same way; requires
+   one refinement launch for each refinement call; records the (N, M) of
+   every rank launch and the inputs of every `tree_descend`,
+   `fused_topk_join` and grouped `bucketed_min_core` launch, then holds
+   each against its plain version at each of those inputs, times
+   `tree_descend` at each tree's median one, and the other two at every
+   one ("case" lines per query set: launches, summed device ms from CUDA
+   events and from a trace, summed bound, the median launch);
 5. drives the second entry point the same way: the Geographica shapes
    over the LGD data, spatial join and kNN under both joins, range and
    within (which never reach the Phase-3 join) under one, each equal to its
@@ -163,6 +170,49 @@ def device_ms(fn, symbol: str | None = None, reps: int = 20,
     return total_us / reps / 1e3 if total_us else None
 
 
+def event_ms(fn, reps: int = 20, cold_l2: bool = False) -> float:
+    """Mean device time per call of `fn` from two CUDA events around `reps`
+    calls queued behind a sleep kernel that outlasts their enqueue, so the
+    host's time between launches stays out of it: what the device spends
+    on the calls, back to back. Never empty, unlike a trace. With
+    `cold_l2` a 64 MB write precedes each call, and its own time, measured
+    the same way, is taken off."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda") \
+        if cold_l2 else None
+
+    def body():
+        if flush is not None:
+            flush.zero_()
+        fn()
+    body()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        body()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4e9 * host_s) + 2_000_000)   # ~2 GHz: twice over
+    start.record()
+    for _ in range(reps):
+        body()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / reps
+    if flush is not None:
+        ms -= event_ms(flush.zero_, reps)
+    return ms
+
+
+def kernel_ms(fn, symbol: str, reps: int = 20, cold_l2: bool = False
+              ) -> dict:
+    """{device_ms, event_ms} of the kernels `fn` launches: the trace's time
+    (None where it holds no such kernel) beside the events'."""
+    return dict(device_ms=device_ms(fn, symbol, reps, cold_l2),
+                event_ms=event_ms(fn, reps, cold_l2))
+
+
 def require_equal(name: str, got, want) -> float:
     """Bit-identical outputs, or raise; returns the max abs error (0)."""
     for g, w in zip(got, want):
@@ -192,7 +242,7 @@ def check_distance_join(ops, ref, dev, entry):
     entry.update(
         shape=f"M={m} N={n}", max_abs_err=err,
         ms=time_ms(lambda: ops.distance_join(a, b), 50),
-        device_ms=device_ms(lambda: ops.distance_join(a, b),
+        **kernel_ms(lambda: ops.distance_join(a, b),
                             "distance_join_kernel"),
         plain_ms=time_ms(lambda: ref.distance_join_ref(a, b), 10))
     entry["bound_ms"], entry["bound_by"] = bound_ms(
@@ -229,17 +279,15 @@ def check_fused(ops, ref, dev, entry):
         raise AssertionError("fused_topk_join: no case overflowed k")
     theta = torch.full((m,), -np.inf, dtype=torch.float32, device=dev)
     args = (a, b, dk, vk, dist, theta)
+
+    def call():
+        return ops.fused_topk_join(*args, k=100, row_qid=zq_r, col_qid=zq_c)
     entry.update(
         shape=f"M={m} N={n} k=100 theta=-inf", max_abs_err=0.0,
-        ms=time_ms(lambda: ops.fused_topk_join(*args, k=100), 20),
-        device_ms=device_ms(lambda: ops.fused_topk_join(*args, k=100),
-                            "fused_topk_join_kernel"),
+        ms=time_ms(call, 20), **kernel_ms(call, "fused_topk_join_kernel"),
         plain_ms=time_ms(lambda: ref.fused_topk_join_ref(
             *args, zq_r, zq_c, 100), 5))
-    # per pair: 12 ops of distance, 1 add, 3 compares; inputs once, the
-    # (M, k) partials and counts written once
-    entry["bound_ms"], entry["bound_by"] = bound_ms(
-        m * 32 + n * 24 + m * 100 * 8 + m * 4, m * n * 16)
+    entry["bound_ms"], entry["bound_by"] = fused_bound(m, n, 100)
 
 
 def check_bucketed(ops, ref, dev, entry, cases):
@@ -252,23 +300,48 @@ def check_bucketed(ops, ref, dev, entry, cases):
                     -1, 1, (dims, nb, m_pad)).astype(np.float32)).to(dev)
                 b = torch.from_numpy(rng.uniform(
                     -1, 1, (dims, nb, n_pad)).astype(np.float32)).to(dev)
+                want = ref.bucketed_min_core_ref(a, b)
                 require_equal(f"bucketed_min_core {dims}d {m_pad}x{n_pad}",
-                              [ops.bucketed_min_core(a, b)],
-                              [ref.bucketed_min_core_ref(a, b)])
-                ms = time_ms(lambda: ops.bucketed_min_core(a, b), 20)
-                dms = device_ms(lambda: ops.bucketed_min_core(a, b),
-                                "bucketed_min_core_kernel")
+                              [ops.bucketed_min_core(a, b)], [want])
+                # timed as the path calls it: a packed buffer on the card
+                group = ops.min_core_group(dims, [(nb, m_pad, n_pad)])
+                buf = torch.cat([torch.from_numpy(
+                    group.pack()[:group.header]).to(dev), a.reshape(-1),
+                    b.reshape(-1)])
+
+                def call():
+                    return ops.bucketed_min_core_group(buf, group)
+                require_equal(f"bucketed_min_core {dims}d {m_pad}x{n_pad} "
+                              "packed", [call()], [want])
+                ms = time_ms(call, 20)
+                km = kernel_ms(call, "bucketed_min_core_kernel")
                 plain = time_ms(lambda: ref.bucketed_min_core_ref(a, b), 3)
                 bnd, by = bound_ms(dims * nb * (m_pad + n_pad) * 4 + nb * 4,
                                    nb * m_pad * n_pad * 3 * dims)
                 cases.append(dict(kernel="bucketed_min_core", dims=dims,
                                   B=nb, m_pad=m_pad, n_pad=n_pad, ms=ms,
-                                  device_ms=dms, plain_ms=plain,
+                                  **km, plain_ms=plain,
                                   bound_ms=bnd, bound_by=by))
                 if (dims, m_pad, n_pad) == (2, 8, 8):
                     entry.update(shape=f"dims=2 B={nb} m_pad=8 n_pad=8",
-                                 max_abs_err=0.0, ms=ms, device_ms=dms,
+                                 max_abs_err=0.0, ms=ms, **km,
                                  plain_ms=plain, bound_ms=bnd, bound_by=by)
+    # grouped launches mixing every layout: classes from 1 x 1 to 128 x 128
+    for dims, shapes in ((2, [(300, 1, 1), (77, 2, 8), (1024, 8, 8),
+                              (50, 16, 4), (40, 4, 32), (33, 32, 32),
+                              (20, 128, 16), (9, 128, 128), (12, 1, 128),
+                              (5, 3, 5)]),
+                         (3, [(210, 1, 4), (130, 8, 8), (70, 32, 16),
+                              (30, 64, 128)])):
+        group = ops.min_core_group(dims, shapes)
+        buf = group.pack()
+        for g in range(len(shapes)):
+            for p in group.planes(buf, g):
+                p[:] = rng.uniform(-1, 1, p.shape)
+        t = torch.from_numpy(buf).to(dev)
+        require_equal(f"bucketed_min_core grouped {dims}d",
+                      [ops.bucketed_min_core_group(t, group)],
+                      [ref.bucketed_min_core_group_ref(t, group.desc, dims)])
 
 
 def check_tree_descend(ops, ref, dev, entry, trees, cases):
@@ -290,17 +363,20 @@ def check_tree_descend(ops, ref, dev, entry, trees, cases):
         tests = descend_tests(node_keys, cs, box_keys)
         ms = time_ms(lambda: ops.tree_descend(node_keys, cs,
                                                      box_keys), 50)
-        dms = device_ms(lambda: ops.tree_descend(node_keys, cs, box_keys),
+        km = kernel_ms(
+            lambda: ops.tree_descend(node_keys, cs, box_keys),
                         "tree_descend_kernel")
         plain = time_ms(lambda: ref.tree_descend_ref(
             node_keys, cs, box_keys), 10)
         bnd, by = bound_ms(4 * n * 8 + n + nb * m * 32 + nb * n, tests * 4)
         cases.append(dict(kernel="tree_descend", tree=name, B=nb, M=m, N=n,
-                          ms=ms, device_ms=dms, plain_ms=plain, bound_ms=bnd,
+                          ms=ms, **km, plain_ms=plain,
+                          bound_ms=bnd,
                           bound_by=by))
         if name == "lgd":
             entry.update(shape=f"B={nb} M={m} N={n}", max_abs_err=0.0,
-                         ms=ms, device_ms=dms, plain_ms=plain, bound_ms=bnd,
+                         ms=ms, **km, plain_ms=plain,
+                          bound_ms=bnd,
                          bound_by=by)
 
 
@@ -320,7 +396,7 @@ def descend_tests(node_keys, cs, box_keys) -> int:
     return tests
 
 
-def check_descend_path(ops, ref, captured, entry, cases):
+def check_descend_path(ops, ref, captured, entry, cases, lgd_nodes):
     """`tree_descend` at the inputs the main path gave it: every captured
     launch bit-identical to the plain version, then, per tree, the launch
     at the median M timed (the kernel alone, a call, the plain version)
@@ -337,24 +413,117 @@ def check_descend_path(ops, ref, captured, entry, cases):
         nb, m = box_keys.shape[0], box_keys.shape[1]
         tests = descend_tests(node_keys, cs, box_keys)
         ms = time_ms(lambda: ops.tree_descend(node_keys, cs, box_keys), 50)
-        dms = device_ms(lambda: ops.tree_descend(node_keys, cs, box_keys),
+        km = kernel_ms(
+            lambda: ops.tree_descend(node_keys, cs, box_keys),
                         "tree_descend_kernel")
         plain = time_ms(lambda: ref.tree_descend_ref(node_keys, cs,
                                                      box_keys), 10)
         bnd, by = bound_ms(4 * n * 8 + n + nb * m * 32 + nb * n, tests * 4)
         case = dict(kernel="tree_descend", tree=f"path N={n}", B=nb, M=m,
                     N=n, live=int(cs.sum()), launches=len(launches),
-                    box_tests=tests, ms=ms, device_ms=dms, plain_ms=plain,
+                    box_tests=tests, ms=ms, **km,
+                    plain_ms=plain,
                     bound_ms=bnd, bound_by=by)
         cases.append(case)
         print("case " + json.dumps(case), flush=True)
-        if n == min(by_tree):
+        if n == lgd_nodes:
             entry["synthetic"] = {k: entry[k] for k in (
-                "shape", "ms", "device_ms", "plain_ms", "bound_ms",
-                "bound_by")}
+                "shape", "ms", "device_ms", "event_ms", "plain_ms",
+                "bound_ms", "bound_by")}
             entry.update(shape=f"B={nb} M={m} N={n} (the LGD path's median "
-                         "launch)", ms=ms, device_ms=dms, plain_ms=plain,
+                         "launch)", ms=ms, **km,
+                         plain_ms=plain,
                          bound_ms=bnd, bound_by=by)
+
+
+def fused_bound(m: int, n: int, k: int) -> tuple[float, str]:
+    """Per pair: 12 ops of distance, 1 add, 3 compares; the inputs read
+    once (32 bytes a driver row, 24 a driven column), the (M, k) partials
+    and counts written once."""
+    return bound_ms(m * 32 + n * 24 + m * k * 8 + m * 4, m * n * 16)
+
+
+def min_core_bound(group) -> tuple[float, str]:
+    """The packed buffer read once, the cores written once; ~3 ops per
+    dimension of a point pair."""
+    pairs = int((group.desc[:, 3].astype(np.int64) * group.desc[:, 4]
+                 * group.desc[:, 5]).sum())
+    return bound_ms((group.header + group.n_floats + group.n_rows) * 4,
+                    pairs * 3 * group.dims)
+
+
+def _outputs(x) -> list:
+    return list(x) if isinstance(x, (tuple, list)) else [x]
+
+
+def check_path_replays(name, symbol, launches, entry, cases):
+    """Every recorded main-path launch of one kernel (dicts of set, shape,
+    kernel and plain calls, bound) replayed on the card: bit-identical to
+    the plain version, then timed. Per launch, the device time from CUDA
+    events queued back to back (`event_ms`) and from a trace of five
+    replays of the whole sequence (`device_ms`, None where the trace
+    misses launches). A "case" line per query set, for lgd + scale1m (the
+    path PR 15 timed) and for all sets: launches, summed ms and bound, and
+    the median launch (by event time) with its plain version's time; every
+    launch's times in the report only. The kernels line takes all sets, its
+    synthetic figures under `synthetic`."""
+    from torch.profiler import ProfilerActivity, profile
+    for r in launches:
+        require_equal(f"{name} path {r['set']} {r['shape']}",
+                      _outputs(r["kernel"]()), _outputs(r["plain"]()))
+    for r in launches:
+        r["event_ms"] = event_ms(r["kernel"], 10)
+    reps = 5
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for r in launches:
+                r["kernel"]()
+        torch.cuda.synchronize()
+    spans = [stop - start for start, stop, ev in device_spans(prof)
+             if symbol in ev]
+    traced = len(spans) == reps * len(launches)
+    for i, r in enumerate(launches):
+        r["device_ms"] = (sum(spans[i::len(launches)]) / reps / 1e3
+                          if traced else None)
+    groups = {s: [r for r in launches if r["set"] == s]
+              for s in dict.fromkeys(r["set"] for r in launches)}
+    groups["lgd+scale1m"] = [r for r in launches
+                             if r["set"] in ("lgd", "scale1m")]
+    groups["all"] = launches
+    for label, rs in groups.items():
+        if not rs:
+            continue
+        med = sorted(rs, key=lambda r: r["event_ms"])[len(rs) // 2]
+        case = dict(
+            kernel=name, path=label, launches=len(rs),
+            event_ms_sum=sum(r["event_ms"] for r in rs),
+            device_ms_sum=(sum(r["device_ms"] for r in rs)
+                           if traced else None),
+            bound_ms_sum=sum(r["bound"][0] for r in rs),
+            median_shape=med["shape"], median_event_ms=med["event_ms"],
+            median_device_ms=med["device_ms"],
+            median_call_ms=time_ms(med["kernel"], 20),
+            median_plain_ms=time_ms(med["plain"], 5),
+            median_bound_ms=med["bound"][0], median_bound_by=med["bound"][1])
+        cases.append(case)
+        print("case " + json.dumps(case), flush=True)
+    cases.append(dict(kernel=name, path="every launch", launches=[
+        dict(set=r["set"], shape=r["shape"], event_ms=r["event_ms"],
+             device_ms=r["device_ms"], bound_ms=r["bound"][0])
+        for r in launches]))
+    entry["synthetic"] = {k: entry[k] for k in (
+        "shape", "ms", "device_ms", "event_ms", "plain_ms", "bound_ms",
+        "bound_by")}
+    entry.update(
+        shape=f"main path: {case['launches']} launches, median "
+              f"{case['median_shape']}",
+        ms=case["median_event_ms"], event_ms=case["median_event_ms"],
+        device_ms=case["median_device_ms"], call_ms=case["median_call_ms"],
+        plain_ms=case["median_plain_ms"], bound_ms=case["median_bound_ms"],
+        bound_by=case["median_bound_by"], path_event_ms=case["event_ms_sum"],
+        path_device_ms=case["device_ms_sum"],
+        path_bound_ms=case["bound_ms_sum"])
 
 
 def check_bloom_probe(rt, ops, ref, dev, entry, lgd, cases):
@@ -407,7 +576,7 @@ def check_bloom_probe(rt, ops, ref, dev, entry, lgd, cases):
         shape=f"B={b} (N={n} nodes x C={c} keys) W={bank.words} k={bank.k}",
         max_abs_err=0.0,
         ms=time_ms(lambda: ops.bloom_probe(rows, keys, bank.k), 50),
-        device_ms=device_ms(lambda: ops.bloom_probe(rows, keys, bank.k),
+        **kernel_ms(lambda: ops.bloom_probe(rows, keys, bank.k),
                             "bloom_probe_kernel"),
         plain_ms=time_ms(lambda: ref.bloom_probe_ref(rows, keys, bank.k),
                          10),
@@ -548,11 +717,11 @@ def check_merge_join_ranks(ops, ref, dev, entry, cases, call_ms):
         _require_ranks(ops, ref, f"N={n} M={m}", table, probes)
         words, sectors = rank_words_touched(table, probes)
         ms = time_ms(lambda: ops.insertion_ranks(table, probes), 20)
-        dms = device_ms(lambda: ops.insertion_ranks(table, probes),
+        km = kernel_ms(lambda: ops.insertion_ranks(table, probes),
                         "merge_join_ranks_kernel")
         out = torch.empty((2, m), dtype=torch.int64, device=dev)
         layout_ms = {
-            f"lanes={lanes}": device_ms(
+            f"lanes={lanes}": kernel_ms(
                 lambda: ops._rank_launch(table, probes, out, "both", lanes),
                 "merge_join_ranks_kernel")
             for lanes in (1, 32)}
@@ -572,7 +741,7 @@ def check_merge_join_ranks(ops, ref, dev, entry, cases, call_ms):
         case = dict(kernel="merge_join_ranks", N=n, M=m, side="both",
                     lanes=32 if m <= ops.RANK_WARP_MAX_M else 1,
                     table_words=words, table_sectors=sectors, ms=ms,
-                    device_ms=dms, device_ms_by_layout=layout_ms,
+                    **km, ms_by_layout=layout_ms,
                     **call_ms.get((n, m), {}), plain_ms=plain,
                     library_ms=lib, library_call_ms=lib_call,
                     bound_ms=bnd, bound_by=by)
@@ -585,8 +754,8 @@ def check_merge_join_ranks(ops, ref, dev, entry, cases, call_ms):
                 o = torch.empty((2, mm), dtype=torch.int64, device=dev)
                 cases.append(dict(
                     kernel="merge_join_ranks", sweep="layout", N=n, M=mm,
-                    device_ms_by_layout={
-                        f"lanes={lanes}": device_ms(
+                    ms_by_layout={
+                        f"lanes={lanes}": kernel_ms(
                             lambda: ops._rank_launch(table, sub, o, "both",
                                                      lanes),
                             "merge_join_ranks_kernel")
@@ -594,7 +763,8 @@ def check_merge_join_ranks(ops, ref, dev, entry, cases, call_ms):
         if (n, m) == RANK_SHAPES[0]:
             entry.update(shape=f"N={n} M={m} side=both (the main path's "
                          "median call)", max_abs_err=0.0, ms=ms,
-                         device_ms=dms, plain_ms=plain, library_ms=lib,
+                         **km, plain_ms=plain,
+                         library_ms=lib,
                          library_call_ms=lib_call,
                          **call_ms.get((n, m), {}), bound_ms=bnd,
                          bound_by=by)
@@ -612,17 +782,20 @@ def check_block_scan(ops, ref, dev, entry, cases):
                           ops.block_scan(s, theta),
                           ref.block_scan_ref(s, theta))
         ms = time_ms(lambda: ops.block_scan(s, 0.5), 50)
-        dms = device_ms(lambda: ops.block_scan(s, 0.5), "block_scan_kernel",
+        km = kernel_ms(lambda: ops.block_scan(s, 0.5),
+                                "block_scan_kernel",
                         cold_l2=True)
         plain = time_ms(lambda: ref.block_scan_ref(s, 0.5), 10)
         # scores read once, the mask byte and 8 bytes a row written once
         bnd, by = bound_ms(nb * bsz * 5 + nb * 8, nb * bsz * 3)
         cases.append(dict(kernel="block_scan", nb=nb, B=bsz, ms=ms,
-                          device_ms=dms, plain_ms=plain, bound_ms=bnd,
+                          **km, plain_ms=plain,
+                          bound_ms=bnd,
                           bound_by=by))
         if nb == 64:
             entry.update(shape=f"nb={nb} B={bsz}", max_abs_err=0.0, ms=ms,
-                         device_ms=dms, plain_ms=plain, bound_ms=bnd,
+                         **km, plain_ms=plain,
+                          bound_ms=bnd,
                          bound_by=by, library_note="no single PyTorch call "
                          "gives row max, count and mask together")
 
@@ -652,7 +825,7 @@ def check_morton(ops, ref, dev, entry):
     entry.update(
         shape=f"n={n}", max_abs_err=0.0,
         ms=time_ms(lambda: ops.morton_encode(x, y), 50),
-        device_ms=device_ms(lambda: ops.morton_encode(x, y),
+        **kernel_ms(lambda: ops.morton_encode(x, y),
                             "morton_encode_kernel", cold_l2=True),
         plain_ms=time_ms(lambda: ref.morton_ref(x, y), 10),
         bound_ms=bnd, bound_by=by,
@@ -834,9 +1007,9 @@ def check_flash(ops, ref, dev, entry, cases):
                 if dtype == torch.bfloat16:
                     case["max_err_over_limit"] = excess
                     if causal:
-                        case["device_ms"] = device_ms(
+                        case.update(kernel_ms(
                             lambda: ops.flash_attention(q, k, v, causal),
-                            "flash_attention_kernel", 5)
+                            "flash_attention_kernel", 5))
                         case["bound_ms"], case["bound_by"] = flash_bound(
                             q, k, causal)
                 cases.append(case)
@@ -847,7 +1020,7 @@ def check_flash(ops, ref, dev, entry, cases):
                              ref.flash_attention_ref(q, k, v, True))
     cases.append(dict(kernel="flash_attention", heads="gemma", Hq=h, Hkv=h,
                       D=d, S=s, dtype="float32", causal=True,
-                      max_abs_err=err32, device_ms=device_ms(
+                      max_abs_err=err32, **kernel_ms(
                           lambda: ops.flash_attention(q, k, v, True),
                           "flash_attention_kernel", 3)))
     q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
@@ -889,7 +1062,7 @@ def check_flash(ops, ref, dev, entry, cases):
                   f"{FLASH_TOL[torch.float32]}",
         f32_max_abs_err=err32, planted_faults=faults,
         ms=time_ms(lambda: ops.flash_attention(q, k, v, True), 5),
-        device_ms=device_ms(lambda: ops.flash_attention(q, k, v, True),
+        **kernel_ms(lambda: ops.flash_attention(q, k, v, True),
                             "flash_attention_kernel", 5),
         plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, True), 3),
         library_ms=device_ms(library, reps=5),
@@ -906,10 +1079,13 @@ def check_flash(ops, ref, dev, entry, cases):
 
 
 # ------------------------------------------------------- end-to-end phase --
-def run_queries(rt, datasets, join, device):
-    """{(dataset, qi): ((scores, rows, stats), wall ms)} for one backend."""
+def run_queries(rt, datasets, join, device, tag=None):
+    """{(dataset, qi): ((scores, rows, stats), wall ms)} for one backend;
+    tag["set"] names the set running."""
     out = {}
     for name, (ds, n_q) in datasets.items():
+        if tag is not None:
+            tag["set"] = name
         cfg = rt.ExecConfig(policy=rt.BackendPolicy(join=join,
                                                     **SLICE_POLICY))
         eng = rt.StreakEngine(ds.store, cfg, device=device)
@@ -1442,6 +1618,7 @@ def main() -> None:
         sys.exit("chip_smoke: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False      # f32 means f32
     import repro_torch as rt
+    from repro_torch.core import spatial_join
     from repro_torch.data import synth_rdf
     from repro_torch.kernels import _build, ops, ref
 
@@ -1518,7 +1695,8 @@ def main() -> None:
                else f", library {e['library_ms']:.4f} ms")
         print(f"kernel {e['name']} [{e['shape']}] on {kind}: "
               f"{e.get('agreement', 'bit-identical')}; "
-              f"{e['ms']:.4f} ms a call, {e['device_ms']} ms on the device, "
+              f"{e['ms']:.4f} ms a call, {e['device_ms']} ms on the device "
+              f"(trace), {e['event_ms']:.5f} (events), "
               f"plain {e['plain_ms']:.4f} ms{lib}, bound "
               f"{e['bound_ms']:.5f} ms ({e['bound_by']})")
     for c in cases:
@@ -1530,7 +1708,14 @@ def main() -> None:
     t0 = time.perf_counter()
     rank_shapes: list = []      # (N, M, resident table?) of every rank call
     descend_in: list = []       # the inputs of every tree_descend launch
+    fused_in: list = []         # ... of every fused_topk_join launch
+    refine_in: list = []        # ... of every grouped refinement launch
+    refine_calls = [0]          # pool_min_dist calls on the card with pairs
+    tag: dict = {}              # the query set running
     merge_join_ranks, tree_descend = ops.merge_join_ranks, ops.tree_descend
+    fused_topk_join = ops.fused_topk_join
+    refine_group = ops.bucketed_min_core_group
+    pool_min_dist = spatial_join.pool_min_dist
 
     def recording_ranks(table, probes, *args, **kwargs):
         if len(table) and len(probes):        # calls that launch
@@ -1542,17 +1727,72 @@ def main() -> None:
         descend_in.append((node_keys, cs.clone(), box_keys.clone()))
         return tree_descend(node_keys, cs, box_keys)
 
-    checked = {"fused": datasets, "kernel": datasets}
+    def recording_fused(driver, driven, dk, vk, dist, theta, k,
+                        row_qid=None, col_qid=None):
+        m, n = driver.shape[0], driven.shape[0]
+        zeros = functools.partial(torch.zeros, dtype=torch.int32,
+                                  device=driver.device)
+        args = tuple(t.clone() for t in (
+            driver, driven, dk, vk, dist, theta,
+            zeros(m) if row_qid is None else row_qid,
+            zeros(n) if col_qid is None else col_qid))
+        fused_in.append(dict(
+            set=tag["set"], shape=f"M={m} N={n} k={k}",
+            kernel=lambda: ops.fused_topk_join(*args[:6], k=k,
+                                               row_qid=args[6],
+                                               col_qid=args[7]),
+            plain=lambda: ref.fused_topk_join_ref(*args, k),
+            bound=fused_bound(m, n, k)))
+        return fused_topk_join(driver, driven, dk, vk, dist, theta, k,
+                               row_qid, col_qid)
+
+    def recording_refine(buf, group):
+        b = buf.clone()
+        classes = sorted({(int(x[4]), int(x[5])) for x in group.desc})
+        refine_in.append(dict(
+            set=tag["set"], shape=f"dims={group.dims} rows={group.n_rows} "
+            f"buckets={len(group.desc)} classes={classes}",
+            kernel=lambda: ops.bucketed_min_core_group(b, group),
+            plain=lambda: ref.bucketed_min_core_group_ref(b, group.desc,
+                                                          group.dims),
+            bound=min_core_bound(group)))
+        return refine_group(buf, group)
+
+    def counting_refine(pool, rows_a, rows_b, metric="euclid", device=None,
+                        **kwargs):
+        refine_calls[0] += len(rows_a) > 0 and torch.device(device).type \
+            == "cuda"
+        return pool_min_dist(pool, rows_a, rows_b, metric, device, **kwargs)
+
+    # the main path over lgd and scale1m, and the YAGO queries, whose
+    # object-position joins (Q5, Q6, Q8) reach the spatial variable through
+    # an object
+    main_sets = dict(datasets, yago=(synth_rdf.make_yago(
+        n_places=600, seed=1, block=128), 8))
+    checked = {"fused": main_sets, "kernel": main_sets}
     ops.merge_join_ranks, ops.tree_descend = recording_ranks, \
         recording_descend
+    ops.fused_topk_join = recording_fused
+    ops.bucketed_min_core_group = recording_refine
+    spatial_join.pool_min_dist = counting_refine
     ops.reset_launch_counts()
     uploads = ops.rank_table_uploads
-    cuda_runs = {join: run_queries(rt, sets, join, "cuda")
+    cuda_runs = {join: run_queries(rt, sets, join, "cuda", tag)
                  for join, sets in checked.items()}
     launches = dict(ops.LAUNCHES)
     uploads = ops.rank_table_uploads - uploads
     ops.merge_join_ranks, ops.tree_descend = merge_join_ranks, tree_descend
+    ops.fused_topk_join = fused_topk_join
+    ops.bucketed_min_core_group = refine_group
+    spatial_join.pool_min_dist = pool_min_dist
     require_launched("the main path", launches, STREAK_KERNELS)
+    if launches["bucketed_min_core"] != refine_calls[0]:
+        raise AssertionError(
+            f"{launches['bucketed_min_core']} refinement launches for "
+            f"{refine_calls[0]} refinement calls: not one a call")
+    print(f"refinement calls on the main path: {refine_calls[0]}, one "
+          f"launch each; fused launches: {len(fused_in)}, (M, N, k) "
+          f"{[r['shape'] for r in fused_in]}", flush=True)
     n_m = np.array(rank_shapes, dtype=np.int64).reshape(-1, 3)
     resident = n_m[:, 2].astype(bool)
     print(f"rank calls on the main path: {len(n_m)}; table N median "
@@ -1571,7 +1811,7 @@ def main() -> None:
         check_answers(join, runs, cpu_runs)
         for key, (res, ms) in runs.items():
             scores, rows, stats = res
-            if len(scores) > datasets[key[0]][0].queries[key[1]].k:
+            if len(scores) > main_sets[key[0]][0].queries[key[1]].k:
                 raise AssertionError(f"{join} {key}: more rows than k")
             queries.append(dict(join=join, dataset=key[0], q=key[1] + 1,
                                 rows=len(scores), cuda_ms=ms,
@@ -1582,15 +1822,20 @@ def main() -> None:
             print(f"query {join} {key[0]} Q{key[1] + 1}: {len(scores)} rows "
                   f"= cpu; cuda {ms:.1f} ms, cpu {cpu_runs[key][1]:.1f} ms "
                   f"({kind})")
-    if not any(qr["rows"] == datasets[qr["dataset"]][0].queries[0].k
+    if not any(qr["rows"] == main_sets[qr["dataset"]][0].queries[0].k
                for qr in queries):
         raise AssertionError("no query filled its top-k")
     phase_done("main path", t0)
 
     # ---- the redesigned kernels at the main path's own inputs -------------
     t0 = time.perf_counter()
-    check_descend_path(ops, ref, descend_in, entries["tree_descend"], cases)
-    del descend_in
+    check_descend_path(ops, ref, descend_in, entries["tree_descend"], cases,
+                       lgd.store.tree.n_nodes)
+    check_path_replays("fused_topk_join", "fused_topk_join_kernel", fused_in,
+                       entries["fused_topk_join"], cases)
+    check_path_replays("bucketed_min_core", "bucketed_min_core_kernel",
+                       refine_in, entries["bucketed_min_core"], cases)
+    del descend_in, fused_in, refine_in
     phase_done("path shapes", t0)
 
     # ---- second entry point: the Geographica shapes -----------------------

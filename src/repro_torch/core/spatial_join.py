@@ -352,8 +352,9 @@ def pool_min_dist(pool, rows_a: np.ndarray, rows_b: np.ndarray,
     — raw x/y for euclid, unit-sphere X/Y/Z for haversine (chord² = 4h, trig
     hoisted to pool build) — into dense (B, m_pad) / (B, n_pad) tiles,
     padding replicating the entity's last point (which can never change a
-    min), and one `ops.bucketed_min_core` call per bucket on `device`
-    computes the pairwise minima. Geometries wider than `max_pts` are
+    min), all packed into one buffer, and one `ops.bucketed_min_core_group`
+    call on `device` computes every bucket's pairwise minima (one upload,
+    one launch, one copy back). Geometries wider than `max_pts` are
     fragmented into <= max_pts chunks on both sides (min distance decomposes
     over point subsets) and min-scattered back. Returns (n_pairs,) float64
     distances (f32 cores, f64 final transform).
@@ -385,18 +386,24 @@ def pool_min_dist(pool, rows_a: np.ndarray, rows_b: np.ndarray,
     cls_a, cls_b = _size_class(len_a), _size_class(len_b)
     planes = pool.planes3d() if metric == "haversine" else pool.planes2d()
     key = cls_a * (2 * max_pts) + cls_b
-    for kk in np.unique(key):
-        sel = np.flatnonzero(key == kk)
-        m_pad, n_pad = int(cls_a[sel[0]]), int(cls_b[sel[0]])
+    sels = [np.flatnonzero(key == kk) for kk in np.unique(key)]
+    group = ops.min_core_group(len(planes), [
+        (len(sel), int(cls_a[sel[0]]), int(cls_b[sel[0]])) for sel in sels])
+    buf = group.pack()
+    for g, sel in enumerate(sels):
+        va, vb = group.planes(buf, g)
         # clamped gather: index min(arange, len-1) replicates the last point
-        ia = start_a[sel, None] + np.minimum(np.arange(m_pad)[None, :],
+        ia = start_a[sel, None] + np.minimum(np.arange(va.shape[2])[None, :],
                                              (len_a[sel] - 1)[:, None])
-        ib = start_b[sel, None] + np.minimum(np.arange(n_pad)[None, :],
+        ib = start_b[sel, None] + np.minimum(np.arange(vb.shape[2])[None, :],
                                              (len_b[sel] - 1)[:, None])
-        c = ops.bucketed_min_core(
-            _f32_on(np.stack([p[ia] for p in planes]), device),
-            _f32_on(np.stack([p[ib] for p in planes]), device))
-        np.minimum.at(out, pair_idx[sel], c.cpu().numpy())
+        for d, p in enumerate(planes):
+            va[d], vb[d] = p[ia], p[ib]
+    # every bucket in one upload, one launch and one copy back
+    core = ops.bucketed_min_core_group(
+        torch.from_numpy(buf).to(device), group).cpu().numpy()
+    for g, sel in enumerate(sels):
+        np.minimum.at(out, pair_idx[sel], core[group.rows(g)])
     return core_to_dist(out, metric)
 
 

@@ -37,11 +37,11 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F = ctypes.c_float
 KERNELS = {
     "fused_topk_join": ("fused_topk_join_launch",
-                        [_P] * 11 + [_I, _I, _I, _P], EXACT_F32),
+                        [_P] * 11 + [_I] * 6 + [_P], EXACT_F32),
     "distance_join": ("distance_join_launch", [_P, _P, _P, _L, _L, _P],
                       EXACT_F32),
     "bucketed_min_core": ("bucketed_min_core_launch",
-                          [_P, _P, _P, _I, _I, _I, _I, _P], EXACT_F32),
+                          [_P, _P, _P, _I, _I, _I, _P], EXACT_F32),
     "tree_descend": ("tree_descend_launch", [_P, _P, _P, _P, _I, _I, _I, _P],
                      EXACT_F32),
     "bloom_probe": ("bloom_probe_launch", [_P, _P, _P, _L, _I, _I, _P],

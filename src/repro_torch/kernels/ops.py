@@ -16,6 +16,7 @@ here too.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import threading
 
 import numpy as np
@@ -98,7 +99,32 @@ def distance_join(driver: torch.Tensor, driven: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------- fused top-k distance join --
-FUSED_MAX_K = 8192      # the per-row list pair must fit in shared memory
+FUSED_MAX_K = 8192      # a row's list must fit in a block's shared memory
+FUSED_TILE = 256        # driven columns a block stages a step
+FUSED_MAX_SPLITS = 8    # column splits of a row group: one portable cluster
+FUSED_WAVE_BLOCKS = 264   # two waves of the H100's 132 SMs
+FUSED_SMEM = 232_448    # shared memory a block may use on Hopper
+
+
+def fused_plan(m: int, n: int, k: int) -> tuple[int, int, int]:
+    """(rows a block, column splits, split width) of a fused launch.
+
+    A block runs one warp a driver row and walks one column split; the
+    splits of a row group form one thread-block cluster. Four rows a block
+    (fewer where k-entry lists would overflow shared memory), and as many
+    splits of at least `FUSED_TILE` columns, up to `FUSED_MAX_SPLITS`, as
+    the grid needs to cover `FUSED_WAVE_BLOCKS`. Split widths are
+    multiples of 32 columns."""
+    per_row = k * 8 + 32 * 8 + 8
+    rows = min(4, (FUSED_SMEM - 2 * FUSED_TILE * 24) // per_row)
+    rows = 1 << (rows.bit_length() - 1)
+    groups = -(-m // rows)
+    splits = min(FUSED_MAX_SPLITS, max(1, n // FUSED_TILE),
+                 max(1, -(-FUSED_WAVE_BLOCKS // groups)))
+    if n == 0:
+        return rows, 1, 0
+    width = -(-(-(-n // splits)) // 32) * 32
+    return rows, -(-n // width), width
 
 
 def fused_topk_join(driver: torch.Tensor, driven: torch.Tensor,
@@ -138,15 +164,128 @@ def fused_topk_join(driver: torch.Tensor, driven: torch.Tensor,
     idx = torch.empty((m, k), dtype=torch.int32, device=dev)
     counts = torch.empty(m, dtype=torch.int32, device=dev)
     if m:
+        rows, splits, width = fused_plan(m, n, k)
         _launch("fused_topk_join", *(_ptr(t) for t in args),
                 _ptr(scores), _ptr(idx), _ptr(counts),
-                ctypes.c_int(m), ctypes.c_int(n), ctypes.c_int(k))
+                *(ctypes.c_int(x) for x in (m, n, k, rows, splits, width)))
     return scores, idx, counts
 
 
 # ------------------------------------------- bucketed geometry refinement --
+REFINE_MAX_PAD = 128
+# descriptor columns of a refinement group, as csrc/bucketed_min_core.cu
+# reads them: plane offsets (floats into the planes), output offset, rows,
+# m_pad, n_pad, first block, layout
+MIN_CORE_DESC = ("a_off", "b_off", "out_off", "rows", "m_pad", "n_pad",
+                 "first_block", "layout")
+# layouts by size class: a thread a row (256 rows a block), a warp a row
+# (8 rows a block), a block a row
+MIN_CORE_LAYOUTS = {"thread": (0, 256), "warp": (1, 8), "block": (2, 1)}
+
+
+def min_core_layout(m_pad: int, n_pad: int) -> str:
+    """The kernel's layout for one size class (see
+    csrc/bucketed_min_core.cu)."""
+    if m_pad * n_pad <= 64 and n_pad <= 16:
+        return "thread"
+    if m_pad <= 32 and n_pad <= 32:
+        return "warp"
+    return "block"
+
+
+@dataclasses.dataclass(frozen=True)
+class MinCoreGroup:
+    """The buckets of one grouped refinement launch, on the host.
+
+    `desc` (G, 8) int32 holds `MIN_CORE_DESC` per bucket. A packed buffer
+    (`pack`) is one f32 array: the descriptor table's int32 bits first
+    (`header` words), then each bucket's a (dims, rows, m_pad) and b (dims,
+    rows, n_pad) planes. The cores come out as one (n_rows,) f32 array,
+    bucket after bucket."""
+    dims: int
+    desc: np.ndarray
+    n_blocks: int
+    n_rows: int
+    n_floats: int
+
+    @property
+    def header(self) -> int:
+        return self.desc.size
+
+    def pack(self) -> np.ndarray:
+        """An f32 buffer with the descriptor table written and the planes
+        left to fill (`planes`)."""
+        buf = np.empty(self.header + self.n_floats, dtype=np.float32)
+        buf[:self.header].view(np.int32)[:] = self.desc.ravel()
+        return buf
+
+    def planes(self, buf, g: int):
+        """Views (a, b) of bucket g's planes in a packed buffer (numpy or
+        torch, header included)."""
+        a_off, b_off, _, nb, m_pad, n_pad = (int(x) for x in self.desc[g, :6])
+        h = self.header
+        return (buf[h + a_off:h + a_off + self.dims * nb * m_pad]
+                .reshape(self.dims, nb, m_pad),
+                buf[h + b_off:h + b_off + self.dims * nb * n_pad]
+                .reshape(self.dims, nb, n_pad))
+
+    def rows(self, g: int) -> slice:
+        """Bucket g's cores in the grouped output."""
+        start = int(self.desc[g, 2])
+        return slice(start, start + int(self.desc[g, 3]))
+
+
+def min_core_group(dims: int, shapes) -> MinCoreGroup:
+    """Lay out buckets of (rows, m_pad, n_pad) for one grouped launch."""
+    if dims not in (2, 3):
+        raise ValueError(f"bucketed_min_core: dims={dims} outside 2-3")
+    desc = np.zeros((len(shapes), len(MIN_CORE_DESC)), dtype=np.int32)
+    floats = rows = blocks = 0
+    for g, (nb, m_pad, n_pad) in enumerate(shapes):
+        if not (1 <= m_pad <= REFINE_MAX_PAD and 1 <= n_pad <= REFINE_MAX_PAD):
+            raise ValueError(f"bucketed_min_core: m_pad={m_pad}, n_pad="
+                             f"{n_pad} outside pads 1-{REFINE_MAX_PAD}")
+        code, per_block = MIN_CORE_LAYOUTS[min_core_layout(m_pad, n_pad)]
+        desc[g] = (floats, floats + dims * nb * m_pad, rows, nb, m_pad,
+                   n_pad, blocks, code)
+        floats += dims * nb * (m_pad + n_pad)
+        rows += nb
+        blocks += -(-nb // per_block)
+    if floats >= 1 << 31:
+        raise ValueError(f"bucketed_min_core: {floats} plane floats exceed "
+                         "2^31")
+    return MinCoreGroup(dims, desc, blocks, rows, floats)
+
+
+def _min_core_launch(desc: torch.Tensor, planes: torch.Tensor,
+                     group: MinCoreGroup) -> torch.Tensor:
+    out = torch.empty(group.n_rows, dtype=torch.float32, device=planes.device)
+    if group.n_blocks:
+        _launch("bucketed_min_core", _ptr(desc), _ptr(planes), _ptr(out),
+                ctypes.c_int(len(group.desc)), ctypes.c_int(group.dims),
+                ctypes.c_int(group.n_blocks))
+    return out
+
+
+def bucketed_min_core_group(buf: torch.Tensor, group: MinCoreGroup
+                            ) -> torch.Tensor:
+    """Per-row min squared point distance over every bucket of a refinement
+    call, in one launch (see csrc/bucketed_min_core.cu).
+
+    buf: `group.pack()`'s 1-d f32 buffer, planes filled, on the device
+    (one upload). Returns the (group.n_rows,) f32 cores, bucket after
+    bucket (`group.rows(g)`)."""
+    if not _on_cuda("bucketed_min_core", buf):
+        return ref.bucketed_min_core_group_ref(buf, group.desc, group.dims)
+    _check("bucketed_min_core", buf, torch.float32,
+           (group.header + group.n_floats,), 16)
+    return _min_core_launch(buf[:group.header].view(torch.int32),
+                            buf[group.header:], group)
+
+
 def bucketed_min_core(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Per-row min squared point distance over one size-class bucket.
+    """Per-row min squared point distance over one size-class bucket: a
+    refinement group of one (see `bucketed_min_core_group`).
 
     a (dims, B, m_pad), b (dims, B, n_pad) f32 coordinate planes (dims 2 or
     3, pads <= 128, padding replicates real points) -> (B,) f32 cores; the
@@ -156,17 +295,12 @@ def bucketed_min_core(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return ref.bucketed_min_core_ref(a, b)
     dims, nb, m_pad = a.shape
     n_pad = b.shape[2]
-    if dims not in (2, 3) or not (1 <= m_pad <= 128 and 1 <= n_pad <= 128):
-        raise ValueError(f"bucketed_min_core: dims={dims}, m_pad={m_pad}, "
-                         f"n_pad={n_pad} outside dims 2-3, pads 1-128")
+    group = min_core_group(dims, [(nb, m_pad, n_pad)])
     _check("bucketed_min_core", a, torch.float32, (dims, nb, m_pad), 4)
     _check("bucketed_min_core", b, torch.float32, (dims, nb, n_pad), 4)
-    out = torch.empty(nb, dtype=torch.float32, device=a.device)
-    if nb:
-        _launch("bucketed_min_core", _ptr(a), _ptr(b), _ptr(out),
-                ctypes.c_int(dims), ctypes.c_int(nb), ctypes.c_int(m_pad),
-                ctypes.c_int(n_pad))
-    return out
+    desc = torch.from_numpy(group.desc).to(a.device)
+    return _min_core_launch(desc, torch.cat([a.reshape(-1), b.reshape(-1)]),
+                            group)
 
 
 # ------------------------------------------------------------ tree descent --

@@ -86,6 +86,22 @@ def bucketed_min_core_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return best
 
 
+def bucketed_min_core_group_ref(buf: torch.Tensor, desc, dims: int
+                                ) -> torch.Tensor:
+    """The grouped refinement call: `bucketed_min_core_ref` bucket by
+    bucket over a packed buffer (the descriptor table's `desc.size` words,
+    then the planes; see ops.MinCoreGroup). desc (G, 8) int32 rows of
+    (a_off, b_off, out_off, rows, m_pad, n_pad, ...). Returns the cores,
+    bucket after bucket."""
+    planes = buf[desc.size:]
+    outs = []
+    for a_off, b_off, _, nb, m_pad, n_pad, *_ in desc.tolist():
+        a = planes[a_off:a_off + dims * nb * m_pad].reshape(dims, nb, m_pad)
+        b = planes[b_off:b_off + dims * nb * n_pad].reshape(dims, nb, n_pad)
+        outs.append(bucketed_min_core_ref(a, b))
+    return torch.cat(outs) if outs else planes.new_empty(0)
+
+
 # ------------------------------------------------------------ tree descent --
 def tree_descend_ref(node_keys: torch.Tensor, cs_path: torch.Tensor,
                      box_keys: torch.Tensor) -> torch.Tensor:

@@ -74,6 +74,91 @@ def test_bucketed_kernel_matches_plain(dev, dims, m_pad, n_pad):
     _equal([ops.bucketed_min_core(a, b)], [ref.bucketed_min_core_ref(a, b)])
 
 
+def _fused_case(dev, m, n, seed, dist=0.2, tie_levels=None, sorted_keys=False,
+                n_queries=1, per_row=False):
+    rng = np.random.default_rng(seed)
+    if tie_levels:
+        dk = rng.integers(0, tie_levels, m) / tie_levels
+        vk = rng.integers(0, tie_levels, n) / tie_levels
+    else:
+        dk, vk = rng.random(m), rng.random(n)
+    if sorted_keys:                      # the stream join's order
+        vk = -np.sort(-vk)
+    dist_r = np.full(m, dist)
+    theta = np.full(m, -np.inf)
+    if per_row:
+        dist_r = rng.uniform(0.5, 1.5, m) * dist
+        theta = np.where(rng.random(m) < 0.5, -np.inf,
+                         rng.uniform(0.3, 1.3, m))
+    f32 = [torch.from_numpy(x.astype(np.float32)).to(dev)
+           for x in (dk, vk, dist_r, theta)]
+    rq = torch.from_numpy(rng.integers(0, n_queries, m).astype(np.int32))
+    cq = torch.from_numpy(rng.integers(0, n_queries, n).astype(np.int32))
+    return (_boxes(rng, m, dev), _boxes(rng, n, dev), *f32), rq.to(dev), \
+        cq.to(dev)
+
+
+# (M, N, k, case options): M = 1 over 8 column splits with ties on a 1/4
+# key grid straddling split boundaries; N below one warp step and below one
+# staged tile; the main path's largest lgd launch with sorted driven keys
+# (the append path) and unsorted; k from 1 to FUSED_MAX_K with overflowed
+# counts; mixed qids with per-row distance and theta
+FUSED_CASES = {
+    "m1_ties_across_splits": (1, 5000, 100, dict(tie_levels=4, dist=0.05)),
+    "n_below_warp_step": (37, 20, 8, dict(dist=0.5)),
+    "n_below_tile": (200, 250, 16, {}),
+    "path_sorted": (61, 3333, 100, dict(sorted_keys=True)),
+    "path_unsorted_ties": (61, 3333, 100, dict(tie_levels=8)),
+    "k1_overflow": (515, 4096, 1, {}),
+    "k1024_overflow": (64, 4096, 1024, dict(dist=0.6, tie_levels=16)),
+    "k8192_overflow": (5, 20000, 8192, dict(dist=0.8)),
+    "mixed_qids_per_row": (120, 3000, 100, dict(n_queries=3, per_row=True,
+                                                 tie_levels=4)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_fused_redesign_matches_plain(dev, case):
+    m, n, k, opts = FUSED_CASES[case]
+    args, rq, cq = _fused_case(dev, m, n, seed=len(case), **opts)
+    ops.reset_launch_counts()
+    got = ops.fused_topk_join(*args, k=k, row_qid=rq, col_qid=cq)
+    assert ops.LAUNCHES["fused_topk_join"] == 1
+    want = ref.fused_topk_join_ref(*args, rq, cq, k)
+    _equal(got, want)
+    if "overflow" in case:
+        assert bool((want[2] > k).any())
+    if case == "m1_ties_across_splits":
+        _, splits, width = ops.fused_plan(m, n, k)
+        assert splits == ops.FUSED_MAX_SPLITS
+        s, i = want[0][0], want[1][0]
+        assert bool(((s[1:] == s[:-1]) & (i[1:] // width != i[:-1] // width)
+                     & (i[1:] >= 0)).any())
+
+
+REFINE_GROUPS = {   # (rows, m_pad, n_pad) buckets of one launch
+    2: [(300, 1, 1), (77, 2, 8), (1024, 8, 8), (50, 16, 4), (40, 4, 32),
+        (33, 32, 32), (20, 128, 16), (9, 128, 128), (12, 1, 128),
+        (5, 3, 5)],
+    3: [(210, 1, 4), (130, 8, 8), (70, 32, 16), (30, 64, 128)],
+}
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_grouped_refinement_kernel_matches_plain(dev, dims):
+    rng = np.random.default_rng(dims)
+    group = ops.min_core_group(dims, REFINE_GROUPS[dims])
+    buf = group.pack()
+    for g in range(len(REFINE_GROUPS[dims])):
+        for p in group.planes(buf, g):
+            p[:] = rng.uniform(-1, 1, p.shape)
+    t = torch.from_numpy(buf).to(dev)
+    ops.reset_launch_counts()
+    got = ops.bucketed_min_core_group(t, group)
+    assert ops.LAUNCHES["bucketed_min_core"] == 1
+    _equal([got], [ref.bucketed_min_core_group_ref(t, group.desc, dims)])
+
+
 def test_tree_descend_kernel_matches_plain(dev):
     tree = synth_rdf.make_lgd(n_per_class=200, seed=0).store.tree
     rng = np.random.default_rng(3)
@@ -310,10 +395,23 @@ def test_tree_descend_kernel_edge_cases_match_plain(dev, small_tree, case):
 
 @pytest.mark.parametrize("join", ["fused", "kernel"])
 @pytest.mark.parametrize("probe_rank", ["numpy", "kernel"])
-def test_engine_on_cuda_equals_cpu(dev, join, probe_rank):
+def test_engine_on_cuda_equals_cpu(dev, join, probe_rank, monkeypatch):
+    """... and one refinement launch for each refinement call on the card
+    that has pairs to refine."""
+    from repro_torch.core import spatial_join
     ds = synth_rdf.make_lgd(n_per_class=300, seed=0)
     cfg = ExecConfig(policy=BackendPolicy(
         join=join, descend="kernel", probe=probe_rank, rank=probe_rank))
+    refine_calls = [0]
+    pool_min_dist = spatial_join.pool_min_dist
+
+    def counting(pool, rows_a, rows_b, metric="euclid", device=None,
+                 **kwargs):
+        refine_calls[0] += len(rows_a) > 0 and torch.device(device).type \
+            == "cuda"
+        return pool_min_dist(pool, rows_a, rows_b, metric, device, **kwargs)
+
+    monkeypatch.setattr(spatial_join, "pool_min_dist", counting)
     ops.reset_launch_counts()
     for q in ds.queries:
         got = StreakEngine(ds.store, cfg).execute(q)
@@ -323,7 +421,7 @@ def test_engine_on_cuda_equals_cpu(dev, join, probe_rank):
             np.testing.assert_array_equal(got[1][c], want[1][c])
         assert dataclasses.asdict(got[2]) == dataclasses.asdict(want[2])
     assert ops.LAUNCHES["tree_descend"] > 0
-    assert ops.LAUNCHES["bucketed_min_core"] > 0
+    assert ops.LAUNCHES["bucketed_min_core"] == refine_calls[0] > 0
     assert ops.LAUNCHES["fused_topk_join" if join == "fused"
                         else "distance_join"] > 0
     for name in ("bloom_probe", "merge_join_ranks"):
