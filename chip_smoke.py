@@ -14,13 +14,20 @@ In order it:
    failing on a spill or on a bf16 instantiation without them; then,
    before any profiler session (once torch.profiler has traced the card,
    every CUDA call of the process costs more on the host), times the
-   engine's rank call (numpy in and out) against numpy's search, and LGD
-   Q1-Q8 with the Bloom probes and the rank pass on numpy and on their
-   kernels, then both query sets with the rank pass alone, in turns;
+   engine's rank call (numpy in and out) against numpy's search, the
+   engine's pair call and Bloom probe at the main path's median and largest
+   inputs (recorded in one pass of each set with the matrix join) against
+   the routes they replaced, and LGD Q1-Q8 with the Bloom probes and the
+   rank pass on numpy and on their kernels, then both query sets with the
+   rank pass alone, in turns;
 3. holds each kernel against its plain torch version on the card, at the
    shapes the main path gives it: bit-identical output for the STREAK
    kernels (the rank kernel in both of its layouts, at the main path's
-   median and largest call shapes, at ~1M keys and on edge tables),
+   median and largest call shapes, at ~1M keys and on edge tables; the
+   distance join as a matrix and as candidate pairs, with a pair at d ==
+   dist, NaN boxes, none passing and all passing past the pair buffer,
+   which must run the call again once; the Bloom probe per row and per
+   filter, and a bank probed, added to and probed again),
    `block_scan` and `morton_encode`, the reference's tolerances
    (f32 2e-4, bf16 5e-2) for `flash_attention` (gemma-7b's prefill shape
    and a sweep of GQA/MHA/MQA heads, dtypes, masks and lengths); times
@@ -40,13 +47,16 @@ In order it:
    after, requires every STREAK kernel to have launched, and requires
    every answer, plan log and statistic to equal a `device="cpu"` run;
    runs the YAGO queries (`make_yago(600)`, Q1-Q8) the same way; requires
-   one refinement launch for each refinement call; records the (N, M) of
-   every rank launch and the inputs of every `tree_descend`,
-   `fused_topk_join` and grouped `bucketed_min_core` launch, then holds
+   one refinement launch for each refinement call, and that every
+   distance-join and Bloom launch was a pair call (matrix join and overflow
+   recovery) or a per-filter probe; records the (N, M) of every rank
+   launch and the inputs of every `tree_descend`, `fused_topk_join`,
+   grouped `bucketed_min_core`, pair call and per-filter probe, then holds
    each against its plain version at each of those inputs, times
-   `tree_descend` at each tree's median one, and the other two at every
-   one ("case" lines per query set: launches, summed device ms from CUDA
-   events and from a trace, summed bound, the median launch);
+   `tree_descend` at each tree's median one, and the others at every one
+   ("case" lines per query set: launches, summed device ms from CUDA
+   events and from a trace, summed bound, the median launch); prints the
+   uploads of each store's Bloom banks (at most one each in the run);
 5. drives the second entry point the same way: the Geographica shapes
    over the LGD data, spatial join and kNN under both joins, range and
    within (which never reach the Phase-3 join) under one, each equal to its
@@ -62,9 +72,10 @@ In order it:
    against the full forward over its prefix; then the three dense smoke
    configs (f32) on the card against the CPU;
 8. traces one more pass of each query set on the card: host ms per
-   executor layer, device busy ms and the device's idle share; then the
-   LGD and 1M-quad sets (fused join) with the rank pass alone on numpy and
-   on its kernel, in turns ("rank turn");
+   executor layer, device busy ms (by kind: each kernel, memcpy) and the
+   device's idle share; then the LGD and 1M-quad sets (fused join) with
+   the rank pass alone on numpy and on its kernel, in turns ("rank turn");
+   then the Bloom bank uploads over the run and each pass's memcpy ms;
 9. prints the kernels line (JSON), then the ok line (JSON) last.
 
 Any failed phase raises, so the script exits non-zero without the ok line.
@@ -232,21 +243,77 @@ def _boxes(rng, n, size=0.01):
         .astype(np.float32)
 
 
-def check_distance_join(ops, ref, dev, entry):
+def check_distance_join(ops, ref, dev, entry, cases):
+    """The matrix form at 1024 x 4096 (and N % 4 != 0), then the pair call
+    at the main path's largest launch shape (scale1m's 523 x 8954): random
+    boxes, dist equal to one of the distances, NaN boxes, nothing passing,
+    and everything passing at a size above the pair buffer's capacity, which
+    must run the call again once. Each against its plain version."""
     rng = np.random.default_rng(1)
-    m, n = 1024, 4096
-    a = torch.from_numpy(_boxes(rng, m)).to(dev)
-    b = torch.from_numpy(_boxes(rng, n)).to(dev)
-    err = require_equal("distance_join", [ops.distance_join(a, b)],
-                        [ref.distance_join_ref(a, b)])
+    for m, n in ((33, 1027), (1024, 4096)):
+        a = torch.from_numpy(_boxes(rng, m)).to(dev)
+        b = torch.from_numpy(_boxes(rng, n)).to(dev)
+        err = require_equal(f"distance_join {m}x{n}",
+                            [ops.distance_join(a, b)],
+                            [ref.distance_join_ref(a, b)])
     entry.update(
         shape=f"M={m} N={n}", max_abs_err=err,
         ms=time_ms(lambda: ops.distance_join(a, b), 50),
-        **kernel_ms(lambda: ops.distance_join(a, b),
-                            "distance_join_kernel"),
+        **kernel_ms(lambda: ops.distance_join(a, b), "distance_join_kernel"),
         plain_ms=time_ms(lambda: ref.distance_join_ref(a, b), 10))
     entry["bound_ms"], entry["bound_by"] = bound_ms(
         (m + n) * 16 + m * n * 4, m * n * 12)
+    m, n = 523, 8954
+    a = torch.from_numpy(_boxes(rng, m)).to(dev)
+    b = torch.from_numpy(_boxes(rng, n)).to(dev)
+    d = ref.distance_join_ref(a, b)
+    at = float(d.flatten().sort().values[d.numel() // 200])   # 0.5% pass
+    nan_a, nan_b = a.clone(), b.clone()
+    nan_a[::3, 2] = float("nan")
+    nan_b[1::4, 1] = float("nan")
+    for label, (x, y, dist) in {
+            "random": (a, b, 0.02), "d == dist": (a, b, at),
+            "nan boxes": (nan_a, nan_b, 0.02),
+            "none pass": (a, b, -1.0)}.items():
+        got = ops.distance_join_pairs(x, y, dist)
+        want = ref.distance_join_pairs_ref(x, y, dist)
+        require_equal(f"distance_join_pairs {label}",
+                      [torch.from_numpy(g) for g in got],
+                      [w.cpu() for w in want])
+        if label == "d == dist" and not bool(
+                (d[want] == np.float32(at)).any()):
+            raise AssertionError("distance_join_pairs: no pair at d == dist")
+        cases.append(dict(kernel="distance_join_pairs", case=label, M=m, N=n,
+                          pairs=len(got[0])))
+    # everything passes, more pairs than the buffer holds
+    cap = ops.pairs_capacity(dev)
+    n = 4096
+    m = cap // n + 1
+    x = torch.from_numpy(_boxes(rng, m)).to(dev)
+    y = torch.from_numpy(_boxes(rng, n)).to(dev)
+    retries, launches = ops.pair_capacity_retries, ops.LAUNCHES[
+        "distance_join"]
+    got = ops.distance_join_pairs(x, y, 4.0)
+    retried = ops.pair_capacity_retries - retries
+    launched = ops.LAUNCHES["distance_join"] - launches
+    require_equal("distance_join_pairs all pass",
+                  [torch.from_numpy(g) for g in got],
+                  [w.cpu() for w in ref.distance_join_pairs_ref(x, y, 4.0)])
+    if len(got[0]) != m * n or retried != 1 or launched != 2:
+        raise AssertionError(f"distance_join_pairs all pass: {len(got[0])} "
+                             f"pairs of {m * n}, {retried} retries, "
+                             f"{launched} launches (want 1 and 2)")
+    case = dict(kernel="distance_join_pairs", case="all pass", M=m, N=n,
+                pairs=len(got[0]), capacity_before=cap, retries=retried,
+                launches=launched, capacity_after=ops.pairs_capacity(dev))
+    cases.append(case)
+    print("pair capacity retry " + json.dumps(case), flush=True)
+
+
+def pairs_bound(m: int, n: int, pairs: int) -> tuple[float, str]:
+    """The boxes read once, the pairs (8 bytes each) and a count written
+    once; ~15 operations a tested pair (the distance, then the compare)."""
+    return bound_ms((m + n) * 16 + pairs * 8 + 8, m * n * 15)
 
 
 def check_fused(ops, ref, dev, entry):
@@ -458,11 +525,12 @@ def _outputs(x) -> list:
 
 def check_path_replays(name, symbol, launches, entry, cases):
     """Every recorded main-path launch of one kernel (dicts of set, shape,
-    kernel and plain calls, bound) replayed on the card: bit-identical to
+    kernel and plain calls, bound, and for a call that synchronises its
+    kernel's launch alone, `launch`) replayed on the card: bit-identical to
     the plain version, then timed. Per launch, the device time from CUDA
-    events queued back to back (`event_ms`) and from a trace of five
-    replays of the whole sequence (`device_ms`, None where the trace
-    misses launches). A "case" line per query set, for lgd + scale1m (the
+    events queued back to back (`event_ms`, of `launch` where there is one)
+    and from a trace of five replays of the whole sequence (`device_ms`,
+    None where the trace misses launches). A "case" line per query set, for lgd + scale1m (the
     path PR 15 timed) and for all sets: launches, summed ms and bound, and
     the median launch (by event time) with its plain version's time; every
     launch's times in the report only. The kernels line takes all sets, its
@@ -472,7 +540,7 @@ def check_path_replays(name, symbol, launches, entry, cases):
         require_equal(f"{name} path {r['set']} {r['shape']}",
                       _outputs(r["kernel"]()), _outputs(r["plain"]()))
     for r in launches:
-        r["event_ms"] = event_ms(r["kernel"], 10)
+        r["event_ms"] = event_ms(r.get("launch", r["kernel"]), 10)
     reps = 5
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -563,6 +631,41 @@ def check_bloom_probe(rt, ops, ref, dev, entry, lgd, cases):
                                      "inserted key tested absent")
             cases.append(dict(kernel="bloom_probe", W=w, k=k, B=8192,
                               members=int(g.sum())))
+            # the per-filter form: key sets within one and across the
+            # kernel's 256-key chunks, filters repeated
+            fi_any = rng.integers(0, 1024, 2000)
+            bits = torch.from_numpy(rbank.bits.view(np.int32)).to(dev)
+            for n_keys in (5, 300, 600):
+                keys_any = np.concatenate([ins[:3], absent[:n_keys - 3]])
+                got_any = require_any(ops, ref, f"bloom_probe_any W={w} "
+                                      f"k={k} C={n_keys}", bits, fi_any,
+                                      keys_any, k)
+                if not got_any[np.isin(fi_any, ins_f[:3])].all():
+                    raise AssertionError(f"bloom_probe_any W={w} k={k}: a "
+                                         "filter holding a key tested absent")
+    # LGD Q1's probe of every node, against a copy of the store's bank made
+    # here (the store's own copy is made by the main path, once)
+    require_any(ops, ref, "bloom_probe_any lgd Q1",
+                torch.from_numpy(bank.bits.view(np.int32)).to(dev),
+                np.arange(n), cs, bank.k)
+    # a bank probed, added to and probed again: `add` drops the resident
+    # copy, so the added key is found, after a second upload
+    fresh = BloomBank.empty(n, words=8, k=3)
+    fresh.add(rng.integers(0, n, 4000), rng.integers(0, 1 << 62, 4000))
+    key = np.array([(1 << 62) + 12345], dtype=np.int64)
+    prep = fresh.prepare(key)
+    uploads = ops.bloom_bank_uploads
+    first = fresh.contains_any_batch(np.arange(n), prep, "kernel", dev)
+    target = int(np.flatnonzero(~first)[0])
+    fresh.add(np.array([target]), key)
+    after = fresh.contains_any_batch(np.arange(n), prep, "kernel", dev)
+    uploads = ops.bloom_bank_uploads - uploads
+    if not (after[target] and uploads == 2 and np.array_equal(
+            after, fresh.contains_any_batch(np.arange(n), prep, "numpy"))):
+        raise AssertionError(f"bloom_probe_any after add: found "
+                             f"{bool(after[target])}, {uploads} uploads")
+    cases.append(dict(kernel="bloom_probe_any", case="after add",
+                      filters=n, uploads=uploads))
     # what this data needs: per row its key, its verdict, and the words up
     # to its first clear bit; ~40 integer ops of hashing plus ~7 a word
     pos = ref.bloom_positions(keys, bank.k, bank.nbits)
@@ -583,6 +686,39 @@ def check_bloom_probe(rt, ops, ref, dev, entry, lgd, cases):
         library_note="no PyTorch call computes a double-hashed Bloom test")
     entry["bound_ms"], entry["bound_by"] = bound_ms(
         b * (8 + 1) + n_words * 4, b * 40 + n_words * 7)
+
+
+def require_any(ops, ref, label, bits, fi, keys, k) -> np.ndarray:
+    """`ops.bloom_probe_any` bit-identical to its plain version; returns
+    the verdicts."""
+    got = ops.bloom_probe_any(bits, fi, keys, k)
+    want = ref.bloom_probe_any_ref(bits, torch.from_numpy(fi).to(bits.device),
+                                   torch.from_numpy(keys).to(bits.device), k)
+    require_equal(label, [torch.from_numpy(got)], [want.cpu()])
+    return got
+
+
+def any_bound(ref, bits, fi, keys, k) -> tuple[float, str]:
+    """What this per-filter probe needs: the filter indices, the keys and
+    the verdicts once, and per filter the words that its tested probes
+    land in; ~40 integer operations to hash a key (once), ~7 a probe, for
+    each filter's keys up to its first member and each key's probes up to
+    its first clear bit."""
+    dev = bits.device
+    kt = torch.from_numpy(keys).to(dev)
+    pos = ref.bloom_positions(kt, k, bits.shape[1] * 32)          # (C, k)
+    rows = bits[torch.from_numpy(fi).to(dev)].to(torch.int64) & 0xFFFFFFFF
+    bit = (rows[:, pos // 32] >> (pos % 32)) & 1                 # (F, C, k)
+    clear = bit == 0
+    probes = torch.where(clear.any(2), clear.int().argmax(2) + 1, k)
+    member = ~clear.any(2)                                       # (F, C)
+    keys_tested = torch.where(member.any(1), member.int().argmax(1) + 1,
+                              len(keys))
+    tested = torch.arange(len(keys), device=dev)[None] < keys_tested[:, None]
+    n_probes = int((probes * tested).sum())
+    words = len(torch.unique(pos // 32))
+    return bound_ms(len(fi) * (8 + 1 + words * 4) + len(keys) * 8,
+                    len(keys) * 40 + n_probes * 7)
 
 
 def rank_words_touched(table, probes) -> tuple[int, int]:
@@ -697,6 +833,139 @@ def rank_call_times(ops, dev) -> dict:
             host_searchsorted_ms=host_call_ms(lambda: ops.merge_join_ranks(
                 table_np, probes_np, "numpy", "both"), 3 if m > 1e5 else 50))
     return out
+
+
+def path_call_times(rt, ops, datasets, dev) -> dict:
+    """Host ms of the pair call and the Bloom probe as the engine makes
+    them, beside the routes they replaced, at the main path's own inputs:
+    one untraced pass of each set with the matrix join records the inputs
+    of every pair call (host boxes) and Bloom probe, then, at the median and
+    the largest of each (by M x N, by filters), `call_ms` (the call now),
+    `matrix_route_ms` (the (M, N) f32 matrix on the card, copied back,
+    compared and `np.nonzero`-ed on the host) and for the probe
+    `gather_route_ms` (F x C rows gathered and keys tiled on the host,
+    uploaded, probed per row, verdicts reduced on the host) and `numpy_ms`
+    (the numpy probe). Each route's answer must equal the call's. Run
+    before any profiler session (see `rank_call_times`)."""
+    from repro_torch.core.charsets import BloomBank
+    pair_in, probe_in = [], []
+    pairs, probe = ops.distance_join_pairs, ops.bloom_probe_any
+
+    def recording_pairs(driver, driven, dist, device=None):
+        if isinstance(driver, np.ndarray):
+            pair_in.append((driver.copy(), driven.copy(), dist))
+        return pairs(driver, driven, dist, device)
+
+    def recording_probe(bits, fi, keys, k):
+        probe_in.append((bits, np.array(fi), np.array(keys), k))
+        return probe(bits, fi, keys, k)
+    ops.distance_join_pairs, ops.bloom_probe_any = recording_pairs, \
+        recording_probe
+    try:
+        for ds, n_q in datasets.values():
+            eng = rt.StreakEngine(ds.store, rt.ExecConfig(
+                policy=rt.BackendPolicy(join="kernel", **SLICE_POLICY)),
+                device="cuda")
+            for qi in range(n_q):
+                eng.execute(ds.queries[qi])
+    finally:
+        ops.distance_join_pairs, ops.bloom_probe_any = pairs, probe
+    out = {}
+    pair_in.sort(key=lambda r: len(r[0]) * len(r[1]))
+    for label, (a, b, dist) in (("median", pair_in[len(pair_in) // 2]),
+                                ("largest", pair_in[-1])):
+        def matrix_route(a=a, b=b, dist=dist):
+            d = ops.distance_join(*(torch.from_numpy(np.ascontiguousarray(
+                x, dtype=np.float32)).to(dev) for x in (a, b)))
+            return np.nonzero(d.cpu().numpy() <= np.float32(dist))
+
+        def call(a=a, b=b, dist=dist):
+            return ops.distance_join_pairs(a, b, dist, dev)
+        got = call()
+        if not all(np.array_equal(g, w) for g, w in zip(got, matrix_route())):
+            raise AssertionError(f"pair call {label}: the matrix route "
+                                 "differs")
+        out[f"pair call {label}"] = dict(
+            M=len(a), N=len(b), pairs=len(got[0]),
+            call_ms=host_call_ms(call, 50),
+            matrix_route_ms=host_call_ms(matrix_route, 50))
+    probe_in.sort(key=lambda r: len(r[1]))
+    for label, (bits, fi, keys, k) in (("median", probe_in[len(probe_in) // 2]),
+                                       ("largest", probe_in[-1])):
+        bank = BloomBank(bits.cpu().numpy().view(np.uint32), k)
+        prep = bank.prepare(keys)
+
+        def gather_route(bank=bank, fi=fi, keys=keys, k=k):
+            rows = bank.bits[np.repeat(fi, len(keys))].view(np.int32)
+            hit = ops.bloom_probe(torch.from_numpy(rows).to(dev),
+                                  torch.from_numpy(np.tile(keys, len(fi)))
+                                  .to(dev), k)
+            return hit.cpu().numpy().reshape(len(fi), len(keys)).any(-1)
+
+        def call(bank=bank, fi=fi, prep=prep):
+            return bank.contains_any_batch(fi, prep, "kernel", dev)
+
+        def numpy_route(bank=bank, fi=fi, prep=prep):
+            return bank.contains_any_batch(fi, prep, "numpy")
+        got = call()
+        if not (np.array_equal(got, gather_route())
+                and np.array_equal(got, numpy_route())):
+            raise AssertionError(f"bloom call {label}: a route differs")
+        out[f"bloom call {label}"] = dict(
+            F=len(fi), C=len(keys), W=bank.words, k=k,
+            members=int(got.sum()), call_ms=host_call_ms(call, 50),
+            gather_route_ms=host_call_ms(gather_route, 50),
+            numpy_ms=host_call_ms(numpy_route, 50))
+    return out
+
+
+def pair_replay(ops, ref, build, label, route, a, b, dist, pairs) -> dict:
+    """One recorded pair call for `check_path_replays`: the call, its plain
+    version, its kernel alone (no copy, no synchronise) writing into a
+    pinned buffer of its own, and its bound."""
+    out = torch.empty(pairs + 1, dtype=torch.int64, pin_memory=True)
+    counters = torch.zeros(2, dtype=torch.int64, device=a.device)
+    launcher = build.launcher("distance_join_pairs_launch")
+    dist32 = float(np.float32(dist))
+
+    def launch():
+        err = launcher(a.data_ptr(), b.data_ptr(), len(a), len(b), dist32,
+                       counters.data_ptr(), out.data_ptr(), pairs,
+                       torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"distance_join_pairs_launch: error {err}")
+    return dict(
+        set=label, route=route, shape=f"M={len(a)} N={len(b)} pairs={pairs}",
+        tested=len(a) * len(b), pairs=pairs,
+        kernel=lambda: [torch.from_numpy(x)
+                        for x in ops.distance_join_pairs(a, b, dist)],
+        plain=lambda: [x.cpu() for x in ref.distance_join_pairs_ref(
+            a, b, dist)],
+        launch=launch, bound=pairs_bound(len(a), len(b), pairs))
+
+
+def any_replay(ops, ref, build, label, bits, fi, keys, k) -> dict:
+    """One recorded per-filter Bloom probe for `check_path_replays`, as
+    `pair_replay`: the kernel alone reads the indices and keys from device
+    memory and writes its verdicts there."""
+    dev = bits.device
+    idx_keys = torch.from_numpy(np.concatenate([fi, keys])).to(dev)
+    fi_t, keys_t = idx_keys[:len(fi)], idx_keys[len(fi):]
+    out = torch.empty(len(fi), dtype=torch.uint8, device=dev)
+    launcher = build.launcher("bloom_probe_any_launch")
+
+    def launch():
+        err = launcher(bits.data_ptr(), bits.shape[1], k, idx_keys.data_ptr(),
+                       len(fi), len(keys), out.data_ptr(),
+                       torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"bloom_probe_any_launch: error {err}")
+    return dict(
+        set=label, shape=f"F={len(fi)} C={len(keys)} W={bits.shape[1]} k={k}",
+        kernel=lambda: [torch.from_numpy(ops.bloom_probe_any(bits, fi, keys,
+                                                             k))],
+        plain=lambda: [ref.bloom_probe_any_ref(bits, fi_t, keys_t, k).cpu()],
+        launch=launch, bound=any_bound(ref, bits, fi, keys, k))
 
 
 def check_merge_join_ranks(ops, ref, dev, entry, cases, call_ms):
@@ -1240,7 +1509,7 @@ def trace_queries(rt, name, ds, n_q, join, policy=SLICE_POLICY) -> dict:
     busy_us = busy_union_us(spans)
     by_kind: dict = collections.defaultdict(float)
     for start, stop, ev_name in spans:
-        kind = next((k for k in REPLACES if f"{k}_kernel" in ev_name),
+        kind = next((k for k in REPLACES if k in ev_name),
                     "memcpy" if "memcpy" in ev_name.lower() else "other")
         by_kind[kind] += (stop - start) / 1e3
     host = {k: v * 1e3 for k, v in layers.items()}
@@ -1270,6 +1539,21 @@ def check_answers(label: str, runs: dict, cpu_runs: dict) -> None:
         if not same_answer(res, cpu_runs[key][0]):
             raise AssertionError(f"{label} {key}: CUDA answer differs from "
                                  "the CPU run")
+
+
+def store_bank_uploads(sets, bank_uploads, dev) -> dict:
+    """{"set bank": uploads to the card so far} of the stores' Bloom banks
+    (`bank_uploads` counts `ops.device_bloom_bank` by bank and device);
+    raises where a bank went up more than once."""
+    out = {}
+    for name, (ds, _) in sets.items():
+        for which in ("self", "in", "out"):
+            bank = getattr(ds.store.tree, f"bloom_{which}")
+            out[f"{name} {which}"] = bank_uploads[id(bank.bits), dev.type]
+    if max(out.values()) > 1 or not any(out.values()):
+        raise AssertionError(f"Bloom banks: uploads {out}, not one a bank "
+                             "probed")
+    return out
 
 
 def require_launched(path: str, launches: dict, names) -> None:
@@ -1636,6 +1920,15 @@ def main() -> None:
         phase_s[name] = time.perf_counter() - t0
         print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
 
+    # Bloom bank uploads over the whole run, by bank and device type
+    bank_uploads: collections.Counter = collections.Counter()
+    device_bloom_bank = ops.device_bloom_bank
+
+    def counting_upload(bits, device):
+        bank_uploads[id(bits), torch.device(device).type] += 1
+        return device_bloom_bank(bits, device)
+    ops.device_bloom_bank = counting_upload
+
     t0 = time.perf_counter()
     _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s for "
@@ -1665,6 +1958,9 @@ def main() -> None:
     rank_call_ms = rank_call_times(ops, dev)
     for (n, m), row in rank_call_ms.items():
         print(f"rank call N={n} M={m} " + json.dumps(row))
+    call_ms = path_call_times(rt, ops, datasets, dev)
+    for label, row in call_ms.items():
+        print(f"{label} " + json.dumps(row))
     ab = untraced_turns(rt, datasets)
     for label, passes in ab.items():
         print(f"turns {label} " + json.dumps(passes))
@@ -1677,7 +1973,7 @@ def main() -> None:
                           replaces=REPLACES[name], library_ms=None)
                for name in _build.KERNELS}
     cases: list = []
-    check_distance_join(ops, ref, dev, entries["distance_join"])
+    check_distance_join(ops, ref, dev, entries["distance_join"], cases)
     check_fused(ops, ref, dev, entries["fused_topk_join"])
     check_bucketed(ops, ref, dev, entries["bucketed_min_core"], cases)
     check_tree_descend(ops, ref, dev, entries["tree_descend"],
@@ -1711,11 +2007,15 @@ def main() -> None:
     fused_in: list = []         # ... of every fused_topk_join launch
     refine_in: list = []        # ... of every grouped refinement launch
     refine_calls = [0]          # pool_min_dist calls on the card with pairs
+    pairs_in: list = []         # ... of every distance_join_pairs call
+    any_in: list = []           # ... of every bloom_probe_any call
     tag: dict = {}              # the query set running
     merge_join_ranks, tree_descend = ops.merge_join_ranks, ops.tree_descend
     fused_topk_join = ops.fused_topk_join
     refine_group = ops.bucketed_min_core_group
     pool_min_dist = spatial_join.pool_min_dist
+    distance_join_pairs = ops.distance_join_pairs
+    bloom_probe_any = ops.bloom_probe_any
 
     def recording_ranks(table, probes, *args, **kwargs):
         if len(table) and len(probes):        # calls that launch
@@ -1758,6 +2058,28 @@ def main() -> None:
             bound=min_core_bound(group)))
         return refine_group(buf, group)
 
+    def recording_pairs(driver, driven, dist, device=None):
+        out = distance_join_pairs(driver, driven, dist, device)
+        host = isinstance(driver, np.ndarray)
+        a, b = ((torch.from_numpy(np.ascontiguousarray(
+            x, dtype=np.float32)).to(device) for x in (driver, driven))
+            if host else (driver.clone(), driven.clone()))
+        if len(a) and len(b):
+            pairs_in.append(pair_replay(
+                ops, ref, _build, tag["set"],
+                "matrix join" if host else "overflow recovery", a, b, dist,
+                len(out[0])))
+        return out
+
+    def recording_any(bits, fi, keys, k):
+        out = bloom_probe_any(bits, fi, keys, k)
+        fi = np.array(fi, dtype=np.int64)
+        keys = np.array(keys, dtype=np.int64)
+        if len(fi) and len(keys):
+            any_in.append(any_replay(ops, ref, _build, tag["set"], bits, fi,
+                                     keys, k))
+        return out
+
     def counting_refine(pool, rows_a, rows_b, metric="euclid", device=None,
                         **kwargs):
         refine_calls[0] += len(rows_a) > 0 and torch.device(device).type \
@@ -1775,17 +2097,38 @@ def main() -> None:
     ops.fused_topk_join = recording_fused
     ops.bucketed_min_core_group = recording_refine
     spatial_join.pool_min_dist = counting_refine
+    ops.distance_join_pairs = recording_pairs
+    ops.bloom_probe_any = recording_any
     ops.reset_launch_counts()
     uploads = ops.rank_table_uploads
+    retries = ops.pair_capacity_retries
     cuda_runs = {join: run_queries(rt, sets, join, "cuda", tag)
                  for join, sets in checked.items()}
     launches = dict(ops.LAUNCHES)
     uploads = ops.rank_table_uploads - uploads
+    retries = ops.pair_capacity_retries - retries
     ops.merge_join_ranks, ops.tree_descend = merge_join_ranks, tree_descend
     ops.fused_topk_join = fused_topk_join
     ops.bucketed_min_core_group = refine_group
     spatial_join.pool_min_dist = pool_min_dist
+    ops.distance_join_pairs = distance_join_pairs
+    ops.bloom_probe_any = bloom_probe_any
     require_launched("the main path", launches, STREAK_KERNELS)
+    if launches["distance_join"] != len(pairs_in) + retries \
+            or launches["bloom_probe"] != len(any_in):
+        raise AssertionError(
+            f"main path: {launches['distance_join']} distance_join launches "
+            f"for {len(pairs_in)} pair calls and {retries} retries, "
+            f"{launches['bloom_probe']} bloom_probe launches for "
+            f"{len(any_in)} probes: the path runs the pair call and the "
+            "per-filter probe only")
+    routes = collections.Counter(f"{r['set']} {r['route']}" for r in pairs_in)
+    print(f"pair calls on the main path: {len(pairs_in)} {dict(routes)}; "
+          f"pairs tested {sum(r['tested'] for r in pairs_in)}, candidates "
+          f"{sum(r['pairs'] for r in pairs_in)}; capacity retries "
+          f"{retries}; per-filter Bloom probes: {len(any_in)}", flush=True)
+    print("bloom bank uploads " + json.dumps(
+        store_bank_uploads(main_sets, bank_uploads, dev)), flush=True)
     if launches["bucketed_min_core"] != refine_calls[0]:
         raise AssertionError(
             f"{launches['bucketed_min_core']} refinement launches for "
@@ -1835,7 +2178,11 @@ def main() -> None:
                        entries["fused_topk_join"], cases)
     check_path_replays("bucketed_min_core", "bucketed_min_core_kernel",
                        refine_in, entries["bucketed_min_core"], cases)
-    del descend_in, fused_in, refine_in
+    check_path_replays("distance_join", "distance_join_kernel", pairs_in,
+                       entries["distance_join"], cases)
+    check_path_replays("bloom_probe", "bloom_probe_any_kernel", any_in,
+                       entries["bloom_probe"], cases)
+    del descend_in, fused_in, refine_in, pairs_in, any_in
     phase_done("path shapes", t0)
 
     # ---- second entry point: the Geographica shapes -----------------------
@@ -1927,6 +2274,11 @@ def main() -> None:
         print("rank turn " + json.dumps(t))
     phase_done("traces", t0)
 
+    bank_uploads_run = store_bank_uploads(main_sets, bank_uploads, dev)
+    print("bloom bank uploads over the run " + json.dumps(bank_uploads_run))
+    print("memcpy device ms " + json.dumps(
+        {f"{t['dataset']} {t['join']} probe={t['probe']}":
+         t["device_ms_by_kind"].get("memcpy", 0.0) for t in traces}))
     path_launches = {**{n: launches[n] for n in STREAK_KERNELS},
                      **{n: ops_launches[n] for n in OPS_KERNELS},
                      "flash_attention": prefill["flash_launches_per_call"]}
@@ -1938,7 +2290,8 @@ def main() -> None:
             card=smi, kind=kind, torch=torch.__version__, kernels=kernels,
             cases=cases, queries=queries, shapes=shapes,
             shape_launches=shape_launches, untraced_turns=ab,
-            rank_call_shapes=n_m.tolist(),
+            rank_call_shapes=n_m.tolist(), path_call_ms=call_ms,
+            bloom_bank_uploads=bank_uploads_run,
             descend_call_shapes=descend_shapes, traces=traces,
             rank_turns=rank_turns,
             ops_launches=ops_launches, lm_prefill=prefill, lm_serve=serve,

@@ -140,9 +140,10 @@ class PreparedKeys:
 
 
 # Probe-backend dispatch for the query path: "numpy" probes on the host;
-# "kernel" runs `kernels/ops.bloom_probe` on the engine's device (the CUDA
-# kernel on CUDA, its plain torch version on the CPU). "auto" resolves to
-# the kernel when CUDA is available, numpy otherwise.
+# "kernel" runs `kernels/ops.bloom_probe_any` on the engine's device (the
+# CUDA kernel on CUDA, its plain torch version on the CPU) against the bank's
+# copy there. "auto" resolves to the kernel when CUDA is available, numpy
+# otherwise.
 PROBE_BACKENDS = ("auto", "numpy", "kernel")
 
 
@@ -157,10 +158,15 @@ def resolve_probe_backend(backend: str | None) -> str:
 
 @dataclasses.dataclass
 class BloomBank:
-    """`n_filters` Bloom filters of `words * 32` bits each, k hash probes."""
+    """`n_filters` Bloom filters of `words * 32` bits each, k hash probes.
+
+    The kernel probe route keeps one copy of `bits` per device, made at its
+    first probe there (`ops.device_bloom_bank`) and dropped by `add`."""
 
     bits: np.ndarray  # (n_filters, words) uint32
     k: int = 3
+    _resident: dict = dataclasses.field(default_factory=dict, init=False,
+                                        repr=False, compare=False)
 
     @staticmethod
     def empty(n_filters: int, words: int = 8, k: int = 3) -> "BloomBank":
@@ -192,6 +198,18 @@ class BloomBank:
         fi = np.broadcast_to(np.asarray(filter_idx)[:, None], pos.shape)
         np.bitwise_or.at(self.bits, (fi.ravel(), w.ravel()),
                          (np.uint32(1) << b.ravel()))
+        self._resident.clear()     # the device copies are stale
+
+    def device_bits(self, device: torch.device | str) -> torch.Tensor:
+        """The (n_filters, words) int32 copy of `bits` kept on `device`."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        held = self._resident.get(device)
+        if held is None:
+            held = self._resident[device] = ops.device_bloom_bank(self.bits,
+                                                                  device)
+        return held
 
     def prepare(self, keys: np.ndarray) -> PreparedKeys:
         """Hoist the double-hashing of `keys` into a reusable PreparedKeys."""
@@ -216,8 +234,9 @@ class BloomBank:
         """Per-filter ANY over a prepared key set -> (len(filter_idx),) bool.
 
         This is the Phase-1 frontier probe: `backend` picks the numpy probe
-        or the `bloom_probe` kernel on `device` (see PROBE_BACKENDS). Both
-        run the same 32-bit integer math, so the verdicts are identical.
+        or the `bloom_probe_any` kernel on `device`, against the bank's copy
+        there (see PROBE_BACKENDS). Both run the same 32-bit integer math,
+        so the verdicts are identical.
         """
         fi = np.asarray(filter_idx, dtype=np.int64)
         if len(fi) == 0 or len(prep) == 0:
@@ -226,12 +245,8 @@ class BloomBank:
             return self.contains_prepared(fi, prep).any(axis=-1)
         if device is None:
             raise ValueError("the kernel probe backend needs a device")
-        # rows go up as int32 views of the uint32 words
-        rows = self.bits[np.repeat(fi, len(prep))].view(np.int32)  # (F*C, W)
-        keys = np.tile(prep.keys, len(fi))                          # (F*C,)
-        hit = ops.bloom_probe(torch.from_numpy(rows).to(device),
-                              torch.from_numpy(keys).to(device), self.k)
-        return hit.cpu().numpy().reshape(len(fi), len(prep)).any(axis=-1)
+        return ops.bloom_probe_any(self.device_bits(device), fi, prep.keys,
+                                   self.k)
 
     def nbytes(self) -> int:
         return self.bits.nbytes

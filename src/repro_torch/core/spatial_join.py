@@ -8,8 +8,9 @@ candidates — plus the exact-geometry refinement step.
 The MBR join is the compute hot spot. Three backends:
 
 - ``numpy``  — dense broadcast via geometry.box_min_dist on the host.
-- ``kernel`` — the distance-matrix kernel (`ops.distance_join`):
-  materializes the full (M, N) f32 distance matrix, the caller masks it.
+- ``kernel`` — the distance-join kernel (`ops.distance_join_pairs`): tests
+  the full (M, N) block on the device and brings back only the candidate
+  pairs.
 - ``fused``  — the streaming top-k kernel (`ops.fused_topk_join`): driven
   entities are fed in score-key order, each column batch is reduced on the
   device to per-row top-k partials under the current top-k threshold θ, and
@@ -125,17 +126,15 @@ def mbr_distance_join(driver_boxes: np.ndarray, driven_boxes: np.ndarray,
         order = np.lexsort((j, i))      # match the dense row-major order
         return i[order], j[order]
     if backend == "kernel":
-        d = ops.distance_join(
-            _f32_on(driver_boxes, device), _f32_on(driven_boxes, device))
-        mask = d.cpu().numpy() <= np.float32(dist_norm)
+        i, j = ops.distance_join_pairs(driver_boxes, driven_boxes,
+                                       np.float32(dist_norm), device)
     else:
         d = geometry.box_min_dist(driver_boxes[:, None, :],
                                   driven_boxes[None, :, :])
-        mask = d <= dist_norm
+        i, j = np.nonzero(d <= dist_norm)
     if stats is not None:
-        stats.pairs_tested += mask.size
-        stats.candidates += int(mask.sum())
-    i, j = np.nonzero(mask)
+        stats.pairs_tested += len(driver_boxes) * len(driven_boxes)
+        stats.candidates += len(i)
     return i.astype(np.int64), j.astype(np.int64)
 
 
@@ -195,10 +194,10 @@ def fused_stream_join(driver_boxes: np.ndarray, driven_boxes: np.ndarray,
     - peak intermediate memory is O(M * batch_cols), independent of N.
 
     The kernel emits fixed-width (M, k) per-row partials plus exact survivor
-    counts; rows whose survivors overflow the width are recovered densely
-    through the distance-matrix kernel (only those rows, only this batch),
-    which computes the fused kernel's f32 distance bit-for-bit, so the
-    candidate set stays exactly equal to the matrix backends'. Pairs are
+    counts; rows whose survivors overflow the width are recovered through
+    the distance-join kernel (only those rows, only this batch), which
+    computes the fused kernel's f32 distance bit-for-bit, so the candidate
+    set stays exactly equal to the matrix backends'. Pairs are
     (driver row, driven row) indices into the *original* (unsorted) arrays.
     """
     m, n = len(driver_boxes), len(driven_boxes)
@@ -249,19 +248,19 @@ def fused_stream_join(driver_boxes: np.ndarray, driven_boxes: np.ndarray,
         pj_local = idx[sel].astype(np.int64)
         over = np.flatnonzero(~ok_rows)
         if len(over):
-            # width overflow: recover those rows densely — same f32 arrays,
-            # same f32 distance formula and θ the kernel used, so recovered
-            # rows see exactly the kernel's predicate
+            # width overflow: recover those rows — same f32 arrays, same f32
+            # distance formula and θ the kernel used, so recovered rows see
+            # exactly the kernel's predicate: the distance join's pairs,
+            # then the key bound on those pairs only, the same f32 add
             if stats is not None:
                 stats.overflow_rows += len(over)
                 stats.overflow_batches += 1
             over_t = torch.from_numpy(over).to(device)
-            d = ops.distance_join(drv_t.index_select(0, over_t), chunk) \
-                .cpu().numpy()
-            bound = ds[over][:, None] + vs_sorted[None, start:stop]
-            oi, oj = np.nonzero((d <= dist32) & (bound > theta32))
-            pi = np.concatenate([pi, over[oi].astype(np.int64)])
-            pj_local = np.concatenate([pj_local, oj.astype(np.int64)])
+            oi, oj = ops.distance_join_pairs(
+                drv_t.index_select(0, over_t), chunk, dist32)
+            keep = ds[over][oi] + vs_sorted[start + oj] > theta32
+            pi = np.concatenate([pi, over[oi[keep]]])
+            pj_local = np.concatenate([pj_local, oj[keep]])
         if len(pi) == 0:
             continue
         pj = order[start + pj_local]

@@ -61,6 +61,14 @@ KERNELS = {
 HOST_CALLS = {
     "merge_join_ranks_round_trip": ("merge_join_ranks",
                                     [_P, _P, _P, _L, _L, _P, _I, _I, _P]),
+    "distance_join_pairs_launch": ("distance_join",
+                                   [_P, _P, _L, _L, _F, _P, _P, _L, _P]),
+    "distance_join_pairs_round_trip": (
+        "distance_join", [_P, _P, _P, _P, _L, _L, _F, _P, _P, _L, _P]),
+    "bloom_probe_any_launch": ("bloom_probe",
+                               [_P, _I, _I, _P, _L, _I, _P, _P]),
+    "bloom_probe_any_round_trip": ("bloom_probe",
+                                   [_P, _P, _P, _I, _I, _L, _I, _P, _P]),
 }
 
 _launchers: dict[str, object] = {}   # kernel or host-call name -> function

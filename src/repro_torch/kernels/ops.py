@@ -8,10 +8,13 @@ it runs the kernel's plain torch version from `ref.py`. Tensors on any other
 device raise. There is no fallback from the kernel to the plain version.
 
 The host-side helpers the kernel paths need (`f64_sort_keys`,
-`DESCEND_PAD_BOX`) and the rank-pass dispatch of the relational merge join
-(`merge_join_ranks`: numpy arrays in and out, numpy's searchsorted or the
-kernel on a device, against a table kept there by `device_table`) live
-here too.
+`DESCEND_PAD_BOX`) live here too, and the calls the engine makes with host
+arrays in and out, each one C call on CUDA with its inputs and outputs
+staged in pinned memory: the rank pass of the relational merge join
+(`merge_join_ranks`, against a table kept on the device by `device_table`),
+the candidate pairs of a distance join (`distance_join_pairs`) and the
+per-filter Bloom probe (`bloom_probe_any`, against a bank kept on the device
+by `device_bloom_bank`).
 """
 from __future__ import annotations
 
@@ -96,6 +99,95 @@ def distance_join(driver: torch.Tensor, driven: torch.Tensor) -> torch.Tensor:
         _launch("distance_join", _ptr(driver), _ptr(driven), _ptr(out),
                 ctypes.c_longlong(m), ctypes.c_longlong(n))
     return out
+
+
+# pairs a pair call takes back without a retry until a larger count has
+# been seen on its device
+PAIRS_MIN_CAPACITY = 1 << 16
+# pair calls run again because their pairs outgrew the buffer
+pair_capacity_retries = 0
+_DJ_COLS = 1024     # driven columns a block of csrc/distance_join.cu
+
+
+def distance_join_pairs(driver, driven, dist: float,
+                        device: torch.device | str | None = None
+                        ) -> tuple[np.ndarray, np.ndarray]:
+    """Candidate pairs of a distance join: int64 (i, j) host arrays, in
+    row-major order, of every pair with ``box_min_dist(driver[i],
+    driven[j]) <= float32(dist)``, i.e. ``np.nonzero(distance_join(driver,
+    driven) <= float32(dist))`` without the matrix (see
+    csrc/distance_join.cu).
+
+    driver (M, 4) and driven (N, 4) are f32 tensors on one device, or host
+    arrays (rounded to f32) joined on `device`. On CUDA a call is one C call
+    with one launch and one synchronise: host arrays are staged in pinned
+    memory and go up in one copy; the kernel writes the pairs and their
+    count into pinned memory, and the host sorts them into row-major order.
+    A count above the buffer's capacity grows the buffer and runs the call
+    again (`pair_capacity_retries`). On the CPU the plain version runs."""
+    global pair_capacity_retries
+    dist32 = np.float32(dist)
+    staged = None
+    if isinstance(driver, np.ndarray):
+        if device is None:
+            raise ValueError("distance_join_pairs: host boxes need a device")
+        device = torch.device(device)
+        staged = (np.ascontiguousarray(driver, dtype=np.float32),
+                  np.ascontiguousarray(driven, dtype=np.float32))
+        for x in staged:
+            if x.ndim != 2 or x.shape[1] != 4:
+                raise ValueError(f"distance_join_pairs: expected (rows, 4) "
+                                 f"boxes, got {x.shape}")
+        if device.type != "cuda":
+            driver, driven = (torch.from_numpy(x).to(device) for x in staged)
+            staged = None
+    if staged is None:
+        if not _on_cuda("distance_join", driver, driven):
+            i, j = ref.distance_join_pairs_ref(driver, driven, dist32)
+            return i.cpu().numpy(), j.cpu().numpy()
+        _check("distance_join", driver, torch.float32, (None, 4), 16)
+        _check("distance_join", driven, torch.float32, (None, 4), 16)
+        device = driver.device
+    m, n = (len(x) for x in (staged or (driver, driven)))
+    if m == 0 or n == 0:
+        return np.empty(0, np.int64), np.empty(0, np.int64)
+    if max(m, n) >= 1 << 31 or m * -(-n // _DJ_COLS) >= 1 << 31:
+        raise ValueError(f"distance_join_pairs: {m} x {n} exceeds the grid")
+    with _staging_lock:
+        st = _staging_for(device, "pairs")
+        st.fit(0 if staged is None else (m + n) * 2, PAIRS_MIN_CAPACITY + 1)
+        if staged is None:
+            boxes = (None, None, driver.data_ptr(), driven.data_ptr())
+        else:
+            f32 = st.host_in_np.view(np.float32)
+            f32[:4 * m] = staged[0].ravel()
+            f32[4 * m:4 * (m + n)] = staged[1].ravel()
+            boxes = (*st.ptrs_in, None, None)
+        while True:
+            cap = st.n_out - 1
+            err = _build.launcher("distance_join_pairs_round_trip")(
+                *boxes, m, n, float(dist32), st.counters.data_ptr(),
+                st.ptr_out, cap, _stream(device))
+            if err != 0:
+                raise RuntimeError(f"distance_join_pairs: CUDA round trip "
+                                   f"failed with error {err}")
+            LAUNCHES["distance_join"] += 1
+            count = int(st.host_out_np[0])
+            if count <= cap:
+                break
+            pair_capacity_retries += 1
+            st.fit(0, count + 1)
+        words = np.sort(st.host_out_np[1:1 + count])
+    return words >> 32, words & 0xFFFFFFFF
+
+
+def pairs_capacity(device: torch.device | str) -> int:
+    """Pairs the next pair call on CUDA `device` takes back without a
+    retry."""
+    with _staging_lock:
+        st = _staging_for(torch.device(device), "pairs")
+        st.fit(0, PAIRS_MIN_CAPACITY + 1)
+        return st.n_out - 1
 
 
 # ------------------------------------------------- fused top-k distance join --
@@ -384,6 +476,67 @@ def bloom_probe(bits: torch.Tensor, keys: torch.Tensor, k: int
     return out
 
 
+# resident Bloom banks made by `device_bloom_bank` so far, one upload each
+bloom_bank_uploads = 0
+
+
+def device_bloom_bank(bits: np.ndarray, device: torch.device | str
+                      ) -> torch.Tensor:
+    """A copy of a Bloom bank's (n_filters, W) uint32 words on `device`, as
+    int32, for a bank that probes there again and keeps it
+    (core/charsets.BloomBank). Counted in `bloom_bank_uploads`."""
+    global bloom_bank_uploads
+    bloom_bank_uploads += 1
+    return torch.from_numpy(np.ascontiguousarray(bits).view(np.int32)
+                            ).to(device, copy=True)
+
+
+def bloom_probe_any(bits: torch.Tensor, filter_idx: np.ndarray,
+                    keys: np.ndarray, k: int) -> np.ndarray:
+    """Per filter of a bank, whether ANY of `keys` is a member (see
+    csrc/bloom_probe.cu): the Phase-1 frontier probe.
+
+    bits (n_filters, W) int32 (or uint32) words of the bank, on the device
+    it is kept on (`device_bloom_bank`), W in BLOOM_WORDS; filter_idx (F,)
+    rows of the bank and keys (C,) int64 host arrays; k >= 1 hash probes.
+    Returns the (F,) bool verdicts as a host array. On CUDA a call is one C
+    call: the indices and keys staged in pinned memory go up in one copy,
+    one launch writes the verdicts into pinned memory, one synchronise. On
+    the CPU the plain version runs."""
+    fi = np.asarray(filter_idx, dtype=np.int64)
+    keys = np.asarray(keys, dtype=np.int64)
+    if bits.dim() != 2 or bits.shape[1] not in BLOOM_WORDS or k < 1:
+        raise ValueError(f"bloom_probe_any: bank {tuple(bits.shape)}, k={k}; "
+                         f"needs W in {BLOOM_WORDS} and k >= 1")
+    n_f, n_c = len(fi), len(keys)
+    if n_f and (fi.min() < 0 or fi.max() >= bits.shape[0]):
+        raise ValueError(f"bloom_probe_any: filter indices outside the "
+                         f"bank's {bits.shape[0]} rows")
+    if n_f == 0 or n_c == 0:
+        return np.zeros(n_f, dtype=bool)
+    if not _on_cuda("bloom_probe", bits):
+        return ref.bloom_probe_any_ref(bits, torch.from_numpy(fi),
+                                       torch.from_numpy(keys), k).numpy()
+    if bits.dtype == torch.uint32:
+        bits = bits.view(torch.int32)
+    _check("bloom_probe", bits, torch.int32, tuple(bits.shape), 4)
+    if n_c >= 1 << 31:
+        raise ValueError(f"bloom_probe_any: {n_c} keys exceed 2^31")
+    with _staging_lock:
+        st = _staging_for(bits.device, "bloom")
+        st.fit(n_f + n_c, -(-n_f // 8))
+        st.host_in_np[:n_f] = fi
+        st.host_in_np[n_f:n_f + n_c] = keys
+        err = _build.launcher("bloom_probe_any_round_trip")(
+            *st.ptrs_in, bits.data_ptr(), bits.shape[1], k, n_f, n_c,
+            st.ptr_out, _stream(bits.device))
+        if err != 0:
+            raise RuntimeError(f"bloom_probe_any: CUDA round trip failed "
+                               f"with error {err}")
+        LAUNCHES["bloom_probe"] += 1
+        return st.host_out_np.view(np.uint8)[:n_f].astype(bool)
+
+
 # --------------------------------------------------- merge-join rank pass --
 RANK_SIDES = {"left": 1, "right": 2, "both": 3}
 # Calls of up to this many probes run one warp a probe (a 32-ary search:
@@ -467,16 +620,19 @@ def device_table(table: np.ndarray, device: torch.device | str
                             ).to(device, copy=True)
 
 
-class _RankStaging:
-    """Grow-only buffers of one device's rank round trips: pinned host
-    memory for the staged words (the table when it is not resident, then
-    the probes) and for the ranks, device memory for an uploaded table and
-    its probes. A call synchronises before it returns, so the next call
-    may reuse them."""
+class _Staging:
+    """Grow-only buffers of one device's round trips of one kind (rank
+    calls, pair calls, Bloom probes): pinned host memory for the words
+    staged to go up (`host_in`) and for the words that come back
+    (`host_out`), device memory that the staged words are copied into
+    (`dev_in`), and two device counters that a pair call leaves zeroed.
+    int64 words; a call views them as the type it needs. A call
+    synchronises before it returns, so the next call may reuse them."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.n_in = self.n_out = 0
+        self.counters = torch.zeros(2, dtype=torch.int64, device=device)
 
     def fit(self, n_in: int, n_out: int) -> None:
         if n_in > self.n_in:
@@ -495,8 +651,19 @@ class _RankStaging:
             self.ptr_out = self.host_out.data_ptr()
 
 
-_staging: dict[torch.device, _RankStaging] = {}
+_staging: dict[tuple[torch.device, str], _Staging] = {}
 _staging_lock = threading.Lock()
+
+
+def _staging_for(device: torch.device, kind: str) -> _Staging:
+    """The staging of `kind` calls on CUDA `device` (the current device
+    when index-less); the caller holds `_staging_lock`."""
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    st = _staging.get((device, kind))
+    if st is None:
+        st = _staging[device, kind] = _Staging(device)
+    return st
 
 
 def _cuda_round_trip(table: np.ndarray, probes: np.ndarray, side: str,
@@ -523,9 +690,7 @@ def _cuda_round_trip(table: np.ndarray, probes: np.ndarray, side: str,
         resident = t.data_ptr()
     up = n if resident is None else 0
     with _staging_lock:
-        st = _staging.get(device)
-        if st is None:
-            st = _staging[device] = _RankStaging(device)
+        st = _staging_for(device, "rank")
         st.fit(up + m, rows * m)
         if up:
             st.host_in_np[:n] = table

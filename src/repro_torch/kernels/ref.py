@@ -31,6 +31,16 @@ def distance_join_ref(driver: torch.Tensor, driven: torch.Tensor
     return torch.sqrt(v.double()).float()
 
 
+def distance_join_pairs_ref(driver: torch.Tensor, driven: torch.Tensor,
+                            dist: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row-major candidate pairs of the distance matrix: int64 (i, j) with
+    ``distance_join_ref(driver, driven)[i, j] <= dist``, dist rounded to f32
+    (NaN distances never pass)."""
+    d = distance_join_ref(driver, driven)
+    limit = torch.tensor(dist, dtype=torch.float32, device=d.device)
+    return torch.nonzero(d <= limit, as_tuple=True)
+
+
 # ------------------------------------------------- fused top-k distance join --
 def fused_topk_join_ref(driver: torch.Tensor, driven: torch.Tensor,
                         driver_keys: torch.Tensor, driven_keys: torch.Tensor,
@@ -162,6 +172,17 @@ def bloom_probe_ref(bits: torch.Tensor, keys: torch.Tensor, k: int
     pos = bloom_positions(keys, k, words.shape[1] * 32)
     word = torch.gather(words, 1, pos // 32)
     return ((word >> (pos % 32)) & 1).bool().all(dim=1)
+
+
+def bloom_probe_any_ref(bits: torch.Tensor, filter_idx: torch.Tensor,
+                        keys: torch.Tensor, k: int) -> torch.Tensor:
+    """Per filter of a bank, ANY of a key set a member: bits (n_filters, W)
+    int32 or uint32 words, filter_idx (F,) int64 rows of the bank, keys (C,)
+    int64. The rows gathered F x C, probed by `bloom_probe_ref`, reduced
+    over the keys. Returns (F,) bool."""
+    f, c = filter_idx.shape[0], keys.shape[0]
+    rows = bits.view(torch.int32)[filter_idx.repeat_interleave(c)]
+    return bloom_probe_ref(rows, keys.repeat(f), k).reshape(f, c).any(dim=1)
 
 
 # --------------------------------------------------- merge-join rank pass --

@@ -39,11 +39,114 @@ def _equal(got, want):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("m,n", [(1, 1), (37, 300), (300, 1000)])
+@pytest.mark.parametrize("m,n", [(1, 1), (37, 300), (300, 1000),
+                                 (33, 1027), (1024, 4096)])
 def test_distance_join_kernel_matches_plain(dev, m, n):
     rng = np.random.default_rng(0)
     a, b = _boxes(rng, m, dev), _boxes(rng, n, dev)
     _equal([ops.distance_join(a, b)], [ref.distance_join_ref(a, b)])
+
+
+def _pair_inputs(dev, m, n, case):
+    rng = np.random.default_rng(m + 7 * n)
+    a, b = _boxes(rng, m, dev), _boxes(rng, n, dev)
+    dist = 0.03
+    if case == "nan_boxes":
+        a[::3, 2] = float("nan")
+        b[1::4, 1] = float("nan")
+    elif case == "none_pass":
+        dist = -1.0
+    elif case == "at_a_distance":      # the 1% quantile of the distances
+        d = ref.distance_join_ref(a, b).flatten().sort().values
+        dist = float(d[d.numel() // 100])
+    return a, b, dist
+
+
+@pytest.mark.parametrize("case", ["random", "at_a_distance", "nan_boxes",
+                                  "none_pass"])
+@pytest.mark.parametrize("m,n", [(1, 1), (31, 33), (61, 3333),
+                                 (523, 8954)])
+def test_distance_join_pairs_kernel_matches_plain(dev, m, n, case):
+    a, b, dist = _pair_inputs(dev, m, n, case)
+    launches = ops.LAUNCHES["distance_join"]
+    got = ops.distance_join_pairs(a, b, dist)
+    assert ops.LAUNCHES["distance_join"] == launches + 1
+    want = ref.distance_join_pairs_ref(a, b, dist)
+    for g, w in zip(got, want):
+        assert g.dtype == np.int64
+        np.testing.assert_array_equal(g, w.cpu().numpy())
+    # host arrays, staged and copied up in the call, give the same pairs
+    staged = ops.distance_join_pairs(a.cpu().numpy(), b.cpu().numpy(), dist,
+                                     device=dev)
+    for g, w in zip(staged, got):
+        np.testing.assert_array_equal(g, w)
+    if case == "at_a_distance":
+        d = ref.distance_join_ref(a, b).cpu().numpy()
+        assert len(got[0]) and (d[got] == np.float32(dist)).any()
+
+
+def test_distance_join_pairs_capacity_retry(dev):
+    """Every pair passes, more of them than the buffer holds: the call runs
+    again with a buffer that fits, and truncates nothing."""
+    n = 4096
+    m = ops.pairs_capacity(dev) // n + 1
+    rng = np.random.default_rng(12)
+    a, b = _boxes(rng, m, dev), _boxes(rng, n, dev)
+    retries = ops.pair_capacity_retries
+    launches = ops.LAUNCHES["distance_join"]
+    i, j = ops.distance_join_pairs(a, b, 4.0)
+    assert ops.pair_capacity_retries == retries + 1
+    assert ops.LAUNCHES["distance_join"] == launches + 2
+    assert ops.pairs_capacity(dev) >= m * n
+    np.testing.assert_array_equal(i, np.repeat(np.arange(m), n))
+    np.testing.assert_array_equal(j, np.tile(np.arange(n), m))
+    # the buffer now fits: no retry
+    ops.distance_join_pairs(a, b, 4.0)
+    assert ops.pair_capacity_retries == retries + 1
+
+
+@pytest.mark.parametrize("n_keys", [1, 5, 300, 600])
+@pytest.mark.parametrize("w", [8, 16, 32])
+@pytest.mark.parametrize("k", [2, 3, 4])
+def test_bloom_probe_any_kernel_matches_plain(dev, w, k, n_keys):
+    from repro_torch.core.charsets import BloomBank
+    rng = np.random.default_rng(w * k + n_keys)
+    bank = BloomBank.empty(300, words=w, k=k)
+    ins = rng.integers(0, 1 << 62, 900, dtype=np.int64)
+    bank.add(rng.integers(0, 300, 900), ins)
+    keys = np.concatenate([ins[:min(3, n_keys)], rng.integers(
+        -(1 << 63), -1, n_keys - min(3, n_keys), dtype=np.int64)])
+    fi = rng.integers(0, 300, 1303)
+    bits = bank.device_bits(dev)
+    launches = ops.LAUNCHES["bloom_probe"]
+    got = ops.bloom_probe_any(bits, fi, keys, k)
+    assert ops.LAUNCHES["bloom_probe"] == launches + 1
+    want = ref.bloom_probe_any_ref(bits, torch.from_numpy(fi).to(dev),
+                                   torch.from_numpy(keys).to(dev), k)
+    np.testing.assert_array_equal(got, want.cpu().numpy())
+    np.testing.assert_array_equal(got, bank.contains_any_batch(
+        fi, bank.prepare(keys), "numpy"))
+    assert got.any()
+
+
+def test_bloom_bank_resident_copy_refreshed_after_add(dev):
+    from repro_torch.core.charsets import BloomBank
+    rng = np.random.default_rng(13)
+    bank = BloomBank.empty(500, words=8, k=3)
+    bank.add(rng.integers(0, 500, 2000), rng.integers(0, 1 << 62, 2000))
+    key = np.array([(1 << 62) + 99], dtype=np.int64)
+    prep = bank.prepare(key)
+    uploads = ops.bloom_bank_uploads
+    first = bank.contains_any_batch(np.arange(500), prep, "kernel", dev)
+    bank.contains_any_batch(np.arange(500), prep, "kernel", dev)
+    assert ops.bloom_bank_uploads == uploads + 1
+    target = int(np.flatnonzero(~first)[0])
+    bank.add(np.array([target]), key)
+    after = bank.contains_any_batch(np.arange(500), prep, "kernel", dev)
+    assert ops.bloom_bank_uploads == uploads + 2
+    assert after[target]
+    np.testing.assert_array_equal(
+        after, bank.contains_any_batch(np.arange(500), prep, "numpy"))
 
 
 @pytest.mark.parametrize("k", [1, 4, 100, 600])
