@@ -19,7 +19,14 @@ In order it:
    inputs (recorded in one pass of each set with the matrix join) against
    the routes they replaced, and LGD Q1-Q8 with the Bloom probes and the
    rank pass on numpy and on their kernels, then both query sets with the
-   rank pass alone, in turns;
+   rank pass alone, in turns; then the multi-tenant serving loop on the
+   LGD data ("serve" lines): the reference benchmark's traffic
+   (benchmarks/bench_serve.py, eight tenants on eight slots, k in 5-120;
+   `hotq` Q1 eight times, `mixed` Q1-Q8) under the fused join (kcap
+   "auto") and the matrix join, a batch through a fresh
+   `SpatialServeEngine` against `serial_perquery` (a fresh engine a
+   query) and `serial_warm` (one warmed engine), in turns, medians, every
+   request equal to serial execution;
 3. holds each kernel against its plain torch version on the card, at the
    shapes the main path gives it: bit-identical output for the STREAK
    kernels (the rank kernel in both of its layouts, at the main path's
@@ -61,9 +68,21 @@ In order it:
    over the LGD data, spatial join and kNN under both joins, range and
    within (which never reach the Phase-3 join) under one, each equal to its
    `device="cpu"` run, every STREAK kernel launched;
-6. calls the reference's kernel entry points `ops.block_scan` (64 x 1024)
+6. drives the third entry point, the serving loop, over the same traffic
+   with the counts set to 0 before and read after: every STREAK kernel
+   launched, no fault counter above 0 and no request with an error, each
+   batch equal request by request and counter by counter to the same
+   batch on the CPU and each request to serial CUDA execution, the mixed
+   fused batch pooled (a launch with two or more query ids, more SIP rows
+   than SIP calls); every recorded `fused_topk_join`, `tree_descend`, pair
+   call and per-filter probe of those batches replayed bit for bit
+   against its plain version ("case" lines with `"path": "serve"`), the
+   fused launches' rows, columns, qids and splits, then one traced batch
+   of each ("serve trace": device busy, idle share, launches a step,
+   memcpy);
+7. calls the reference's kernel entry points `ops.block_scan` (64 x 1024)
    and `ops.morton_encode` (1M codes), counts set to 0 before;
-7. drives the dense-LM serving stack at gemma-7b's full width and depth
+8. drives the dense-LM serving stack at gemma-7b's full width and depth
    (random bf16 weights from a seed, 8.54 B parameters): the 4,096-token
    prefill through `forward_with_cache` with the flash kernel (28 launches
    a call), held against the plain path and `forward` + `logits_fn`, with
@@ -71,12 +90,13 @@ In order it:
    `ServeEngine` on the launcher's requests, request 0's decode logits held
    against the full forward over its prefix; then the three dense smoke
    configs (f32) on the card against the CPU;
-8. traces one more pass of each query set on the card: host ms per
+9. traces one more pass of each query set on the card: host ms per
    executor layer, device busy ms (by kind: each kernel, memcpy) and the
    device's idle share; then the LGD and 1M-quad sets (fused join) with
    the rank pass alone on numpy and on its kernel, in turns ("rank turn");
    then the Bloom bank uploads over the run and each pass's memcpy ms;
-9. prints the kernels line (JSON), then the ok line (JSON) last.
+10. prints the kernels line (JSON; `serve_launches` beside `launches`),
+   then the ok line (JSON) last.
 
 Any failed phase raises, so the script exits non-zero without the ok line.
 """
@@ -523,7 +543,7 @@ def _outputs(x) -> list:
     return list(x) if isinstance(x, (tuple, list)) else [x]
 
 
-def check_path_replays(name, symbol, launches, entry, cases):
+def check_path_replays(name, symbol, launches, entry, cases, groups=None):
     """Every recorded main-path launch of one kernel (dicts of set, shape,
     kernel and plain calls, bound, and for a call that synchronises its
     kernel's launch alone, `launch`) replayed on the card: bit-identical to
@@ -534,7 +554,9 @@ def check_path_replays(name, symbol, launches, entry, cases):
     path PR 15 timed) and for all sets: launches, summed ms and bound, and
     the median launch (by event time) with its plain version's time; every
     launch's times in the report only. The kernels line takes all sets, its
-    synthetic figures under `synthetic`."""
+    synthetic figures under `synthetic`. `groups` ({path label: launches})
+    replaces those groups, and with `entry` None the kernels line is left
+    as it is (the serving loop's replays)."""
     from torch.profiler import ProfilerActivity, profile
     for r in launches:
         require_equal(f"{name} path {r['set']} {r['shape']}",
@@ -554,11 +576,12 @@ def check_path_replays(name, symbol, launches, entry, cases):
     for i, r in enumerate(launches):
         r["device_ms"] = (sum(spans[i::len(launches)]) / reps / 1e3
                           if traced else None)
-    groups = {s: [r for r in launches if r["set"] == s]
-              for s in dict.fromkeys(r["set"] for r in launches)}
-    groups["lgd+scale1m"] = [r for r in launches
-                             if r["set"] in ("lgd", "scale1m")]
-    groups["all"] = launches
+    if groups is None:
+        groups = {s: [r for r in launches if r["set"] == s]
+                  for s in dict.fromkeys(r["set"] for r in launches)}
+        groups["lgd+scale1m"] = [r for r in launches
+                                 if r["set"] in ("lgd", "scale1m")]
+        groups["all"] = launches
     for label, rs in groups.items():
         if not rs:
             continue
@@ -568,6 +591,7 @@ def check_path_replays(name, symbol, launches, entry, cases):
             event_ms_sum=sum(r["event_ms"] for r in rs),
             device_ms_sum=(sum(r["device_ms"] for r in rs)
                            if traced else None),
+            trace_spans=len(spans), trace_spans_expected=reps * len(launches),
             bound_ms_sum=sum(r["bound"][0] for r in rs),
             median_shape=med["shape"], median_event_ms=med["event_ms"],
             median_device_ms=med["device_ms"],
@@ -580,6 +604,8 @@ def check_path_replays(name, symbol, launches, entry, cases):
         dict(set=r["set"], shape=r["shape"], event_ms=r["event_ms"],
              device_ms=r["device_ms"], bound_ms=r["bound"][0])
         for r in launches]))
+    if entry is None:
+        return
     entry["synthetic"] = {k: entry[k] for k in (
         "shape", "ms", "device_ms", "event_ms", "plain_ms", "bound_ms",
         "bound_by")}
@@ -966,6 +992,129 @@ def any_replay(ops, ref, build, label, bits, fi, keys, k) -> dict:
                                                              k))],
         plain=lambda: [ref.bloom_probe_any_ref(bits, fi_t, keys_t, k).cpu()],
         launch=launch, bound=any_bound(ref, bits, fi, keys, k))
+
+
+@contextlib.contextmanager
+def recording_launches(ops, ref, build, spatial_join, tag,
+                       rank_inputs: bool = False):
+    """For the duration of the block, wrap the kernel entry points the
+    STREAK paths call so that each call is recorded for a replay against
+    its plain version; yields {"rank_shapes": (N, M, resident table?) of
+    every rank call, "rank_in": with `rank_inputs`, the (table, probes)
+    host arrays of each that launches on the card, "descend_in": the inputs of every `tree_descend`
+    launch and "descend_sets" the set of each, "fused_in"/"refine_in"/
+    "pairs_in"/"any_in": replay dicts (see
+    `check_path_replays`) of every `fused_topk_join` launch, grouped
+    refinement launch, pair call and per-filter probe, "refine_calls": [the
+    `pool_min_dist` calls on the card with pairs]}. tag["set"] names the
+    set running."""
+    rec = dict(rank_shapes=[], rank_in=[], descend_in=[], descend_sets=[],
+               fused_in=[], refine_in=[], refine_calls=[0], pairs_in=[],
+               any_in=[])
+    merge_join_ranks, tree_descend = ops.merge_join_ranks, ops.tree_descend
+    fused_topk_join = ops.fused_topk_join
+    refine_group = ops.bucketed_min_core_group
+    pool_min_dist = spatial_join.pool_min_dist
+    distance_join_pairs = ops.distance_join_pairs
+    bloom_probe_any = ops.bloom_probe_any
+
+    def recording_ranks(table, probes, *args, **kwargs):
+        if len(table) and len(probes):        # calls that launch
+            rec["rank_shapes"].append(
+                (len(table), len(probes),
+                 kwargs.get("table_on_device") is not None))
+            if rank_inputs and ops.resolve_rank_backend(
+                    kwargs.get("backend")) == "kernel" and torch.device(
+                    kwargs.get("device") or "cpu").type == "cuda":
+                rec["rank_in"].append(
+                    (np.asarray(table, dtype=np.int64),
+                     np.array(probes, dtype=np.int64)))
+        return merge_join_ranks(table, probes, *args, **kwargs)
+
+    def recording_descend(node_keys, cs, box_keys):
+        rec["descend_in"].append((node_keys, cs.clone(), box_keys.clone()))
+        rec["descend_sets"].append(tag["set"])
+        return tree_descend(node_keys, cs, box_keys)
+
+    def recording_fused(driver, driven, dk, vk, dist, theta, k,
+                        row_qid=None, col_qid=None):
+        m, n = driver.shape[0], driven.shape[0]
+        zeros = functools.partial(torch.zeros, dtype=torch.int32,
+                                  device=driver.device)
+        args = tuple(t.clone() for t in (
+            driver, driven, dk, vk, dist, theta,
+            zeros(m) if row_qid is None else row_qid,
+            zeros(n) if col_qid is None else col_qid))
+        rows, splits, width = ops.fused_plan(m, n, k)
+        rec["fused_in"].append(dict(
+            set=tag["set"], shape=f"M={m} N={n} k={k}", m=m, n=n, k=k,
+            qids=int(torch.unique(args[6]).numel()),
+            plan=dict(block_rows=rows, splits=splits, split_width=width),
+            kernel=lambda: ops.fused_topk_join(*args[:6], k=k,
+                                               row_qid=args[6],
+                                               col_qid=args[7]),
+            plain=lambda: ref.fused_topk_join_ref(*args, k),
+            bound=fused_bound(m, n, k)))
+        return fused_topk_join(driver, driven, dk, vk, dist, theta, k,
+                               row_qid, col_qid)
+
+    def recording_refine(buf, group):
+        b = buf.clone()
+        classes = sorted({(int(x[4]), int(x[5])) for x in group.desc})
+        rec["refine_in"].append(dict(
+            set=tag["set"], shape=f"dims={group.dims} rows={group.n_rows} "
+            f"buckets={len(group.desc)} classes={classes}",
+            kernel=lambda: ops.bucketed_min_core_group(b, group),
+            plain=lambda: ref.bucketed_min_core_group_ref(b, group.desc,
+                                                          group.dims),
+            bound=min_core_bound(group)))
+        return refine_group(buf, group)
+
+    def recording_pairs(driver, driven, dist, device=None):
+        out = distance_join_pairs(driver, driven, dist, device)
+        host = isinstance(driver, np.ndarray)
+        a, b = ((torch.from_numpy(np.ascontiguousarray(
+            x, dtype=np.float32)).to(device) for x in (driver, driven))
+            if host else (driver.clone(), driven.clone()))
+        if len(a) and len(b):
+            rec["pairs_in"].append(pair_replay(
+                ops, ref, build, tag["set"],
+                "matrix join" if host else "overflow recovery", a, b, dist,
+                len(out[0])))
+        return out
+
+    def recording_any(bits, fi, keys, k):
+        out = bloom_probe_any(bits, fi, keys, k)
+        fi = np.array(fi, dtype=np.int64)
+        keys = np.array(keys, dtype=np.int64)
+        if len(fi) and len(keys):
+            rec["any_in"].append(any_replay(ops, ref, build, tag["set"],
+                                            bits, fi, keys, k))
+        return out
+
+    def counting_refine(pool, rows_a, rows_b, metric="euclid", device=None,
+                        **kwargs):
+        rec["refine_calls"][0] += len(rows_a) > 0 \
+            and torch.device(device).type == "cuda"
+        return pool_min_dist(pool, rows_a, rows_b, metric, device, **kwargs)
+
+    ops.merge_join_ranks, ops.tree_descend = recording_ranks, \
+        recording_descend
+    ops.fused_topk_join = recording_fused
+    ops.bucketed_min_core_group = recording_refine
+    spatial_join.pool_min_dist = counting_refine
+    ops.distance_join_pairs = recording_pairs
+    ops.bloom_probe_any = recording_any
+    try:
+        yield rec
+    finally:
+        ops.merge_join_ranks, ops.tree_descend = merge_join_ranks, \
+            tree_descend
+        ops.fused_topk_join = fused_topk_join
+        ops.bucketed_min_core_group = refine_group
+        spatial_join.pool_min_dist = pool_min_dist
+        ops.distance_join_pairs = distance_join_pairs
+        ops.bloom_probe_any = bloom_probe_any
 
 
 def check_merge_join_ranks(ops, ref, dev, entry, cases, call_ms):
@@ -1562,6 +1711,320 @@ def require_launched(path: str, launches: dict, names) -> None:
             raise AssertionError(f"{name} never launched on {path}")
 
 
+# ------------------------------------------------ the STREAK serving loop --
+# the reference benchmark's traffic (benchmarks/bench_serve.py:55-75):
+# eight tenants on eight slots, one k each
+SERVE_KS = (5, 10, 20, 40, 60, 80, 100, 120)
+SERVE_SLOTS = 8
+SERVE_POLICIES = {"fused": dict(SLICE_POLICY, join="fused", kcap="auto"),
+                  "kernel": dict(SLICE_POLICY, join="kernel")}
+# counters that must read 0 on the card: the loop's crash isolation must
+# not hide a kernel or device fault
+SERVE_FAULT_COUNTERS = ("faults", "pooled_fallbacks", "failed_requests",
+                        "admission_failures")
+
+
+def serve_mixes(ds) -> dict:
+    """hotq: Q1 eight times, one k each; mixed: Q1-Q8, one k each."""
+    return {"hotq": [dataclasses.replace(ds.queries[0], k=k)
+                     for k in SERVE_KS],
+            "mixed": [dataclasses.replace(q, k=k)
+                      for q, k in zip(ds.queries, SERVE_KS)]}
+
+
+def serve_config(rt, policy: str):
+    return rt.ExecConfig(policy=rt.BackendPolicy(**SERVE_POLICIES[policy]))
+
+
+def serve_batch(rt, ds, policy: str, queries, device: str):
+    """One batch of tenants through a fresh `SpatialServeEngine`:
+    (engine, requests), synchronised on the card."""
+    from repro_torch.serve.spatial import SpatialServeEngine
+    srv = SpatialServeEngine(ds.store, serve_config(rt, policy),
+                             max_slots=SERVE_SLOTS, device=device)
+    reqs = srv.serve(queries)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return srv, reqs
+
+
+def require_clean_serve(label: str, srv, reqs) -> None:
+    """Every request done without an error, every fault counter 0."""
+    bad = {c: getattr(srv.stats, c) for c in SERVE_FAULT_COUNTERS
+           if getattr(srv.stats, c)}
+    errs = {r.rid: repr(r.error) for r in reqs
+            if r.error is not None or not r.done}
+    if bad or errs:
+        raise AssertionError(f"serve {label}: fault counters {bad}, "
+                             f"requests with errors {errs}")
+
+
+def require_same_rows(label: str, scores, rows, want) -> None:
+    ws, wr = want[0], want[1]
+    if not (np.array_equal(scores, ws) and list(rows) == list(wr)
+            and all(np.array_equal(rows[c], wr[c]) for c in wr)):
+        raise AssertionError(f"{label}: served answer differs")
+
+
+def serve_turns(rt, ds, rounds: int = 2) -> list:
+    """Before any profiler session: for each policy and mix, a batch
+    through a fresh serving engine against the reference benchmark's two
+    baselines, `serial_perquery` (a fresh engine a query) and `serial_warm`
+    (one engine, warmed, back to back), in turns (serve, perquery, warm,
+    warm, perquery, serve) `rounds` times; wall ms on the host clock ending
+    in a synchronise, medians. Every served request equal to serial
+    execution."""
+    out = []
+    for policy in SERVE_POLICIES:
+        cfg = serve_config(rt, policy)
+        for mix, queries in serve_mixes(ds).items():
+            serial = [rt.StreakEngine(ds.store, cfg, device="cuda")
+                      .execute(q) for q in queries]
+            warm = rt.StreakEngine(ds.store, cfg, device="cuda")
+            for q in queries:
+                warm.execute(q)
+            serve_batch(rt, ds, policy, queries, "cuda")        # warm-up
+            samples = collections.defaultdict(list)
+            for _ in range(rounds):
+                for label in ("serve", "serial_perquery", "serial_warm",
+                              "serial_warm", "serial_perquery", "serve"):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    if label == "serve":
+                        srv, reqs = serve_batch(rt, ds, policy, queries,
+                                                "cuda")
+                    elif label == "serial_perquery":
+                        res = [rt.StreakEngine(ds.store, cfg, device="cuda")
+                               .execute(q) for q in queries]
+                    else:
+                        res = [warm.execute(q) for q in queries]
+                    torch.cuda.synchronize()
+                    samples[label].append((time.perf_counter() - t0) * 1e3)
+                    if label == "serve":
+                        require_clean_serve(f"{policy} {mix}", srv, reqs)
+                        res = [(r.scores, r.rows) for r in reqs]
+                    for i, (got, want) in enumerate(zip(res, serial)):
+                        require_same_rows(f"{label} {policy} {mix} #{i}",
+                                          got[0], got[1], want)
+            med = {k: float(np.median(v)) for k, v in samples.items()}
+            out.append(dict(
+                policy=policy, mix=mix, queries=len(queries),
+                serve_ms=med["serve"],
+                serial_perquery_ms=med["serial_perquery"],
+                serial_warm_ms=med["serial_warm"],
+                queries_per_s=len(queries) / med["serve"] * 1e3,
+                speedup_vs_serial_perquery=med["serial_perquery"]
+                / med["serve"],
+                speedup_vs_serial_warm=med["serial_warm"] / med["serve"],
+                samples_ms=dict(samples), steps=srv.stats.steps,
+                sip_batches=srv.stats.sip_batches,
+                sip_blocks=srv.stats.sip_blocks,
+                join_launches=srv.stats.join_launches))
+    return out
+
+
+def trace_serve(rt, ops, ds, policy: str, mix: str, queries) -> dict:
+    """One traced serve batch on the card: wall ms, device busy ms (the
+    union of kernel and copy intervals), idle share, kernel launches (all
+    kernels, `ops.LAUNCHES`) a step, memcpy device ms and count, spans
+    by kind."""
+    from torch.profiler import ProfilerActivity, profile
+    before = sum(ops.LAUNCHES.values())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        srv, reqs = serve_batch(rt, ds, policy, queries, "cuda")
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    require_clean_serve(f"traced {policy} {mix}", srv, reqs)
+    launches = sum(ops.LAUNCHES.values()) - before
+    spans = device_spans(prof)
+    busy_ms = busy_union_us(spans) / 1e3
+    by_kind: dict = collections.defaultdict(float)
+    n_kind: collections.Counter = collections.Counter()
+    for start, stop, ev_name in spans:
+        kind = next((k for k in REPLACES if k in ev_name),
+                    "memcpy" if "memcpy" in ev_name.lower() else "other")
+        by_kind[kind] += (stop - start) / 1e3
+        n_kind[kind] += 1
+    return dict(policy=policy, mix=mix, wall_ms=wall_ms,
+                steps=srv.stats.steps, launches=launches,
+                launches_per_step=launches / srv.stats.steps,
+                device_busy_ms=busy_ms if spans else None,
+                device_idle_share=1 - busy_ms / wall_ms if spans else None,
+                memcpy_ms=by_kind.get("memcpy", 0.0),
+                memcpy_count=n_kind["memcpy"],
+                device_ms_by_kind=dict(by_kind),
+                spans_by_kind=dict(n_kind))
+
+
+def descend_replays(ops, ref, captured, sets) -> list:
+    """`tree_descend` launches in `check_path_replays`' form."""
+    out = []
+    for args, label in zip(captured, sets):
+        node_keys, cs, box_keys = args
+        nb, m, n = box_keys.shape[0], box_keys.shape[1], node_keys.shape[1]
+        tests = descend_tests(node_keys, cs, box_keys)
+        out.append(dict(
+            set=label, shape=f"B={nb} M={m} N={n}",
+            kernel=lambda a=args: ops.tree_descend(*a),
+            plain=lambda a=args: ref.tree_descend_ref(*a),
+            bound=bound_ms(4 * n * 8 + n + nb * m * 32 + nb * n, tests * 4)))
+    return out
+
+
+def check_serve_ranks(ops, ref, rank_in, cases) -> None:
+    """The serving loop's rank calls, from their recorded tables and
+    probes: the median and the largest call by (probes, table rows), every
+    side through the wrapper and through both layouts bit-identical to the
+    plain version (`_require_ranks`, as `check_merge_join_ranks` holds the
+    serial path's shapes), then timed; a "case" line each, with "path":
+    "serve"."""
+    if not rank_in:
+        raise AssertionError("serve: no merge_join_ranks launch recorded")
+    by_size = sorted(range(len(rank_in)), key=lambda i: (
+        len(rank_in[i][1]), len(rank_in[i][0]), i))
+    for label, i in (("median", by_size[len(by_size) // 2]),
+                     ("largest", by_size[-1])):
+        table, probes = (torch.from_numpy(x).cuda() for x in rank_in[i])
+        n, m = table.shape[0], probes.shape[0]
+        _require_ranks(ops, ref, f"serve {label} N={n} M={m}", table, probes)
+        words, sectors = rank_words_touched(table, probes)
+        bnd, by = bound_ms(m * 8 * 3 + words * 8,
+                           2 * m * int(n).bit_length() * 4)
+        case = dict(
+            kernel="merge_join_ranks", path="serve", call=label,
+            launches=len(rank_in), N=n, M=m, side="both",
+            lanes=32 if m <= ops.RANK_WARP_MAX_M else 1, table_words=words,
+            table_sectors=sectors,
+            **kernel_ms(lambda: ops.insertion_ranks(table, probes),
+                        "merge_join_ranks_kernel"),
+            plain_ms=time_ms(lambda: ref.merge_join_ranks_ref(table, probes),
+                             5),
+            bound_ms=bnd, bound_by=by)
+        cases.append(case)
+        print("case " + json.dumps(case), flush=True)
+
+
+def check_serve(rt, ops, ref, build, spatial_join, ds, cases) -> dict:
+    """The serving loop on the card, both policies and both mixes, with
+    the counts set to 0 before and read after: every STREAK kernel
+    launched; each batch clean (`require_clean_serve`), equal request by
+    request and counter by counter to the same batch on the CPU, and
+    every request equal to serial CUDA execution on a fresh engine; under
+    the fused join the mixed batch must pool (a launch with two or more
+    query ids, more SIP rows than SIP calls). Every launch must be one
+    recorded call (one refinement launch a refinement call). Then every
+    recorded `fused_topk_join`, `tree_descend`, pair call, grouped
+    refinement and per-filter probe replayed bit for bit against its
+    plain version, and the rank kernel at the median and largest recorded
+    call (`check_serve_ranks`) ("case" lines with "path": "serve"), and
+    one traced batch of each ("serve trace")."""
+    tag: dict = {}
+    runs, run_launches = {}, {}
+    with recording_launches(ops, ref, build, spatial_join, tag,
+                            rank_inputs=True) as rec:
+        ops.reset_launch_counts()
+        retries = ops.pair_capacity_retries
+        for policy in SERVE_POLICIES:
+            for mix, queries in serve_mixes(ds).items():
+                tag["set"] = f"serve {policy} {mix}"
+                before = dict(ops.LAUNCHES)
+                runs[policy, mix] = serve_batch(rt, ds, policy, queries,
+                                                "cuda")
+                run_launches[f"{policy} {mix}"] = {
+                    n: ops.LAUNCHES[n] - before[n] for n in STREAK_KERNELS}
+        launches = dict(ops.LAUNCHES)
+        retries = ops.pair_capacity_retries - retries
+    require_launched("the serving loop", launches, STREAK_KERNELS)
+    calls = dict(
+        fused_topk_join=len(rec["fused_in"]),
+        distance_join=len(rec["pairs_in"]) + retries,
+        bucketed_min_core=rec["refine_calls"][0],
+        tree_descend=sum(1 for nk, _, b in rec["descend_in"]
+                         if nk.shape[1] and b.shape[0]),
+        bloom_probe=len(rec["any_in"]), merge_join_ranks=len(rec["rank_in"]))
+    if {n: launches[n] for n in STREAK_KERNELS} != calls:
+        raise AssertionError(
+            f"serving loop: launches {launches} for the recorded calls "
+            f"{calls} ({retries} pair capacity retries): every launch must "
+            "be one recorded call, one refinement launch a refinement call")
+    stats = {}
+    for (policy, mix), (srv, reqs) in runs.items():
+        label = f"{policy} {mix}"
+        require_clean_serve(label, srv, reqs)
+        cpu_srv, cpu_reqs = serve_batch(rt, ds, policy,
+                                        serve_mixes(ds)[mix], "cpu")
+        if dataclasses.asdict(srv.stats) != dataclasses.asdict(cpu_srv.stats):
+            raise AssertionError(f"serve {label}: ServeStats {srv.stats} on "
+                                 f"the card, {cpu_srv.stats} on the CPU")
+        cfg = serve_config(rt, policy)
+        for req, cpu_req in zip(reqs, cpu_reqs):
+            if not (same_answer((req.scores, req.rows, req.stats),
+                                (cpu_req.scores, cpu_req.rows,
+                                 cpu_req.stats))
+                    and (req.steps, req.waited) == (cpu_req.steps,
+                                                    cpu_req.waited)):
+                raise AssertionError(f"serve {label} #{req.rid}: the card's "
+                                     "request differs from the CPU's")
+            serial = rt.StreakEngine(ds.store, cfg, device="cuda").execute(
+                req.query)
+            require_same_rows(f"serve {label} #{req.rid} vs serial",
+                              req.scores, req.rows, serial)
+            if not (np.isfinite(req.scores).all()
+                    and len(req.scores) <= req.query.k
+                    and all(len(v) == len(req.scores)
+                            for v in req.rows.values())):
+                raise AssertionError(f"serve {label} #{req.rid}: malformed")
+        if not any(len(r.scores) == r.query.k for r in reqs):
+            raise AssertionError(f"serve {label}: no request filled its k")
+        stats[label] = dataclasses.asdict(srv.stats)
+        print(f"serve run {label}: {len(reqs)} requests = cpu = serial; "
+              f"stats {json.dumps(stats[label])}; launches "
+              f"{json.dumps(run_launches[label])}", flush=True)
+    mixed_fused = [r for r in rec["fused_in"] if r["set"] == "serve fused mixed"]
+    srv = runs["fused", "mixed"][0]
+    if not (any(r["qids"] >= 2 for r in mixed_fused)
+            and srv.stats.sip_blocks > srv.stats.sip_batches):
+        raise AssertionError(
+            f"serve fused mixed: no pooling (qids a launch "
+            f"{[r['qids'] for r in mixed_fused]}, sip_blocks "
+            f"{srv.stats.sip_blocks}, sip_batches {srv.stats.sip_batches})")
+    fused_launches = [dict(set=r["set"], rows=r["m"], cols=r["n"], k=r["k"],
+                           qids=r["qids"], **r["plan"])
+                      for r in rec["fused_in"]]
+    qids = collections.Counter(r["qids"] for r in fused_launches)
+    print(f"serve fused launches: {len(fused_launches)}; qids a launch "
+          f"{dict(sorted(qids.items()))}; rows max "
+          f"{max(r['rows'] for r in fused_launches)}, cols max "
+          f"{max(r['cols'] for r in fused_launches)}; splits "
+          f"{dict(collections.Counter(r['splits'] for r in fused_launches))}",
+          flush=True)
+    descends = descend_replays(ops, ref, rec["descend_in"],
+                               rec["descend_sets"])
+    print("serve descend launches (B, M, N): " + json.dumps(sorted(
+        collections.Counter(r["shape"] for r in descends).items())))
+    for name, symbol, recorded in (
+            ("fused_topk_join", "fused_topk_join_kernel", rec["fused_in"]),
+            ("tree_descend", "tree_descend_kernel", descends),
+            ("distance_join", "distance_join_kernel", rec["pairs_in"]),
+            ("bucketed_min_core", "bucketed_min_core_kernel",
+             rec["refine_in"]),
+            ("bloom_probe", "bloom_probe_any_kernel", rec["any_in"])):
+        if not recorded:
+            raise AssertionError(f"serve: no {name} launch recorded")
+        check_path_replays(name, symbol, recorded, None, cases,
+                           groups={"serve": recorded})
+    check_serve_ranks(ops, ref, rec["rank_in"], cases)
+    traces = [trace_serve(rt, ops, ds, policy, mix, queries)
+              for policy in SERVE_POLICIES
+              for mix, queries in serve_mixes(ds).items()]
+    for t in traces:
+        print("serve trace " + json.dumps(t), flush=True)
+    return dict(launches={n: launches[n] for n in STREAK_KERNELS},
+                run_launches=run_launches, stats=stats,
+                fused_launches=fused_launches, traces=traces)
+
+
 # ------------------------------------------------- the LM serving stack --
 # Full-width gemma-7b (bf16) agreements are held to a relative RMS error,
 # ||got - want|| / ||want|| over all elements, of at most LM_REL_TOL; see
@@ -1965,6 +2428,11 @@ def main() -> None:
     for label, passes in ab.items():
         print(f"turns {label} " + json.dumps(passes))
     phase_done("untraced turns", t0)
+    t0 = time.perf_counter()
+    serve_times = serve_turns(rt, lgd)
+    for row in serve_times:
+        print("serve " + json.dumps(row), flush=True)
+    phase_done("serve turns", t0)
 
     # ---- per-kernel phase: kernel vs plain version, bit for bit ----------
     t0 = time.perf_counter()
@@ -2002,117 +2470,26 @@ def main() -> None:
 
     # ---- end-to-end phase: the main path on the card ---------------------
     t0 = time.perf_counter()
-    rank_shapes: list = []      # (N, M, resident table?) of every rank call
-    descend_in: list = []       # the inputs of every tree_descend launch
-    fused_in: list = []         # ... of every fused_topk_join launch
-    refine_in: list = []        # ... of every grouped refinement launch
-    refine_calls = [0]          # pool_min_dist calls on the card with pairs
-    pairs_in: list = []         # ... of every distance_join_pairs call
-    any_in: list = []           # ... of every bloom_probe_any call
     tag: dict = {}              # the query set running
-    merge_join_ranks, tree_descend = ops.merge_join_ranks, ops.tree_descend
-    fused_topk_join = ops.fused_topk_join
-    refine_group = ops.bucketed_min_core_group
-    pool_min_dist = spatial_join.pool_min_dist
-    distance_join_pairs = ops.distance_join_pairs
-    bloom_probe_any = ops.bloom_probe_any
-
-    def recording_ranks(table, probes, *args, **kwargs):
-        if len(table) and len(probes):        # calls that launch
-            rank_shapes.append((len(table), len(probes),
-                                kwargs.get("table_on_device") is not None))
-        return merge_join_ranks(table, probes, *args, **kwargs)
-
-    def recording_descend(node_keys, cs, box_keys):
-        descend_in.append((node_keys, cs.clone(), box_keys.clone()))
-        return tree_descend(node_keys, cs, box_keys)
-
-    def recording_fused(driver, driven, dk, vk, dist, theta, k,
-                        row_qid=None, col_qid=None):
-        m, n = driver.shape[0], driven.shape[0]
-        zeros = functools.partial(torch.zeros, dtype=torch.int32,
-                                  device=driver.device)
-        args = tuple(t.clone() for t in (
-            driver, driven, dk, vk, dist, theta,
-            zeros(m) if row_qid is None else row_qid,
-            zeros(n) if col_qid is None else col_qid))
-        fused_in.append(dict(
-            set=tag["set"], shape=f"M={m} N={n} k={k}",
-            kernel=lambda: ops.fused_topk_join(*args[:6], k=k,
-                                               row_qid=args[6],
-                                               col_qid=args[7]),
-            plain=lambda: ref.fused_topk_join_ref(*args, k),
-            bound=fused_bound(m, n, k)))
-        return fused_topk_join(driver, driven, dk, vk, dist, theta, k,
-                               row_qid, col_qid)
-
-    def recording_refine(buf, group):
-        b = buf.clone()
-        classes = sorted({(int(x[4]), int(x[5])) for x in group.desc})
-        refine_in.append(dict(
-            set=tag["set"], shape=f"dims={group.dims} rows={group.n_rows} "
-            f"buckets={len(group.desc)} classes={classes}",
-            kernel=lambda: ops.bucketed_min_core_group(b, group),
-            plain=lambda: ref.bucketed_min_core_group_ref(b, group.desc,
-                                                          group.dims),
-            bound=min_core_bound(group)))
-        return refine_group(buf, group)
-
-    def recording_pairs(driver, driven, dist, device=None):
-        out = distance_join_pairs(driver, driven, dist, device)
-        host = isinstance(driver, np.ndarray)
-        a, b = ((torch.from_numpy(np.ascontiguousarray(
-            x, dtype=np.float32)).to(device) for x in (driver, driven))
-            if host else (driver.clone(), driven.clone()))
-        if len(a) and len(b):
-            pairs_in.append(pair_replay(
-                ops, ref, _build, tag["set"],
-                "matrix join" if host else "overflow recovery", a, b, dist,
-                len(out[0])))
-        return out
-
-    def recording_any(bits, fi, keys, k):
-        out = bloom_probe_any(bits, fi, keys, k)
-        fi = np.array(fi, dtype=np.int64)
-        keys = np.array(keys, dtype=np.int64)
-        if len(fi) and len(keys):
-            any_in.append(any_replay(ops, ref, _build, tag["set"], bits, fi,
-                                     keys, k))
-        return out
-
-    def counting_refine(pool, rows_a, rows_b, metric="euclid", device=None,
-                        **kwargs):
-        refine_calls[0] += len(rows_a) > 0 and torch.device(device).type \
-            == "cuda"
-        return pool_min_dist(pool, rows_a, rows_b, metric, device, **kwargs)
-
     # the main path over lgd and scale1m, and the YAGO queries, whose
     # object-position joins (Q5, Q6, Q8) reach the spatial variable through
     # an object
     main_sets = dict(datasets, yago=(synth_rdf.make_yago(
         n_places=600, seed=1, block=128), 8))
     checked = {"fused": main_sets, "kernel": main_sets}
-    ops.merge_join_ranks, ops.tree_descend = recording_ranks, \
-        recording_descend
-    ops.fused_topk_join = recording_fused
-    ops.bucketed_min_core_group = recording_refine
-    spatial_join.pool_min_dist = counting_refine
-    ops.distance_join_pairs = recording_pairs
-    ops.bloom_probe_any = recording_any
-    ops.reset_launch_counts()
-    uploads = ops.rank_table_uploads
-    retries = ops.pair_capacity_retries
-    cuda_runs = {join: run_queries(rt, sets, join, "cuda", tag)
-                 for join, sets in checked.items()}
-    launches = dict(ops.LAUNCHES)
-    uploads = ops.rank_table_uploads - uploads
-    retries = ops.pair_capacity_retries - retries
-    ops.merge_join_ranks, ops.tree_descend = merge_join_ranks, tree_descend
-    ops.fused_topk_join = fused_topk_join
-    ops.bucketed_min_core_group = refine_group
-    spatial_join.pool_min_dist = pool_min_dist
-    ops.distance_join_pairs = distance_join_pairs
-    ops.bloom_probe_any = bloom_probe_any
+    with recording_launches(ops, ref, _build, spatial_join, tag) as rec:
+        ops.reset_launch_counts()
+        uploads = ops.rank_table_uploads
+        retries = ops.pair_capacity_retries
+        cuda_runs = {join: run_queries(rt, sets, join, "cuda", tag)
+                     for join, sets in checked.items()}
+        launches = dict(ops.LAUNCHES)
+        uploads = ops.rank_table_uploads - uploads
+        retries = ops.pair_capacity_retries - retries
+    rank_shapes, descend_in, fused_in = (rec["rank_shapes"],
+                                         rec["descend_in"], rec["fused_in"])
+    refine_in, refine_calls = rec["refine_in"], rec["refine_calls"]
+    pairs_in, any_in = rec["pairs_in"], rec["any_in"]
     require_launched("the main path", launches, STREAK_KERNELS)
     if launches["distance_join"] != len(pairs_in) + retries \
             or launches["bloom_probe"] != len(any_in):
@@ -2213,6 +2590,11 @@ def main() -> None:
                   f"{ms:.1f} ms, cpu {cpu_runs[name][1]:.1f} ms ({kind})")
     phase_done("shapes", t0)
 
+    # ---- third entry point: the multi-tenant serving loop -----------------
+    t0 = time.perf_counter()
+    serve = check_serve(rt, ops, ref, _build, spatial_join, lgd, cases)
+    phase_done("spatial serve", t0)
+
     # ---- the reference's kernel entry points (ops.block_scan, morton) ----
     t0 = time.perf_counter()
     scores = torch.from_numpy(np.random.default_rng(9).normal(
@@ -2247,7 +2629,7 @@ def main() -> None:
     prefill = check_lm_prefill(ops, ref, tr, cfg, params, dev)
     phase_done("lm prefill", t0)
     t0 = time.perf_counter()
-    serve = check_lm_serve(tr, cfg, params, dev)
+    lm_serve = check_lm_serve(tr, cfg, params, dev)
     del params
     torch.cuda.empty_cache()
     phase_done("lm serve", t0)
@@ -2282,7 +2664,8 @@ def main() -> None:
     path_launches = {**{n: launches[n] for n in STREAK_KERNELS},
                      **{n: ops_launches[n] for n in OPS_KERNELS},
                      "flash_attention": prefill["flash_launches_per_call"]}
-    kernels = [dict(entries[n], launches=path_launches[n], match=True)
+    kernels = [dict(entries[n], launches=path_launches[n], match=True,
+                    serve_launches=serve["launches"].get(n, 0))
                for n in _build.KERNELS]
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -2294,7 +2677,8 @@ def main() -> None:
             bloom_bank_uploads=bank_uploads_run,
             descend_call_shapes=descend_shapes, traces=traces,
             rank_turns=rank_turns,
-            ops_launches=ops_launches, lm_prefill=prefill, lm_serve=serve,
+            ops_launches=ops_launches, spatial_serve=serve,
+            serve_turns=serve_times, lm_prefill=prefill, lm_serve=lm_serve,
             lm_smoke_cuda_vs_cpu=smoke_lms, phase_seconds=phase_s),
             indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -381,6 +381,16 @@ class QueryCursor:
     from the monolithic loop, so serial results are bit-identical to the
     pre-cursor engine.
 
+    The serving layer (serve/spatial.py) instead drives the two-phase form:
+    ``begin_block()`` runs the early-termination check, materializes the next
+    driver block, and returns the Phase-1/2 *request* (driver boxes + CS
+    material) so the server can batch candidate-node search and node
+    selection ACROSS queries; ``finish_block(v_star, batcher)`` then runs
+    APS + driven retrieval + the Phase-3 join, optionally registering the
+    fused join with a cross-query batcher instead of streaming it alone.
+    θ pruning is sound at every granularity, so results do not depend on how
+    blocks from different queries interleave.
+
     Kernels run on the engine's device; everything else is host numpy.
     """
 
@@ -431,10 +441,12 @@ class QueryCursor:
         self._drv_sig = engine._side_sig(self.driver, self.plan)
         self.pending: dict[int, tuple] = {}  # block -> (rel, ents, boxes)
         self._vstars: dict[int, np.ndarray] = {}   # block -> prefetched V*
+        self._win_blocks: list[int] = []     # rows of an open SIP request
         self.n_blocks = (self.driver.scan.n_blocks
                          if self.driver.scan is not None else 1)
         self.b = 0
         self.done = False
+        self._cur: tuple | None = None      # begin_block() materialization
         if self.n_blocks == 0:
             self._finish()
 
@@ -535,8 +547,14 @@ class QueryCursor:
             self.pending[w] = (drv_rel, uniq_ents, boxes)
         return mats
 
-    def _process(self, drv_rel, uniq_ents, boxes, v_star) -> None:
+    def _process(self, drv_rel, uniq_ents, boxes, v_star,
+                 batcher=None) -> None:
         """APS + driven retrieval + Phase-3 join for one materialized block.
+
+        With `batcher` (serve mode, fused backend) the streaming join is
+        REGISTERED with the cross-query batcher instead of running here —
+        the batcher's emit callback refines + scores + pushes into this
+        cursor's TopK so θ tightens between shared kernel launches.
 
         ``v_star`` is a per-shard list aligned with ``self.shards``. The
         shard-clipped SIP intervals partition the driven result set, so
@@ -578,9 +596,11 @@ class QueryCursor:
                 dvn_rel = eng._driven_splan(driven, plan, intervals,
                                             explicit, stats)
             if dvn_rel.n:
-                self._phase3(drv_rel, uniq_ents, boxes, dvn_rel)
+                self._phase3(drv_rel, uniq_ents, boxes, dvn_rel,
+                             batcher=batcher)
 
-    def _phase3(self, drv_rel, uniq_ents, boxes, dvn_rel) -> None:
+    def _phase3(self, drv_rel, uniq_ents, boxes, dvn_rel,
+                batcher=None) -> None:
         """Phase-3 spatial join + refinement of one driven relation."""
         eng = self.engine
         cfg, plan = eng.config, self.plan
@@ -598,14 +618,24 @@ class QueryCursor:
             # the θ the kernel prunes with tightens inside the block
             ds = eng._entity_key_bound(drv_rel, uniq_ents, driver, plan)
             vs = eng._entity_key_bound(dvn_rel, dvn_ents, driven, plan)
+
+            def emit(pi, pj):
+                eng._emit_pairs(pi, pj, uniq_ents, dvn_ents, drv_rel,
+                                dvn_rel, driver, driven, plan, topk,
+                                stats, ds=ds, vs=vs)
+
+            if batcher is not None:
+                batcher.add(spatial_join.StreamEntry(
+                    boxes, dvn_boxes, ds, vs, plan.dist_norm, plan.k,
+                    theta_fn=lambda: topk.theta, emit=emit,
+                    stats=stats.join))
+                return
             for pi, pj in spatial_join.fused_stream_join(
                     boxes, dvn_boxes, ds, vs, plan.dist_norm, k=plan.k,
                     theta_fn=lambda: topk.theta,
                     batch_cols=cfg.fused_batch_cols, stats=stats.join,
                     tuner=eng.kcap_tuner, device=eng.device):
-                eng._emit_pairs(pi, pj, uniq_ents, dvn_ents, drv_rel,
-                                dvn_rel, driver, driven, plan, topk,
-                                stats, ds=ds, vs=vs)
+                emit(pi, pj)
         else:
             # the MBR pair set is pure in (boxes, driven boxes, distance),
             # so same-shape tenants share it too; a cache hit skips the
@@ -647,5 +677,88 @@ class QueryCursor:
         self.b += 1
         if drv_rel.n and uniq_ents is not None and len(uniq_ents):
             self._process(drv_rel, uniq_ents, boxes, v_star)
+        if self.b >= self.n_blocks:
+            self._finish()
+
+    # -- serve mode (two-phase step) ------------------------------------
+    def begin_block(self) -> dict | None:
+        """Advance to the next live block and materialize it (serve mode).
+
+        Returns None when the cursor is finished, else a Phase-1/2 request
+        the serving engine batches across queries::
+
+            {"boxes": [(M_i, 4) driver MBRs, ...], "driven_cs": (C,) int64,
+             "prepared": PreparedKeys, "dist_norm": float,
+             "card_all": [(N_s,) float64 per shard], "need_sip": bool,
+             "cs_path": [(N_s,) bool per shard] | None}
+
+        ``card_all``/``cs_path`` carry one entry per shard view (a 1-list
+        on unsharded stores). ``cs_path`` is this query's precomputed
+        root-path Bloom mask (set on fused-descent routes, None on the host
+        frontier) — the server passes it through so pooled descents skip
+        the per-step Bloom probes.
+
+        ``boxes`` covers this block plus the cursor's `sip_lookahead`
+        speculative window (one row per block), so each tenant keeps the
+        serial path's amortization — one shared frontier pass per refill —
+        while the server pools rows across tenants. On steps served from
+        the window cache ``need_sip`` is False and ``boxes`` is empty.
+
+        Follow with ``finish_block(v_stars, batcher)`` where ``v_stars`` is
+        the per-row V* list for this request (None when ``need_sip`` was
+        False).
+        """
+        if self._cur is not None:
+            raise RuntimeError("finish_block() the previous block first")
+        while not self.done:
+            b = self.b
+            if not self._block_guard(b):
+                return None
+            self.stats.driver_blocks += 1
+            self.b += 1
+            if b not in self.pending:
+                self.pending.clear()
+                self._vstars.clear()
+                self._materialize_window(b)
+            drv_rel, uniq_ents, boxes = self.pending.pop(b)
+            if drv_rel.n and uniq_ents is not None and len(uniq_ents):
+                self._cur = (b, drv_rel, uniq_ents, boxes)
+                need_sip = (bool(self.engine.config.use_sip)
+                            and b not in self._vstars)
+                if need_sip:
+                    self._win_blocks = [b] + sorted(self.pending)
+                    win_boxes = [boxes] + [
+                        self.pending[w][2] if self.pending[w][2] is not None
+                        else np.zeros((0, 4)) for w in sorted(self.pending)]
+                else:
+                    self._win_blocks, win_boxes = [], []
+                return {"boxes": win_boxes,
+                        "driven_cs": self.plan.driven_cs,
+                        "prepared": self.prepared,
+                        "dist_norm": self.plan.dist_norm,
+                        "card_all": self.card_all,
+                        "need_sip": need_sip,
+                        "cs_path": self.cs_path}
+            if self.b >= self.n_blocks:
+                self._finish()
+        return None
+
+    def finish_block(self, v_stars: list | None, batcher=None) -> None:
+        """Run Phases 2'-3 for the block begin_block() materialized.
+
+        ``v_stars`` aligns with the request's ``boxes`` rows; rows past the
+        first are the speculative window and are cached for later steps.
+        """
+        if self._cur is None:
+            raise RuntimeError("begin_block() first")
+        b, drv_rel, uniq_ents, boxes = self._cur
+        self._cur = None
+        if v_stars is not None:
+            for w, v in zip(self._win_blocks, v_stars):
+                self._vstars[w] = v
+            self._win_blocks = []
+        v_star = self._vstars.pop(
+            b, [np.array([0], dtype=np.int64)] * len(self.shards))
+        self._process(drv_rel, uniq_ents, boxes, v_star, batcher=batcher)
         if self.b >= self.n_blocks:
             self._finish()

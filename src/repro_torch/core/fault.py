@@ -1,13 +1,39 @@
-"""Query deadlines: the anytime-answer budget of `StreakEngine.execute`.
+"""Query deadlines and the failure types the serving loop tells apart.
 
 A query given a `QueryDeadline` stops admitting driver blocks once the
 budget is spent and returns its current answer marked partial
 (`ExecStats.partial`, `deadline_expired`, `score_bound`).
+
+The exception classes name the failures that the multi-tenant serving loop
+(`serve/spatial.py`) retries from a fresh cursor (`TRANSIENT`); any other
+exception retires the request with its error.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+
+
+class InjectedFault(RuntimeError):
+    """A failure planted on purpose, to exercise recovery."""
+
+
+class CorruptionDetected(RuntimeError):
+    """An op result failed its structural validator."""
+
+
+class OpTimeout(RuntimeError):
+    """An op launch overran its deadline."""
+
+
+class FallbackExhausted(RuntimeError):
+    """Every backend of an op failed. The serving layer treats this as
+    transient and retries with backoff."""
+
+
+# exception types the serving layer retries with backoff; anything else is
+# treated as a permanent per-request failure (a real bug, a bad query)
+TRANSIENT = (InjectedFault, CorruptionDetected, OpTimeout, FallbackExhausted)
 
 
 @dataclasses.dataclass

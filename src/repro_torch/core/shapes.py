@@ -459,7 +459,11 @@ def _exec_knn(engine, q: Query, plan: QueryPlan, stats,
 class ShapeCursor:
     """Cursor-protocol adapter for the non-top-k shapes: the whole shape
     executes in the first `step()`, which finishes the cursor, so
-    `StreakEngine.execute` drives it like a `QueryCursor`."""
+    `StreakEngine.execute` drives it like a `QueryCursor`. The serving
+    loop admits the shapes the same way: the whole shape runs inside the
+    slot's first `begin_block()` (crash-isolated by the serve loop like
+    any per-slot phase), and the call returns None, which retires the slot
+    with the results."""
 
     def __init__(self, engine, q: Query,
                  deadline: QueryDeadline | None = None):
@@ -480,6 +484,13 @@ class ShapeCursor:
 
     def step(self) -> None:
         self._run()
+
+    def begin_block(self):
+        self._run()
+        return None
+
+    def finish_block(self, v_stars=None, batcher=None) -> None:
+        raise RuntimeError("ShapeCursor.begin_block always returns None")
 
     def results(self):
         return self._scores, self._rows, self.stats

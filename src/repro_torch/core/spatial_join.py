@@ -173,6 +173,47 @@ def _theta32_lower(theta: float) -> np.float32:
     return t32
 
 
+def _batch_pairs(idx: np.ndarray, counts: np.ndarray, kcap: int,
+                 drv_t: torch.Tensor, row0: int, cols_t: torch.Tensor,
+                 col0: int, ds: np.ndarray, vs_sorted: np.ndarray,
+                 order: np.ndarray, start: int, dist32: np.float32,
+                 theta32: np.float32, stats: JoinStats | None):
+    """One query's candidate pairs from one fused launch, sorted by
+    (driver row, driven row) in the original arrays' indices.
+
+    idx/counts are this query's rows of the launch's output (its rows start
+    at `row0` of `drv_t`, its columns at `col0` of the launch, where the
+    kernel's query-id test keeps its survivors), `cols_t` its column span, which begins at position `start` of its key-sorted driven
+    side (`vs_sorted`, `order`). Rows whose survivors overflow the width
+    are recovered with the same f32 arrays, distance formula and θ the
+    kernel used, so they see exactly the kernel's predicate: the distance
+    join's pairs of those rows against the span, then the key bound on
+    those pairs only, the same f32 add."""
+    ok_rows = counts <= kcap
+    sel = (idx >= 0) & ok_rows[:, None]
+    pi = np.nonzero(sel)[0].astype(np.int64)
+    pj_local = idx[sel].astype(np.int64) - col0
+    over = np.flatnonzero(~ok_rows)
+    if len(over):
+        if stats is not None:
+            stats.overflow_rows += len(over)
+            stats.overflow_batches += 1
+        over_t = torch.from_numpy(over + row0).to(drv_t.device)
+        oi, oj = ops.distance_join_pairs(drv_t.index_select(0, over_t),
+                                         cols_t, dist32)
+        keep = ds[over][oi] + vs_sorted[start + oj] > theta32
+        pi = np.concatenate([pi, over[oi[keep]]])
+        pj_local = np.concatenate([pj_local, oj[keep]])
+    if len(pi) == 0:
+        return pi, pi
+    pj = order[start + pj_local]
+    srt = np.lexsort((pj, pi))
+    pi, pj = pi[srt], pj[srt]
+    if stats is not None:
+        stats.candidates += len(pi)
+    return pi, pj
+
+
 def fused_stream_join(driver_boxes: np.ndarray, driven_boxes: np.ndarray,
                       driver_keys: np.ndarray, driven_keys: np.ndarray,
                       dist_norm: float, k: int,
@@ -242,33 +283,156 @@ def fused_stream_join(driver_boxes: np.ndarray, driven_boxes: np.ndarray,
         if stats is not None:
             stats.pairs_tested += m * (stop - start)
 
-        ok_rows = counts <= kcap
-        sel = (idx >= 0) & ok_rows[:, None]
-        pi = np.nonzero(sel)[0].astype(np.int64)
-        pj_local = idx[sel].astype(np.int64)
-        over = np.flatnonzero(~ok_rows)
-        if len(over):
-            # width overflow: recover those rows — same f32 arrays, same f32
-            # distance formula and θ the kernel used, so recovered rows see
-            # exactly the kernel's predicate: the distance join's pairs,
-            # then the key bound on those pairs only, the same f32 add
-            if stats is not None:
-                stats.overflow_rows += len(over)
-                stats.overflow_batches += 1
-            over_t = torch.from_numpy(over).to(device)
-            oi, oj = ops.distance_join_pairs(
-                drv_t.index_select(0, over_t), chunk, dist32)
-            keep = ds[over][oi] + vs_sorted[start + oj] > theta32
-            pi = np.concatenate([pi, over[oi[keep]]])
-            pj_local = np.concatenate([pj_local, oj[keep]])
-        if len(pi) == 0:
+        pi, pj = _batch_pairs(idx, counts, kcap, drv_t, 0, chunk, 0, ds,
+                              vs_sorted, order, start, dist32, theta32, stats)
+        if len(pi):
+            yield pi, pj
+
+
+@dataclasses.dataclass
+class StreamEntry:
+    """One query's Phase-3 work registered with fused_stream_join_multi.
+
+    `emit(pi, pj)` receives candidate-pair batches (indices into the
+    original driver/driven arrays) and is expected to refine + push them
+    into the query's TopK so the next `theta_fn()` read is tighter.
+
+    `error` is the crash-isolation channel: an exception in one entry's
+    per-span work (overflow recovery, emit/refine) lands here and retires
+    only that entry from subsequent launches — the other entries' streams
+    proceed. A faulted entry's TopK may hold a partial batch, so the owner
+    must restart the query from a fresh cursor, not resume it.
+    """
+    driver_boxes: np.ndarray
+    driven_boxes: np.ndarray
+    driver_keys: np.ndarray
+    driven_keys: np.ndarray
+    dist_norm: float
+    k: int
+    theta_fn: object                  # () -> float, the query's live θ
+    emit: object                      # (pi, pj) -> None
+    stats: JoinStats | None = None
+    error: Exception | None = None    # set ⟹ entry retired by a fault
+
+
+class _StreamCursor:
+    """One entry's key-sorted driven side and its position in it."""
+
+    def __init__(self, e: StreamEntry):
+        self.e = e
+        self.m = len(e.driver_boxes)
+        self.n = len(e.driven_boxes)
+        self.ds = _sanitize_keys(e.driver_keys, self.m)
+        vs = _sanitize_keys(e.driven_keys, self.n)
+        self.ds_max = float(self.ds.max()) if self.m else -np.inf
+        self.order = np.argsort(-vs, kind="stable")
+        self.dvn = np.ascontiguousarray(e.driven_boxes[self.order],
+                                        dtype=np.float32)
+        self.vs = vs[self.order]
+        self.drv = np.ascontiguousarray(e.driver_boxes, dtype=np.float32)
+        self.pos = 0
+
+    def live(self) -> bool:
+        if self.e.error is not None:
+            return False
+        if self.m == 0 or self.pos >= self.n:
+            return False
+        theta = float(self.e.theta_fn())
+        return self.ds_max + float(self.vs[self.pos]) > theta
+
+
+def fused_stream_join_multi(entries: list[StreamEntry],
+                            batch_cols: int = 4096,
+                            tuner: KcapTuner | None = None,
+                            device: torch.device | str | None = None) -> int:
+    """Cross-query streaming Phase-3 join on `device`: several queries'
+    driver blocks in ONE fused-kernel launch at a time.
+
+    Each entry is the per-query state fused_stream_join would process alone;
+    here the driver rows of all live entries are concatenated (tagged with a
+    per-row query id, distance threshold, and θ) and each launch takes the
+    next ≈ batch_cols / n_live columns from EVERY live entry's key-sorted
+    driven side. The kernel's query-id test keeps pairs within their query,
+    so per-query results equal fused_stream_join's run alone: same column
+    order, same θ reads at batch granularity, same overflow recovery per
+    (query, batch), through the distance-join kernel as there.
+
+    Entries retire independently — when a query's remaining key bound cannot
+    beat its θ (or its columns are exhausted) its rows leave the launch and
+    the survivors' column share grows. A launch holds exactly the live rows
+    and columns: with no compiled signatures to reuse there is nothing to
+    pad to. Returns the number of kernel launches.
+    """
+    if device is None:          # as `_f32_on`: no silent CPU launches
+        raise ValueError("a kernel backend needs a device")
+    curs = [_StreamCursor(e) for e in entries]
+    launches = 0
+    while True:
+        live = [c for c in curs if c.live()]
+        if not live:
+            break
+        cols_per = max(1, batch_cols // len(live))
+        kmax = max(int(c.e.k) for c in live)
+        kcap = (tuner.suggest(kmax, batch_cols) if tuner is not None
+                else min(max(kmax, 64), batch_cols))
+        # pow2-quantized as the reference does, so a retiring entry
+        # (shrinking kmax) moves the width a class at a time
+        kcap = min(1 << max(int(kcap - 1).bit_length(), 0), batch_cols)
+        # assemble the launch: driver rows / driven columns of every live
+        # query, tagged with qid + per-row (dist, θ)
+        drv_l, ds_l, rq_l, dist_l, th_l = [], [], [], [], []
+        col_l, ck_l, cq_l = [], [], []
+        spans = []                       # (cur, row_off, col_off, ncols, θ32)
+        row_off = col_off = 0
+        for qid, c in enumerate(live):
+            ncols = min(cols_per, c.n - c.pos)
+            theta32 = _theta32_lower(float(c.e.theta_fn()))
+            drv_l.append(c.drv)
+            ds_l.append(c.ds)
+            rq_l.append(np.full(c.m, qid, np.int32))
+            dist_l.append(np.full(c.m, np.float32(c.e.dist_norm)))
+            th_l.append(np.full(c.m, theta32))
+            col_l.append(c.dvn[c.pos:c.pos + ncols])
+            ck_l.append(c.vs[c.pos:c.pos + ncols])
+            cq_l.append(np.full(ncols, qid, np.int32))
+            spans.append((c, row_off, col_off, ncols, theta32))
+            row_off += c.m
+            col_off += ncols
+        try:
+            drv_t, cols_t, ds_t, ck_t, dist_t, th_t, rq_t, cq_t = (
+                torch.from_numpy(np.concatenate(x)).to(device) for x in (
+                    drv_l, col_l, ds_l, ck_l, dist_l, th_l, rq_l, cq_l))
+            _, idx_t, counts_t = ops.fused_topk_join(
+                drv_t, cols_t, ds_t, ck_t, dist_t, th_t, k=kcap,
+                row_qid=rq_t, col_qid=cq_t)
+            idx = idx_t.cpu().numpy()
+            counts = counts_t.cpu().numpy()
+        except Exception as exc:    # noqa: BLE001 — whole-launch failure
+            # the shared launch died: every rider faults (their owners
+            # restart from fresh cursors); entries not in it are untouched
+            for c, *_ in spans:
+                c.e.error = exc
             continue
-        pj = order[start + pj_local]
-        srt = np.lexsort((pj, pi))
-        pi, pj = pi[srt], pj[srt]
-        if stats is not None:
-            stats.candidates += len(pi)
-        yield pi, pj
+        launches += 1
+        if tuner is not None:
+            tuner.update(counts)
+        for c, r0, c0, ncols, theta32 in spans:
+            e = c.e
+            try:
+                if e.stats is not None:
+                    e.stats.pairs_tested += c.m * ncols
+                pi, pj = _batch_pairs(
+                    idx[r0:r0 + c.m], counts[r0:r0 + c.m], kcap, drv_t, r0,
+                    cols_t[c0:c0 + ncols], c0, c.ds, c.vs, c.order, c.pos,
+                    np.float32(e.dist_norm), theta32, e.stats)
+                if len(pi):
+                    e.emit(pi, pj)
+            except Exception as exc:    # noqa: BLE001 — per-entry isolation
+                # one entry's overflow recovery / emit / refine crashed:
+                # retire it (owner restarts it) and keep the others going
+                e.error = exc
+            c.pos += ncols
+    return launches
 
 
 def fused_topk_pairs(driver_boxes: np.ndarray, driven_boxes: np.ndarray,

@@ -346,26 +346,67 @@ class SQuadTree:
         be precomputed once via `cs_path_mask` and passed as `cs_path`. Both
         routes give the same masks; the kernel routes of the descent and of
         the Bloom probes (`probe_backend`) run on `device`.
+
+        Multi-query form (the serving layer): `driven_cs` may be a LIST of
+        per-block CS arrays (one per batch row, from different queries), with
+        `prepared` and `cs_path` aligned lists (or None) and `dist_norm` a
+        scalar or a per-block ``(B,)`` array. Blocks whose CS arrays are
+        equal share one pass (one descent launch on the kernel route, whose
+        row count is the group's); per-block results equal separate calls.
+        Rows sharing a CS group must carry the same `cs_path` mask; a
+        missing one is derived here, one Bloom probe a group.
         """
         bank = {"self": self.bloom_self, "in": self.bloom_in,
                 "out": self.bloom_out}[which]
         dback = resolve_descend_backend(descend_backend)
+        if isinstance(driven_cs, (list, tuple)):
+            boxes = _pad_box_sets(driver_boxes)
+            n_b = len(boxes)
+            if len(driven_cs) != n_b:
+                raise ValueError("driven_cs list must match the block batch")
+            dist_arr = np.broadcast_to(
+                np.asarray(dist_norm, dtype=np.float64), (n_b,))
+            prep = (list(prepared) if prepared is not None else [None] * n_b)
+            paths = (list(cs_path) if isinstance(cs_path, (list, tuple))
+                     else [None] * n_b)
+            if len(prep) != n_b or len(paths) != n_b:
+                raise ValueError("prepared/cs_path lists must match the batch")
+            cs_arrs = [np.asarray(c, dtype=np.int64) for c in driven_cs]
+            out = np.zeros((n_b, self.n_nodes), dtype=bool)
+            groups: dict[bytes, list[int]] = {}
+            for i, c in enumerate(cs_arrs):
+                groups.setdefault(c.tobytes(), []).append(i)
+            for sel in groups.values():
+                si = np.asarray(sel, dtype=np.int64)
+                out[si] = self._route(boxes[si], dist_arr[si],
+                                      cs_arrs[sel[0]], bank, which,
+                                      prep[sel[0]], probe_backend, dback,
+                                      paths[sel[0]], device)
+            return out
         single = isinstance(driver_boxes, np.ndarray) and driver_boxes.ndim == 2
         boxes = driver_boxes[None] if single else _pad_box_sets(driver_boxes)
-        driven_cs = np.asarray(driven_cs, dtype=np.int64)
-        if dback == "numpy":
-            in_v = self._frontier(boxes, dist_norm, driven_cs, bank,
-                                  prepared, probe_backend, device)
-        elif not (len(boxes) and len(driven_cs) and boxes.shape[1]):
-            in_v = np.zeros((len(boxes), self.n_nodes), dtype=bool)
-        else:
-            if cs_path is None:
-                cs_path = self.cs_path_mask(driven_cs, which=which,
-                                            prepared=prepared,
-                                            probe_backend=probe_backend,
-                                            device=device)
-            in_v = self._descend(boxes, dist_norm, cs_path, device)
+        in_v = self._route(boxes, dist_norm,
+                           np.asarray(driven_cs, dtype=np.int64), bank,
+                           which, prepared, probe_backend, dback, cs_path,
+                           device)
         return in_v[0] if single else in_v
+
+    def _route(self, boxes: np.ndarray, dist_norm, driven_cs: np.ndarray,
+               bank: BloomBank, which: str, prepared, probe_backend,
+               descend_backend: str, cs_path,
+               device: torch.device | str | None) -> np.ndarray:
+        """One shared-CS group -> host frontier or fused descent."""
+        if descend_backend == "numpy":
+            return self._frontier(boxes, dist_norm, driven_cs, bank,
+                                  prepared, probe_backend, device)
+        if not (len(boxes) and len(driven_cs) and boxes.shape[1]):
+            return np.zeros((len(boxes), self.n_nodes), dtype=bool)
+        if cs_path is None:
+            cs_path = self.cs_path_mask(driven_cs, which=which,
+                                        prepared=prepared,
+                                        probe_backend=probe_backend,
+                                        device=device)
+        return self._descend(boxes, dist_norm, cs_path, device)
 
     def _frontier(self, boxes: np.ndarray, dist_norm, driven_cs: np.ndarray,
                   bank: BloomBank, prepared: PreparedKeys | None,

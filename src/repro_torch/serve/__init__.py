@@ -1,1 +1,2 @@
-"""Serving: the continuous-batching LM engine (`engine`)."""
+"""Serving: the continuous-batching LM engine (`engine`) and the
+multi-tenant STREAK serving loop (`spatial`)."""

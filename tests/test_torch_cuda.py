@@ -575,6 +575,114 @@ def test_shapes_on_cuda_equal_cpu(dev, join):
         assert ops.LAUNCHES[name] > 0
 
 
+# ----------------------------------------------- the serving loop's launches --
+def test_fused_multi_qid_launch_with_sentinels_matches_plain(dev):
+    """A cross-query launch as the serving loop builds it, with sentinel
+    rows (dist -1, θ +inf, qid -1) and columns (key -inf, qid -2) beside
+    three queries' rows and column spans: equal to the plain version, and
+    the sentinels never survive."""
+    rng = np.random.default_rng(12)
+    parts = [(50, 300), (7, 300), (120, 200)]
+    m_pad, n_pad = 23, 29
+    m = sum(p[0] for p in parts) + m_pad
+    n = sum(p[1] for p in parts) + n_pad
+    a, b = _boxes(rng, m, dev), _boxes(rng, n, dev)
+    rq = np.concatenate([np.full(r, q, np.int32)
+                         for q, (r, _) in enumerate(parts)]
+                        + [np.full(m_pad, -1, np.int32)])
+    cq = np.concatenate([np.full(c, q, np.int32)
+                         for q, (_, c) in enumerate(parts)]
+                        + [np.full(n_pad, -2, np.int32)])
+    dist = np.concatenate([np.full(r, 0.05 * (q + 1), np.float32)
+                           for q, (r, _) in enumerate(parts)]
+                          + [np.full(m_pad, -1.0, np.float32)])
+    theta = np.concatenate([np.full(r, 0.3 * q, np.float32)
+                            for q, (r, _) in enumerate(parts)]
+                           + [np.full(m_pad, np.inf, np.float32)])
+    dk = rng.random(m).astype(np.float32)
+    dk[-m_pad:] = -np.inf
+    vk = rng.random(n).astype(np.float32)
+    vk[-n_pad:] = -np.inf
+    args = (a, b) + tuple(torch.from_numpy(x).to(dev)
+                          for x in (dk, vk, dist, theta))
+    rq_t, cq_t = (torch.from_numpy(x).to(dev) for x in (rq, cq))
+    for k in (8, 64, 256):
+        got = ops.fused_topk_join(*args, k=k, row_qid=rq_t, col_qid=cq_t)
+        _equal(got, ref.fused_topk_join_ref(*args, rq_t, cq_t, k))
+        idx, counts = got[1].cpu().numpy(), got[2].cpu().numpy()
+        assert (counts[-m_pad:] == 0).all()
+        assert not np.isin(idx, np.arange(n - n_pad, n)).any()
+        assert counts[:-m_pad].max() > 0
+
+
+def test_pooled_candidate_nodes_two_cs_groups_match_per_block(dev):
+    """The serving loop's pooled Phase 1: rows of two queries with
+    different driven-CS sets in one call, one descent a group on the card,
+    each row equal to its own call."""
+    from repro_torch.core.planner import plan_query
+    ds = synth_rdf.make_lgd(n_per_class=300, seed=0)
+    tree = ds.store.tree
+    plans = [plan_query(ds.store, q) for q in (ds.queries[0],
+                                               ds.queries[3])]
+    assert not np.array_equal(plans[0].driven_cs, plans[1].driven_cs)
+    rng = np.random.default_rng(13)
+    rows = [0, 1, 1, 0, 0, 1]
+    boxes = [tree.obj_mbr[rng.integers(0, tree.n_objects, 3 + i)]
+             for i in range(len(rows))]
+    dists = np.array([plans[r].dist_norm for r in rows])
+    paths = [tree.cs_path_mask(p.driven_cs, probe_backend="kernel",
+                               device=dev) for p in plans]
+    launches = ops.LAUNCHES["tree_descend"]
+    got = tree.candidate_nodes(boxes, dists,
+                               [plans[r].driven_cs for r in rows],
+                               descend_backend="kernel", probe_backend="kernel",
+                               cs_path=[paths[r] for r in rows], device=dev)
+    assert ops.LAUNCHES["tree_descend"] == launches + 2
+    assert got.any()
+    for i, r in enumerate(rows):
+        for device in (dev, "cpu"):
+            np.testing.assert_array_equal(got[i], tree.candidate_nodes(
+                boxes[i], float(dists[i]), plans[r].driven_cs,
+                descend_backend="kernel", probe_backend="kernel",
+                device=device))
+
+
+@pytest.mark.parametrize("join", ["fused", "kernel"])
+def test_hotq_serve_on_cuda_equals_cpu(dev, join):
+    """Eight tenants on the hot query with per-tenant k through the serving
+    loop on the card: every request and every counter equal to the CPU
+    serve, every request equal to serial CUDA execution."""
+    from repro_torch.serve.spatial import SpatialServeEngine
+    ds = synth_rdf.make_lgd(n_per_class=300, seed=0)
+    cfg = ExecConfig(policy=BackendPolicy(
+        join=join, descend="kernel", probe="kernel", rank="kernel",
+        kcap="auto" if join == "fused" else "fixed"))
+    hot = [dataclasses.replace(ds.queries[0], k=k)
+           for k in (5, 10, 20, 40, 60, 80, 100, 120)]
+    ops.reset_launch_counts()
+    srv = SpatialServeEngine(ds.store, cfg, max_slots=8)
+    reqs = srv.serve(hot)
+    launches = dict(ops.LAUNCHES)
+    cpu = SpatialServeEngine(ds.store, cfg, max_slots=8, device="cpu")
+    want = cpu.serve(hot)
+    assert dataclasses.asdict(srv.stats) == dataclasses.asdict(cpu.stats)
+    assert srv.stats.faults == srv.stats.failed_requests == 0
+    for got, w, q in zip(reqs, want, hot):
+        assert got.error is None and w.error is None
+        np.testing.assert_array_equal(got.scores, w.scores)
+        assert list(got.rows) == list(w.rows)
+        for c in w.rows:
+            np.testing.assert_array_equal(got.rows[c], w.rows[c])
+        assert dataclasses.asdict(got.stats) == dataclasses.asdict(w.stats)
+        serial = StreakEngine(ds.store, cfg).execute(q)
+        np.testing.assert_array_equal(got.scores, serial[0])
+    assert launches["tree_descend"] > 0
+    assert launches["fused_topk_join" if join == "fused"
+                    else "distance_join"] > 0
+    if join == "fused":
+        assert srv.stats.join_launches > 0
+
+
 # ------------------------------------ block scan, Morton, flash attention --
 @pytest.mark.parametrize("nb,bsz", [(1, 1), (3, 7), (64, 1024), (17, 4100)])
 @pytest.mark.parametrize("theta", [-1e30, 0.5])

@@ -28,6 +28,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import repro_torch.kernels._build, repro_torch.data.synth_rdf\n"
         "import repro_torch.models.transformer, repro_torch.serve.engine\n"
         "import repro_torch.launch.serve, repro_torch.configs.registry\n"
+        "import repro_torch.serve.spatial\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")
@@ -60,6 +61,21 @@ def test_engine_defaults_to_cuda_and_raises_without_it(tiny, monkeypatch):
     assert eng.device == torch.device("cpu")
     scores, rows, stats = eng.execute(tiny.queries[0])
     assert len(scores) and np.isfinite(scores).all()
+
+
+def test_serve_loop_defaults_to_cuda_and_raises_without_it(tiny,
+                                                         monkeypatch):
+    from repro_torch.serve.spatial import SpatialServeEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SpatialServeEngine(tiny.store)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SpatialServeEngine(tiny.store, ExecConfig(), device="cuda")
+    srv = SpatialServeEngine(tiny.store, device="cpu")
+    assert srv.engine.device == torch.device("cpu")
+    (req,) = srv.serve([tiny.queries[0]])
+    assert req.done and req.error is None
+    assert len(req.scores) and np.isfinite(req.scores).all()
 
 
 def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
@@ -116,19 +132,38 @@ def test_auto_policy_resolves_like_the_reference(monkeypatch):
 
 
 def test_non_topk_shapes_are_not_ported(tiny):
-    """Non-top-k shapes run through a `ShapeCursor`; what is not ported is
-    its serving half (`begin_block`), which comes with the serve loop."""
+    """Non-top-k shapes do not take the streaming top-k cursor: they run
+    through a `ShapeCursor`, whole, under the shape plan ("S")."""
     q = tiny.queries[0]
     join_q = type(q)(select=q.select, patterns=q.patterns, spatial=q.spatial,
                      ranking=None, k=q.k)
     eng = StreakEngine(tiny.store, device="cpu")
     cur = eng.cursor(join_q)
     assert type(cur).__name__ == "ShapeCursor"
-    assert not hasattr(cur, "begin_block")
     scores, rows, stats = eng.execute(join_q)
     assert stats.plan_log and set(stats.plan_log) == {"S"}
     assert all(len(v) == len(scores) for v in rows.values())
     assert np.isfinite(scores).all() and (scores >= 0).all()
+
+
+def test_shape_cursor_serve_half_runs_whole_shape(tiny):
+    """A `ShapeCursor`'s serving half (`begin_block`) runs the whole shape
+    at once and returns None, so the serve loop retires the slot with the
+    results at its first step; they equal `execute`'s."""
+    q = tiny.queries[0]
+    join_q = type(q)(select=q.select, patterns=q.patterns, spatial=q.spatial,
+                     ranking=None, k=q.k)
+    eng = StreakEngine(tiny.store, device="cpu")
+    cur = eng.cursor(join_q)
+    assert cur.begin_block() is None and cur.done
+    with pytest.raises(RuntimeError):
+        cur.finish_block(None)
+    scores, rows, _ = eng.execute(join_q)
+    got_scores, got_rows, _ = cur.results()
+    np.testing.assert_array_equal(got_scores, scores)
+    assert got_rows.keys() == rows.keys()
+    for name in rows:
+        np.testing.assert_array_equal(got_rows[name], rows[name])
 
 
 def test_public_surface_is_a_subset_of_the_reference():

@@ -4,8 +4,9 @@ kNN, non-top-k spatial join) through `StreakEngine.execute`.
 The twin of `tests/test_shapes.py` for the port: the same queries over the
 same `make_lgd` data go through the reference's engine and the port's on
 ``device="cpu"`` (kernel backends there run their plain torch versions),
-and scores, rows, row order and statistics must be equal. The sharded,
-serve-loop and packed E-list cases wait for the port's later slices.
+and scores, rows, row order and statistics must be equal, through `execute` and through the serving
+loop. The sharded and packed E-list cases wait for the port's later
+slices.
 """
 import dataclasses
 
@@ -274,3 +275,42 @@ def test_mbr_join_zero_area_boxes_zero_dist(backend):
     other = np.array([[0.25, 0.5, 0.25, 0.5], [0.7, 0.7, 0.7, 0.7]])
     i, j = port_sj.mbr_distance_join(pt, other, 0.0, backend, device="cpu")
     assert i.tolist() == [0] and j.tolist() == [0]
+
+
+# ----------------------------------------------------- serve-loop adapter --
+def test_shapes_through_serve_loop_match_serial(ds):
+    """Range, within, join and kNN(4) beside a top-k tenant through the
+    serving loop: each request equal to the port's serial run and to the
+    reference's serve, the loop's counters too."""
+    from repro.serve import spatial as ref_serve
+    from repro_torch.serve import spatial as port_serve
+    runs = []
+    for pkg, mod, d, kw in ((repro, ref_serve, ds[0], {}),
+                            (repro_torch, port_serve, ds[1],
+                             dict(device="cpu"))):
+        queries = []
+        for name in ("range", "within", "join", "knn4"):
+            spatial_kw = dict(SHAPES[name])
+            spatial_kw["a"] = pkg.Var(spatial_kw["a"])
+            if spatial_kw["b"] is not None:
+                spatial_kw["b"] = pkg.Var(spatial_kw["b"])
+            queries.append(_shape_query(pkg, d, spatial_kw))
+        queries.append(d.queries[0])            # a top-k companion tenant
+        srv = mod.SpatialServeEngine(d.store, pkg.ExecConfig(), max_slots=3,
+                                     **kw)
+        runs.append((srv, srv.serve(queries), queries))
+    (rsrv, rreqs, _), (psrv, preqs, pqs) = runs
+    assert dataclasses.asdict(psrv.stats) == dataclasses.asdict(rsrv.stats)
+    eng = repro_torch.StreakEngine(ds[1].store, device="cpu")
+    for i, (req, want_req, q) in enumerate(zip(preqs, rreqs, pqs)):
+        assert req.error is None and want_req.error is None
+        want_s, want_r, want_st = eng.execute(q)
+        np.testing.assert_array_equal(req.scores, want_s)
+        assert list(req.rows) == list(want_r)
+        for c in want_r.keys():
+            np.testing.assert_array_equal(req.rows[c], want_r[c])
+        assert dataclasses.asdict(req.stats) == dataclasses.asdict(want_st)
+        pair = ds[1].store if i in (2, 3) else None
+        _assert_same((req.scores, req.rows, req.stats),
+                     (want_req.scores, want_req.rows, want_req.stats),
+                     pair_store=pair)
