@@ -80,9 +80,29 @@ In order it:
    fused launches' rows, columns, qids and splits, then one traced batch
    of each ("serve trace": device busy, idle share, launches a step,
    memcpy);
-7. calls the reference's kernel entry points `ops.block_scan` (64 x 1024)
+7. drives the main path over Morton-prefix sharded stores (`shard_store`:
+   lgd at S = 2, 4, 8 with Q1-Q8, scale1m at S = 4 with Q1-Q2, both joins,
+   the accelerator policy) with the counts set to 0 before and read after:
+   every STREAK kernel launched, every `tree_descend` launch one
+   `ops.tree_descend_sharded` call (one launch over all shards), rows,
+   scores and order equal to the unsharded card run's, lgd at S = 4 equal
+   to its CPU run in full, each shard tree's Bloom banks uploaded at most
+   once; then the serving loop's hotq and mixed traffic on the lgd S = 4
+   store, each request equal to serial execution; every recorded sharded
+   descent replayed bit for bit against its plain version ("case" lines
+   with a "sharded" path: launches, event and trace ms, bound);
+8. the failover layer ("failover" lines): lgd Q1 with each of the seven
+   chained ops failed once and corrupted, answering as the clean run with
+   the plain attempt counted; a delay past an armed watchdog; three
+   exhausted chains opening a breaker that demotes the stage at a
+   `resolve()` under the plan and at none once the plan is gone; launch
+   errors, more than open the kernel's breaker, each propagating with no
+   plain attempt and no demotion.
+   Every other phase ends by requiring the fault layer clean: no plan, no
+   watchdog, every `FaultStats` counter 0, no fallback launch counted;
+9. calls the reference's kernel entry points `ops.block_scan` (64 x 1024)
    and `ops.morton_encode` (1M codes), counts set to 0 before;
-8. drives the dense-LM serving stack at gemma-7b's full width and depth
+10. drives the dense-LM serving stack at gemma-7b's full width and depth
    (random bf16 weights from a seed, 8.54 B parameters): the 4,096-token
    prefill through `forward_with_cache` with the flash kernel (28 launches
    a call), held against the plain path and `forward` + `logits_fn`, with
@@ -90,12 +110,13 @@ In order it:
    `ServeEngine` on the launcher's requests, request 0's decode logits held
    against the full forward over its prefix; then the three dense smoke
    configs (f32) on the card against the CPU;
-9. traces one more pass of each query set on the card: host ms per
+11. traces one more pass of each query set on the card: host ms per
    executor layer, device busy ms (by kind: each kernel, memcpy) and the
    device's idle share; then the LGD and 1M-quad sets (fused join) with
    the rank pass alone on numpy and on its kernel, in turns ("rank turn");
    then the Bloom bank uploads over the run and each pass's memcpy ms;
-10. prints the kernels line (JSON; `serve_launches` beside `launches`),
+12. prints the kernels line (JSON; `serve_launches` and
+   `sharded_launches` beside `launches`, tree_descend's `sharded` figures),
    then the ok line (JSON) last.
 
 Any failed phase raises, so the script exits non-zero without the ok line.
@@ -2025,6 +2046,408 @@ def check_serve(rt, ops, ref, build, spatial_join, ds, cases) -> dict:
                 fused_launches=fused_launches, traces=traces)
 
 
+# ------------------------------------------------- the sharded store ----
+# shard counts per set: lgd at 2, 4 and 8 (Q1-Q8), scale1m at 4 (Q1-Q2)
+SHARD_SETS = {"lgd": (2, 4, 8), "scale1m": (4,)}
+# the sharded lgd store the CPU run, the serving loop and the failover
+# phase use
+SHARD_CHECKED = ("lgd", 4)
+
+
+def sharded_bound(node_keys, cs, box_keys) -> tuple[float, str]:
+    """One sharded descent: the stacked planes, root-path masks and boxes
+    read once, the (S, B, N_max) masks written once; four compares a box
+    test, counted over the S·N_max columns as one launch sees them."""
+    s, _, n = node_keys.shape
+    nb, m = box_keys.shape[0], box_keys.shape[1]
+    tests = descend_tests(node_keys.transpose(0, 1).reshape(4, s * n),
+                          cs.reshape(s * n), box_keys)
+    return bound_ms(4 * s * n * 8 + s * n + nb * m * 32 + nb * s * n,
+                    tests * 4)
+
+
+def require_same_rows_by_name(label: str, scores, rows, want) -> None:
+    """Equal scores and rows, in order, column by column: a sharded run's
+    relation may list its columns in another order than an unsharded
+    one's (as the reference's does)."""
+    ws, wr = want[0], want[1]
+    if not (np.array_equal(scores, ws) and sorted(rows) == sorted(wr)
+            and all(np.array_equal(rows[c], wr[c]) for c in wr)):
+        raise AssertionError(f"{label}: the answer differs")
+
+
+def check_sharded(rt, ops, ref, datasets, unsharded, bank_uploads, dev,
+                  entry, cases) -> dict:
+    """The main path over Morton-prefix sharded stores (`shard_store`):
+    lgd at S = 2, 4, 8 (Q1-Q8) and scale1m at S = 4 (Q1-Q2), both joins,
+    under the accelerator policy, with the counts set to 0 before and read
+    after: every STREAK kernel launched, every `tree_descend` launch one
+    `ops.tree_descend_sharded` call (one launch over all shards); rows,
+    scores and order equal to the unsharded card run's (`unsharded`), and
+    lgd at S = 4 equal to its CPU run in full (plan log and statistics: a
+    sharded run logs one APS decision a shard); every shard tree's Bloom
+    banks uploaded at most once. Then the serving loop's hotq and mixed
+    traffic on the lgd S = 4 store, each request equal to serial CUDA
+    execution, and every recorded sharded descent replayed bit for bit
+    against its plain version ("case" lines with a "sharded" path).
+    Returns the report; `entry` (tree_descend's) gains "sharded"."""
+    import types
+    from repro_torch.core import shard as shard_mod
+    stores, report = {}, dict(stores={})
+    for name, counts in SHARD_SETS.items():
+        ds, n_q = datasets[name]
+        for s in counts:
+            t0 = time.perf_counter()
+            store = shard_mod.shard_store(ds.store, s)
+            sizes = [sh.tree.n_nodes for sh in store.tree_shards]
+            stores[name, s] = types.SimpleNamespace(store=store,
+                                                    queries=ds.queries)
+            report["stores"][f"{name} S={s}"] = dict(
+                build_s=time.perf_counter() - t0, shard_nodes=sizes,
+                shard_tree_bytes=store.shard_tree_nbytes())
+            print(f"shard {name} S={s}: shard trees of {sizes} nodes "
+                  f"({datasets[name][0].store.tree.n_nodes} unsharded), "
+                  f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    recorded: list = []
+    tag: dict = {}
+    sharded_descend = ops.tree_descend_sharded
+
+    def recording(node_keys, cs, box_keys):
+        out = sharded_descend(node_keys, cs, box_keys)
+        recorded.append((tag["set"], node_keys, cs.clone(), box_keys.clone()))
+        return out
+
+    runs = {}
+    ops.tree_descend_sharded = recording
+    try:
+        ops.reset_launch_counts()
+        for (name, s), sds in stores.items():
+            for join in ("fused", "kernel"):
+                tag["set"] = f"{name} S={s}"
+                runs[name, s, join] = run_queries(
+                    rt, {name: (sds, datasets[name][1])}, join, "cuda")
+        launches = dict(ops.LAUNCHES)
+    finally:
+        ops.tree_descend_sharded = sharded_descend
+    require_launched("the sharded path", launches, STREAK_KERNELS)
+    if launches["tree_descend"] != len(recorded) or not recorded:
+        raise AssertionError(
+            f"sharded path: {launches['tree_descend']} tree_descend launches "
+            f"for {len(recorded)} sharded descents: not one launch a call")
+    for (name, s, join), got in runs.items():
+        for key, (res, _) in got.items():
+            scores, rows, _ = res
+            if not np.isfinite(scores).all():
+                raise AssertionError(f"sharded {name} S={s} {join} {key}: "
+                                     "malformed answer")
+            require_same_rows_by_name(
+                f"sharded {name} S={s} {join} Q{key[1] + 1} vs unsharded",
+                scores, rows, unsharded[join][key][0])
+    name, s = SHARD_CHECKED
+    for join in ("fused", "kernel"):
+        check_answers(f"sharded {name} S={s} {join}", runs[name, s, join],
+                      run_queries(rt, {name: (stores[name, s],
+                                              datasets[name][1])},
+                                  join, "cpu"))
+    uploads = {}
+    for (name, s), sds in stores.items():
+        for si, sh in enumerate(sds.store.tree_shards):
+            for which in ("self", "in", "out"):
+                bank = getattr(sh.tree, f"bloom_{which}")
+                uploads[f"{name} S={s} shard {si} {which}"] = bank_uploads[
+                    id(bank.bits), dev.type]
+    if max(uploads.values()) > 1 or not any(uploads.values()):
+        raise AssertionError(f"sharded Bloom banks: uploads {uploads}, not "
+                             "one a bank probed")
+    print("sharded bloom bank uploads " + json.dumps(uploads), flush=True)
+    shapes = collections.Counter(
+        (nk.shape[0], b.shape[0], b.shape[1], nk.shape[2])
+        for _, nk, _, b in recorded)
+    print(f"sharded descents on the path: {len(recorded)}; (S, B, M, N_max) "
+          f"{sorted(shapes.items())}", flush=True)
+    report.update(launches={n: launches[n] for n in STREAK_KERNELS},
+                  clean_q1=runs["lgd", 4, "fused"]["lgd", 0][0],
+                  descents=len(recorded), bloom_uploads=uploads,
+                  descent_shapes=[[*k, v] for k, v in sorted(shapes.items())])
+
+    # the serving loop on the lgd S = 4 store
+    sds = stores[SHARD_CHECKED]
+    lgd = datasets["lgd"][0]
+    ops.reset_launch_counts()
+    served = {(policy, mix): serve_batch(rt, sds, policy, queries, "cuda")
+              for policy in SERVE_POLICIES
+              for mix, queries in serve_mixes(sds).items()}
+    serve_launches = {n: ops.LAUNCHES[n] for n in STREAK_KERNELS}
+    require_launched("the serving loop on a sharded store", serve_launches,
+                     STREAK_KERNELS)
+    for (policy, mix), (srv, reqs) in served.items():
+        label = f"sharded serve {policy} {mix}"
+        require_clean_serve(label, srv, reqs)
+        serial = rt.StreakEngine(lgd.store, serve_config(rt, policy),
+                                 device="cuda")
+        for req in reqs:
+            require_same_rows_by_name(f"{label} #{req.rid} vs serial",
+                                      req.scores, req.rows,
+                                      serial.execute(req.query))
+        print(f"{label}: {len(reqs)} requests = serial (unsharded); stats "
+              f"{json.dumps(dataclasses.asdict(srv.stats))}", flush=True)
+    report["serve_launches"] = serve_launches
+
+    launches_in = []
+    for label, nk, cs, b in recorded:
+        args = (nk, cs, b)
+        launches_in.append(dict(
+            set=label, shape=f"S={nk.shape[0]} B={b.shape[0]} "
+            f"M={b.shape[1]} N_max={nk.shape[2]}",
+            kernel=lambda a=args: ops.tree_descend_sharded(*a),
+            plain=lambda a=args: ref.tree_descend_sharded_ref(*a),
+            bound=sharded_bound(*args)))
+    groups = {f"sharded {k}": [r for r in launches_in if r["set"] == k]
+              for k in dict.fromkeys(r["set"] for r in launches_in)}
+    groups["sharded all"] = launches_in
+    n_cases = len(cases)
+    check_path_replays("tree_descend", "tree_descend_kernel", launches_in,
+                       None, cases, groups=groups)
+    # the trace of a whole replay sequence may miss spans: the median launch
+    # of each group is traced alone too, the mean over the spans the trace
+    # holds, with their count, beside its events
+    medians = {}
+    for label, rs in groups.items():
+        med = sorted(rs, key=lambda r: r["event_ms"])[len(rs) // 2]
+        trace_ms, spans = traced_spans(med["kernel"], "tree_descend_kernel",
+                                       20)
+        medians[label] = dict(shape=med["shape"], launches=len(rs),
+                              trace_ms=trace_ms, trace_spans=spans,
+                              trace_spans_expected=20,
+                              event_ms=event_ms(med["kernel"]),
+                              bound_ms=med["bound"][0],
+                              bound_by=med["bound"][1])
+        print(f"sharded descent median {label}: "
+              + json.dumps(medians[label]), flush=True)
+    summary = next(c for c in cases[n_cases:]
+                   if c.get("path") == "sharded all")
+    entry["sharded"] = {k: summary[k] for k in (
+        "launches", "event_ms_sum", "device_ms_sum", "bound_ms_sum",
+        "median_shape", "median_event_ms", "median_device_ms",
+        "median_call_ms", "median_plain_ms", "median_bound_ms",
+        "median_bound_by")}
+    entry["sharded"]["medians"] = medians
+    report["tree_descend"] = entry["sharded"]
+    report["turns"] = sharded_turns(rt, datasets["lgd"][0], stores)
+    return report
+
+
+def traced_spans(fn, symbol: str, reps: int) -> tuple[float | None, int]:
+    """(mean device ms of the spans of kernels named `symbol` that a trace
+    of `reps` calls of `fn` holds, how many it holds): unlike `device_ms`,
+    a span the trace misses does not lower the mean."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [stop - start for start, stop, name in device_spans(prof)
+             if symbol in name]
+    return (sum(spans) / len(spans) / 1e3 if spans else None), len(spans)
+
+
+def sharded_turns(rt, lgd, stores) -> list:
+    """Host wall ms of lgd Q1-Q8 (fused join, accelerator policy, a fresh
+    engine a pass, untraced, ending in a synchronise) over the unsharded
+    store (S = 1) and the sharded ones, in turns (1, 2, 4, 8, 8, 4, 2, 1).
+    Taken after the profiler sessions of the earlier phases, which make
+    every CUDA call of the process cost more on the host, for both sides
+    alike."""
+    rows = []
+    for s in (1, 2, 4, 8, 8, 4, 2, 1):
+        store = lgd.store if s == 1 else stores["lgd", s].store
+        eng = rt.StreakEngine(store, rt.ExecConfig(policy=rt.BackendPolicy(
+            join="fused", **SLICE_POLICY)), device="cuda")
+        t0 = time.perf_counter()
+        for q in lgd.queries:
+            eng.execute(q)
+        torch.cuda.synchronize()
+        rows.append(dict(S=s, wall_ms=(time.perf_counter() - t0) * 1e3))
+    print("sharded turns " + json.dumps(rows), flush=True)
+    return rows
+
+
+# ------------------------------------------------------ the failover layer --
+# each chained op with the join whose lgd Q1 run dispatches it under the
+# accelerator policy, the shard count of its store and the attempt that
+# takes over from the kernel
+FAILOVER_OPS = {
+    "distance_join_matrix": ("kernel", 1, "plain"),
+    "fused_topk_join": ("fused", 1, "plain"),
+    "bucketed_min_core": ("fused", 1, "plain"),
+    "merge_join_ranks": ("fused", 1, "plain"),
+    "tree_descend": ("fused", 1, "plain"),
+    "bloom_probe": ("fused", 1, "plain"),
+    "tree_descend_sharded": ("fused", 4, "sequential"),
+}
+
+
+def require_clean_fault_layer(fault, ops, label: str) -> None:
+    """No plan installed, no watchdog armed, every `FaultStats` counter 0
+    and no fallback attempt counted in `ops.LAUNCHES`: outside the failover
+    phase nothing may fail over, and nothing may fail."""
+    stats = {k: v for k, v in dataclasses.asdict(fault.STATE.stats).items()
+             if v}
+    fallbacks = {k: v for k, v in ops.LAUNCHES.items() if ":" in k and v}
+    if fault.STATE.plan is not None or fault.STATE.watchdog_s is not None \
+            or stats or fallbacks:
+        raise AssertionError(
+            f"{label}: the fault layer is not clean: plan "
+            f"{fault.STATE.plan}, watchdog {fault.STATE.watchdog_s}, "
+            f"counters {stats}, fallback launches {fallbacks}")
+
+
+def check_failover(rt, ops, fault, lgd, clean, dev) -> list:
+    """The fault layer on the card, over lgd Q1 under the accelerator
+    policy: each chained op failed once (`FaultRule(op, call=0)`) and
+    corrupted once must answer as the clean run (`clean`: {(join, shards):
+    answer}), with a fallback counted and the plain attempt in
+    `ops.LAUNCHES`, the corruption detected; a delay under an armed
+    watchdog times out and recovers; three exhausted chains open a breaker
+    and demote the stage at a `resolve()` under the plan, and at none
+    after it; launch errors (outside the fault classes), more than open
+    the kernel's breaker, propagate with no plain attempt and no demotion.
+    Ends with the fault layer reset."""
+    from repro_torch.core import shard as shard_mod
+    stores = {1: lgd.store, 4: shard_mod.shard_store(lgd.store, 4)}
+    q = lgd.queries[0]
+
+    def run(join, shards):
+        eng = rt.StreakEngine(stores[shards], rt.ExecConfig(
+            policy=rt.BackendPolicy(join=join, **SLICE_POLICY)),
+            device="cuda")
+        res = eng.execute(q)
+        torch.cuda.synchronize()
+        return res
+
+    rows = []
+    for op, (join, shards, takeover) in FAILOVER_OPS.items():
+        # a corruption of every call: one with an empty result (a pair call
+        # with no pairs) has nothing to poison
+        for rule in (dict(call=0), dict(mode="corrupt")):
+            fault.STATE.reset()
+            ops.reset_launch_counts()
+            plan = fault.FaultPlan(rules=(fault.FaultRule(op=op, **rule),))
+            t0 = time.perf_counter()
+            with fault.fault_plan(plan):
+                res = run(join, shards)
+            ms = (time.perf_counter() - t0) * 1e3
+            st = fault.STATE.stats
+            key = f"{op}:{takeover}"
+            row = dict(op=op, mode=rule.get("mode", "fail"),
+                       injected=plan.injected, calls=plan.calls.get(op, 0),
+                       fallbacks=st.fallbacks,
+                       corruptions=st.corruptions_detected,
+                       takeover_launches=ops.LAUNCHES.get(key, 0), ms=ms)
+            print("failover " + json.dumps(row), flush=True)
+            if not same_answer(res, clean[join, shards]):
+                raise AssertionError(f"failover {op} {row['mode']}: the "
+                                     "answer differs from the clean run")
+            if plan.injected < 1 or st.fallbacks < 1 \
+                    or row["takeover_launches"] < 1 or (
+                        row["mode"] == "corrupt"
+                        and st.corruptions_detected < 1):
+                raise AssertionError(f"failover {op}: {row}")
+            rows.append(row)
+
+    # a delay past an armed watchdog times out; the plain version answers
+    fault.STATE.reset()
+    ops.reset_launch_counts()
+    plan = fault.FaultPlan(rules=(fault.FaultRule(
+        op="fused_topk_join", call=0, mode="delay", delay_s=1.0),))
+    with fault.fault_plan(plan), fault.watchdog(0.25):
+        res = run("fused", 1)
+    row = dict(op="fused_topk_join", mode="delay", injected=plan.injected,
+               timeouts=fault.STATE.stats.timeouts,
+               takeover_launches=ops.LAUNCHES.get("fused_topk_join:plain", 0))
+    if not fault.STATE.join_abandoned(timeout=60):
+        raise AssertionError("failover: an abandoned attempt never ended")
+    print("failover " + json.dumps(row), flush=True)
+    if not (same_answer(res, clean["fused", 1]) and row["timeouts"] >= 1
+            and row["takeover_launches"] >= 1):
+        raise AssertionError(f"failover watchdog: {row}")
+    rows.append(row)
+
+    # three exhausted chains open the kernel's breaker; resolve() demotes
+    fault.STATE.reset()
+    node_keys = torch.zeros((4, 64), dtype=torch.int64, device=dev)
+    cs = torch.ones(64, dtype=torch.bool, device=dev)
+    boxes = torch.zeros((2, 8, 4), dtype=torch.int64, device=dev)
+    with fault.fault_plan(fault.FaultPlan(rules=(
+            fault.FaultRule(op="tree_descend", attempts=99),))):
+        for _ in range(fault.STATE.breaker_threshold):
+            try:
+                ops.tree_descend(node_keys, cs, boxes)
+            except fault.FallbackExhausted:
+                continue
+            raise AssertionError("failover: an exhausted chain answered")
+        demoted = rt.BackendPolicy(**SLICE_POLICY).resolve()
+    # with the plan gone, the open breaker reroutes nothing
+    idle = rt.BackendPolicy(**SLICE_POLICY).resolve()
+    row = dict(op="tree_descend", mode="breaker",
+               breaker_open=fault.STATE.breaker("tree_descend", "kernel").open,
+               descend=demoted.descend, probe=demoted.probe,
+               descend_with_no_plan=idle.descend,
+               policy_demotions=fault.STATE.stats.policy_demotions)
+    print("failover " + json.dumps(row), flush=True)
+    if not (row["breaker_open"] and demoted.descend == "numpy"
+            and demoted.probe == "kernel" and idle.descend == "kernel"
+            and row["policy_demotions"] == 1):
+        raise AssertionError(f"failover breaker: {row}")
+    rows.append(row)
+
+    # a launch error is no fault of the fault layer's: it propagates, and
+    # no plain attempt runs, plan or no plan
+    fault.STATE.reset()
+    ops.reset_launch_counts()
+    launcher = ops._build.launcher
+
+    def failing(name):
+        return (lambda *args: 700) if name == "tree_descend" \
+            else launcher(name)
+    ops._build.launcher = failing
+    raised = []
+    try:
+        # under an empty plan, then with none: more launch errors than open
+        # the kernel's breaker, and still no call leaves the kernel
+        for plan, n in ((fault.FaultPlan(), 1),
+                        (None, fault.STATE.breaker_threshold)):
+            with fault.fault_plan(plan):
+                for call in ([lambda: ops.tree_descend(node_keys, cs, boxes)]
+                             * n + [lambda: run("fused", 1)]):
+                    try:
+                        call()
+                    except RuntimeError as e:
+                        raised.append(type(e).__name__ + ": " + str(e))
+        idle = rt.BackendPolicy(**SLICE_POLICY).resolve()
+    finally:
+        ops._build.launcher = launcher
+    row = dict(op="tree_descend", mode="launch error", raised=raised,
+               breaker_open=fault.STATE.breaker("tree_descend", "kernel").open,
+               descend=idle.descend,
+               policy_demotions=fault.STATE.stats.policy_demotions,
+               fallbacks=fault.STATE.stats.fallbacks,
+               plain_launches=ops.LAUNCHES.get("tree_descend:plain", 0))
+    print("failover " + json.dumps(row), flush=True)
+    if len(raised) != 3 + fault.STATE.breaker_threshold \
+            or not all(r.startswith("RuntimeError") and "error 700" in r
+                       for r in raised) \
+            or not row["breaker_open"] or idle.descend != "kernel" \
+            or row["policy_demotions"] or row["fallbacks"] \
+            or row["plain_launches"]:
+        raise AssertionError(f"failover launch error: {row}")
+    rows.append(row)
+    fault.STATE.reset()
+    ops.reset_launch_counts()
+    return rows
+
 # ------------------------------------------------- the LM serving stack --
 # Full-width gemma-7b (bf16) agreements are held to a relative RMS error,
 # ||got - want|| / ||want|| over all elements, of at most LM_REL_TOL; see
@@ -2365,7 +2788,7 @@ def main() -> None:
         sys.exit("chip_smoke: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False      # f32 means f32
     import repro_torch as rt
-    from repro_torch.core import spatial_join
+    from repro_torch.core import fault, spatial_join
     from repro_torch.data import synth_rdf
     from repro_torch.kernels import _build, ops, ref
 
@@ -2382,6 +2805,8 @@ def main() -> None:
     def phase_done(name: str, t0: float) -> None:
         phase_s[name] = time.perf_counter() - t0
         print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
+        if name != "failover":
+            require_clean_fault_layer(fault, ops, f"phase {name}")
 
     # Bloom bank uploads over the whole run, by bank and device type
     bank_uploads: collections.Counter = collections.Counter()
@@ -2595,6 +3020,21 @@ def main() -> None:
     serve = check_serve(rt, ops, ref, _build, spatial_join, lgd, cases)
     phase_done("spatial serve", t0)
 
+    # ---- the main path over Morton-prefix sharded stores -----------------
+    t0 = time.perf_counter()
+    sharded = check_sharded(rt, ops, ref, datasets, cuda_runs, bank_uploads,
+                            dev, entries["tree_descend"], cases)
+    phase_done("sharded", t0)
+
+    # ---- the failover layer around every chained op -----------------------
+    t0 = time.perf_counter()
+    clean = {("fused", 1): cuda_runs["fused"]["lgd", 0][0],
+             ("kernel", 1): cuda_runs["kernel"]["lgd", 0][0],
+             ("fused", 4): sharded.pop("clean_q1")}
+    failover = check_failover(rt, ops, fault, lgd, clean, dev)
+    phase_done("failover", t0)
+    require_clean_fault_layer(fault, ops, "after the failover phase")
+
     # ---- the reference's kernel entry points (ops.block_scan, morton) ----
     t0 = time.perf_counter()
     scores = torch.from_numpy(np.random.default_rng(9).normal(
@@ -2665,7 +3105,8 @@ def main() -> None:
                      **{n: ops_launches[n] for n in OPS_KERNELS},
                      "flash_attention": prefill["flash_launches_per_call"]}
     kernels = [dict(entries[n], launches=path_launches[n], match=True,
-                    serve_launches=serve["launches"].get(n, 0))
+                    serve_launches=serve["launches"].get(n, 0),
+                    sharded_launches=sharded["launches"].get(n, 0))
                for n in _build.KERNELS]
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -2678,6 +3119,7 @@ def main() -> None:
             descend_call_shapes=descend_shapes, traces=traces,
             rank_turns=rank_turns,
             ops_launches=ops_launches, spatial_serve=serve,
+            sharded=sharded, failover=failover,
             serve_turns=serve_times, lm_prefill=prefill, lm_serve=lm_serve,
             lm_smoke_cuda_vs_cpu=smoke_lms, phase_seconds=phase_s),
             indent=1))

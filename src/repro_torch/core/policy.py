@@ -55,19 +55,31 @@ class BackendPolicy:
 
         Returns a policy with no "auto" left (idempotent). Raises ValueError
         naming the stage on any unknown backend.
+
+        Resolution also consults the fault layer's circuit breakers
+        (core/fault.demote_stage): while a fault plan is installed or a
+        watchdog armed, a stage whose resolved backend sits on a
+        breaker-open op resolves to its safe fallback here, at plan time,
+        counted in `FaultStats.policy_demotions`. Otherwise (the normal
+        case) demotion is a no-op, so a kernel stage never moves to the
+        host behind the caller's back.
         """
         from ..kernels import ops
-        from . import charsets, spatial_join, squadtree
+        from . import charsets, fault, spatial_join, squadtree
         from .join import resolve_join_impl
 
         if self.kcap not in KCAP_MODES:
             raise ValueError(f"unknown kcap mode {self.kcap!r} "
                              f"(expected one of {KCAP_MODES})")
         return BackendPolicy(
-            join=spatial_join.resolve_join_backend(self.join),
+            join=fault.demote_stage(
+                "join", spatial_join.resolve_join_backend(self.join)),
             impl=resolve_join_impl(self.impl),
-            rank=ops.resolve_rank_backend(self.rank),
-            probe=charsets.resolve_probe_backend(self.probe),
-            descend=squadtree.resolve_descend_backend(self.descend),
+            rank=fault.demote_stage(
+                "rank", ops.resolve_rank_backend(self.rank)),
+            probe=fault.demote_stage(
+                "probe", charsets.resolve_probe_backend(self.probe)),
+            descend=fault.demote_stage(
+                "descend", squadtree.resolve_descend_backend(self.descend)),
             kcap=self.kcap,
         )

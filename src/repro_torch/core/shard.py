@@ -1,9 +1,21 @@
-"""Shard views of the S-QuadTree store for the per-block Phases 1–2.
+"""Morton-prefix sharding of the S-QuadTree store.
 
-This slice of the port runs unsharded stores only: `shard_views` and
-`whole_view` give the executor one view of the store's tree, and
-`sip_select` runs Phases 1+2 over the views. Morton-prefix sharding
-(`ShardedQuadStore`, `shard_store`) is a later slice of the port.
+The object SoA of an `SQuadTree` is sorted by (S, Z, I, L) id, and the id
+codec makes any subtree one contiguous id interval, so any contiguous split
+of the sorted object array is a set of Morton-prefix ranges, and each range
+rebuilds into a self-contained per-shard `SQuadTree` that keeps the GLOBAL
+ids (`build(oids=...)`). Phases 1-2 then run per shard: candidate search and
+node selection against the shard's own (smaller) tree, SIP filter material
+clipped to the shard's id range so the per-shard driven retrievals
+partition the result set exactly. The union over shards equals the
+unsharded engine's answer, and the global θ read between shard passes
+prunes later shards (the θ bound is exact).
+
+The fused descent stacks every shard's node planes into ONE
+`ops.tree_descend_sharded` call: on one CUDA device, one launch of the
+descent kernel over the S x N_max node columns (the reference lays the
+shard axis over a device mesh with `shard_map`; placing shards on several
+CUDA devices is not done here).
 """
 from __future__ import annotations
 
@@ -12,34 +24,216 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import node_select
-from .squadtree import SQuadTree
-from .store import QuadStore
+from ..kernels import ops
+from . import geometry, node_select, squadtree
+from .squadtree import SQuadTree, build as build_tree
+from .store import QuadStore, _entity_cs_csr, _sorted_lut, lut_get
 
 
 @dataclasses.dataclass
 class TreeShard:
-    """One shard's tree. Every store of this slice is unsharded, so the one
-    view covers the whole id space and its SIP filter material passes
-    through untouched; clipping the I-Range intervals to a shard's id range
-    comes with the sharded store."""
+    """One shard's tree plus the closed global-id range it owns.
+
+    `filter_material` clips the I-Range intervals to [id_lo, id_hi]: a
+    shard tree's upper nodes (root included) span the whole id space, so
+    without the clip two shards would both emit the driven rows of ids
+    they don't own and the union would double-count. E-list ids need no
+    clip: shard E-lists are built from shard-owned objects only.
+
+    ``clip=False`` marks the single view over an unsharded store: filter
+    material passes through untouched.
+    """
     tree: SQuadTree
+    id_lo: int = 0
+    id_hi: int = 0
+    clip: bool = True
 
     def filter_material(self, v_star: np.ndarray
                         ) -> tuple[np.ndarray, np.ndarray]:
-        return self.tree.filter_material(v_star)
+        intervals, explicit = self.tree.filter_material(v_star)
+        if self.clip and len(intervals):
+            lo = np.maximum(intervals[:, 0], self.id_lo)
+            hi = np.minimum(intervals[:, 1], self.id_hi)
+            keep = lo <= hi
+            intervals = np.stack([lo[keep], hi[keep]], axis=1)
+        return intervals, explicit
 
 
-def shard_views(store: QuadStore) -> list[TreeShard]:
-    """The store's shard list: a single view, as every store of this slice
-    is unsharded."""
-    return [TreeShard(store.tree)]
+class ShardSet(tuple):
+    """A sharded store's fixed shards, with the stacked descent planes made
+    from them once per device (`planes`, filled by `stacked_node_planes`)."""
+
+    def __new__(cls, shards=()):
+        self = super().__new__(cls, shards)
+        self.planes = {}
+        return self
+
+
+def shard_views(store: QuadStore) -> ShardSet | list[TreeShard]:
+    """The store's shard set; a single no-clip view for unsharded stores."""
+    shards = getattr(store, "tree_shards", None)
+    if shards:
+        return shards
+    return [TreeShard(store.tree, clip=False)]
 
 
 def whole_view(store: QuadStore) -> list[TreeShard]:
     """Single global-tree view (the SIP-disabled path: with no interval
     filtering, per-shard retrieval would replicate the driven side)."""
-    return [TreeShard(store.tree)]
+    return [TreeShard(store.tree, clip=False)]
+
+
+@dataclasses.dataclass
+class ShardedQuadStore(QuadStore):
+    """A QuadStore whose SQuadTree is partitioned by Morton-prefix range.
+
+    The global `tree` is retained for id-keyed lookups that are not part
+    of the per-shard Phase 1-2 sweep (`spatial_box_of`, `geom_rows`, the
+    geometry pool rows); `tree_shards` carries the per-shard trees the
+    executor iterates. Each shard tree has its own device copies (Bloom
+    banks, node key planes), made at its first use on a device, and the
+    shard set keeps the stacked descent planes of all its trees.
+    """
+    tree_shards: ShardSet = dataclasses.field(default_factory=ShardSet)
+
+    def __post_init__(self):
+        self.tree_shards = ShardSet(self.tree_shards)
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.tree_shards)
+
+    def shard_tree_nbytes(self) -> int:
+        return sum(sh.tree.nbytes() for sh in self.tree_shards)
+
+
+def shard_store(store: QuadStore, n_shards: int,
+                leaf_capacity: int = 64,
+                compressed: bool = True) -> ShardedQuadStore:
+    """Partition `store` into `n_shards` contiguous Morton-prefix ranges.
+
+    Each shard rebuilds a plain `SQuadTree` over its object slice with the
+    precomputed GLOBAL ids and the global extent/l_max/Bloom geometry, so
+    id-interval semantics (and the one shared `PreparedKeys`) carry over
+    unchanged. Per-entity in/out characteristic sets are recomputed from
+    the remapped quads; the remap is bijective, so the sets equal the
+    build-time ones. ``compressed`` packs each shard's E-list tier
+    (`SQuadTree.pack_elists`).
+
+    Shards are equal-object-count splits; empty ranges (more shards than
+    objects) are dropped. The sharded store shares the unsharded store's
+    arrays, global tree included; the shard trees are new objects, so none
+    of their device copies aliases the global tree's.
+    """
+    tree = store.tree
+    if tree is None:
+        raise ValueError("cannot shard a store with no spatial index")
+    m = tree.n_objects
+    n_shards = max(1, int(n_shards))
+    bounds = [round(i * m / n_shards) for i in range(n_shards + 1)]
+    cs_keys, cs_vals = _sorted_lut(store.cs_of_entity)
+    bank = tree.bloom_self
+    shards: list[TreeShard] = []
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        if b <= a:
+            continue
+        oids = tree.obj_ids[a:b]
+        cs_self = lut_get(cs_keys, cs_vals, oids)
+        cs_in, cs_out = _entity_cs_csr(store.quads, oids, cs_keys, cs_vals)
+        sub = build_tree(
+            tree.obj_entity[a:b], tree.obj_mbr[a:b], cs_self,
+            cs_in=cs_in, cs_out=cs_out,
+            extent=tree.extent, l_max=tree.l_max,
+            leaf_capacity=leaf_capacity,
+            bloom_words=bank.nbits // 32, bloom_k=bank.k,
+            oids=oids, boxes_normalized=True, compressed=compressed)
+        shards.append(TreeShard(sub, id_lo=int(oids[0]), id_hi=int(oids[-1])))
+    fields = {f.name: getattr(store, f.name)
+              for f in dataclasses.fields(QuadStore)}
+    return ShardedQuadStore(**fields, tree_shards=shards)
+
+
+# ---------------------------------------------------------------------------
+# Sharded Phases 1-2
+# ---------------------------------------------------------------------------
+
+def stacked_node_planes(shards: ShardSet, device: torch.device
+                        ) -> torch.Tensor:
+    """Every shard's node key planes stacked for `ops.tree_descend_sharded`:
+    (S, 4, N_max) int64 on `device`, pad columns `DESCEND_PAD_BOX`, as a
+    transposed view of one contiguous (4, S, N_max) tensor, so the kernel
+    reads them without a copy. The trees are immutable: built and uploaded
+    once per shard set and device, kept in `shards.planes`."""
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    planes = shards.planes.get(device)
+    if planes is None:
+        n_max = max(sh.tree.n_nodes for sh in shards)
+        host = np.empty((4, len(shards), n_max), dtype=np.int64)
+        host[:] = ops.DESCEND_PAD_BOX[:, None, None]
+        for si, sh in enumerate(shards):
+            host[:, si, :sh.tree.n_nodes] = ops.f64_sort_keys(
+                np.ascontiguousarray(sh.tree.node_mbr.T))
+        planes = shards.planes[device] = torch.from_numpy(host).to(device)
+    return planes.transpose(0, 1)
+
+
+def candidate_nodes_sharded(shards: list[TreeShard], box_sets, dist_norm,
+                            driven_cs: np.ndarray,
+                            prepared=None, probe_backend=None,
+                            descend_backend=None,
+                            cs_paths: list | None = None,
+                            device: torch.device | str | None = None
+                            ) -> list[np.ndarray]:
+    """Per-shard Phase-1 candidate masks for one shared CS set.
+
+    Returns a list aligned with `shards` of (B, N_s) bool masks. The host
+    frontier route (and a single shard) loops shards, each batched over
+    blocks; the kernel route stacks every shard's node planes into ONE
+    `ops.tree_descend_sharded` call on `device` (its chain's fallback is a
+    per-shard loop). Both give the masks each shard's `candidate_nodes`
+    gives alone.
+    """
+    driven_cs = np.asarray(driven_cs, dtype=np.int64)
+    dback = squadtree.resolve_descend_backend(descend_backend)
+    if cs_paths is None:
+        cs_paths = [None] * len(shards)
+    if dback == "numpy" or len(shards) == 1:
+        return [sh.tree.candidate_nodes(
+                    box_sets, dist_norm, driven_cs, prepared=prepared,
+                    probe_backend=probe_backend, descend_backend=dback,
+                    cs_path=cs_paths[si], device=device)
+                for si, sh in enumerate(shards)]
+    if device is None:
+        raise ValueError("the fused descent needs a device")
+    device = torch.device(device)
+    boxes = squadtree._pad_box_sets(box_sets)
+    n_b = len(boxes)
+    sizes = [sh.tree.n_nodes for sh in shards]
+    if not (n_b and len(driven_cs) and boxes.shape[1]):
+        return [np.zeros((n_b, n), dtype=bool) for n in sizes]
+    paths = [cs_paths[si] if cs_paths[si] is not None
+             else sh.tree.cs_path_mask(driven_cs, prepared=prepared,
+                                       probe_backend=probe_backend,
+                                       device=device)
+             for si, sh in enumerate(shards)]
+    cs_stack = np.zeros((len(shards), max(sizes)), dtype=bool)
+    for si, path in enumerate(paths):
+        cs_stack[si, :sizes[si]] = path
+    d = (dist_norm if np.ndim(dist_norm) == 0
+         else np.asarray(dist_norm, dtype=np.float64)[:, None])
+    expanded = geometry.expand_boxes(boxes, d)
+    keys = ops.f64_sort_keys(expanded)
+    pad = ~np.isfinite(boxes[..., 0])
+    if pad.any():
+        keys[pad] = ops.DESCEND_PAD_BOX
+    if not isinstance(shards, ShardSet):
+        shards = ShardSet(shards)
+    masks = ops.tree_descend_sharded(
+        stacked_node_planes(shards, device),
+        torch.from_numpy(cs_stack).to(device),
+        torch.from_numpy(keys).to(device)).cpu().numpy()
+    return [masks[si, :, :sizes[si]] for si in range(len(shards))]
 
 
 def sip_select(shards: list[TreeShard], box_sets, dist_norm,
@@ -49,14 +243,10 @@ def sip_select(shards: list[TreeShard], box_sets, dist_norm,
     """Phases 1+2 across shards: candidate masks then the per-shard V*
     selection DP. Returns per-BLOCK lists of per-shard V* arrays (the
     shape `QueryCursor._vstars` stores)."""
-    driven_cs = np.asarray(driven_cs, dtype=np.int64)
-    if cs_paths is None:
-        cs_paths = [None] * len(shards)
-    masks = [sh.tree.candidate_nodes(
-                 box_sets, dist_norm, driven_cs, prepared=prepared,
-                 probe_backend=probe_backend, descend_backend=descend_backend,
-                 cs_path=cs_paths[si], device=device)
-             for si, sh in enumerate(shards)]
+    masks = candidate_nodes_sharded(
+        shards, box_sets, dist_norm, driven_cs, prepared=prepared,
+        probe_backend=probe_backend, descend_backend=descend_backend,
+        cs_paths=cs_paths, device=device)
     per_shard = [node_select.select_batch(sh.tree, masks[si], driven_cs,
                                           params, card_all[si])
                  for si, sh in enumerate(shards)]

@@ -22,8 +22,15 @@ database. The keys (`<part>.<field>`):
 - ``tree.extent`` (4,) f64, scalar ``tree.l_max``, ``tree.<field>`` for
   every array field of `SQuadTree` in `TREE_FIELDS`,
   ``tree.bloom_{self,in,out}.bits`` with scalar ``.k``, and
-  ``tree.cs_stats.{offsets,cs_ids,counts}``. The tree's E-lists are the raw
-  CSR (``tree.elist_ids``), not the packed tier.
+  ``tree.cs_stats.{offsets,cs_ids,counts}``. A tree's E-lists are the raw
+  CSR (``tree.elist_ids``) or, with ``tree.elist_ids`` empty, the packed
+  tier: ``tree.packed.<field>`` for every array of `PACKED_FIELDS` and the
+  scalar ``tree.packed.rank`` (1: the packed values are ranks into the
+  tree's ``obj_ids``, 0: raw ids).
+- a sharded store (`core/shard.ShardedQuadStore`): per shard ``i`` from 0,
+  ``tree_shards.<i>.<...>`` with every ``tree.<...>`` key above but the
+  extent and ``l_max`` (the shards keep the global tree's), and the scalars
+  ``tree_shards.<i>.{id_lo,id_hi}``.
 """
 from __future__ import annotations
 
@@ -33,38 +40,58 @@ import torch
 from .core.charsets import BloomBank, NodeCSStats
 from .core.dictionary import Dictionary
 from .core.geometry import Extent
-from .core.squadtree import SQuadTree
+from .core.shard import ShardedQuadStore, TreeShard
+from .core.squadtree import PackedEList, SQuadTree
 from .core.store import ORDERS, GeomPool, NumericIndex, QuadStore
 
 TREE_FIELDS = ("node_z", "node_level", "node_parent", "node_children",
                "node_cell", "node_mbr", "irange", "n_subtree",
                "elist_offsets", "elist_ids", "obj_ids", "obj_mbr",
                "obj_entity")
+PACKED_FIELDS = ("nodes", "counts", "base", "width", "bit_off", "words")
 
 
 def _csr_split(offsets: np.ndarray, values: np.ndarray) -> list:
     return [values[offsets[i]:offsets[i + 1]] for i in range(len(offsets) - 1)]
 
 
-def _tree_from_state(state: dict) -> SQuadTree | None:
-    if "tree.node_z" not in state:
+def _tree_from_state(state: dict, prefix: str = "tree") -> SQuadTree | None:
+    """The tree under `prefix` (see the module docstring); the extent and
+    ``l_max`` are always the global tree's."""
+    if f"{prefix}.node_z" not in state:
         return None
-    fields = {f: np.asarray(state[f"tree.{f}"]) for f in TREE_FIELDS}
-    banks = {w: BloomBank(np.asarray(state[f"tree.bloom_{w}.bits"],
+    fields = {f: np.asarray(state[f"{prefix}.{f}"]) for f in TREE_FIELDS}
+    banks = {w: BloomBank(np.asarray(state[f"{prefix}.bloom_{w}.bits"],
                                      dtype=np.uint32),
-                          int(state[f"tree.bloom_{w}.k"]))
+                          int(state[f"{prefix}.bloom_{w}.k"]))
              for w in ("self", "in", "out")}
     obj_ids, obj_entity = fields["obj_ids"], fields["obj_entity"]
+    packed = None
+    if f"{prefix}.packed.nodes" in state:
+        packed = PackedEList(
+            **{f: np.asarray(state[f"{prefix}.packed.{f}"])
+               for f in PACKED_FIELDS},
+            src=obj_ids if int(state[f"{prefix}.packed.rank"]) else None)
     return SQuadTree(
         extent=Extent(*(float(v) for v in state["tree.extent"])),
         l_max=int(state["tree.l_max"]),
         bloom_self=banks["self"], bloom_in=banks["in"],
         bloom_out=banks["out"],
-        cs_stats=NodeCSStats(np.asarray(state["tree.cs_stats.offsets"]),
-                             np.asarray(state["tree.cs_stats.cs_ids"]),
-                             np.asarray(state["tree.cs_stats.counts"])),
+        cs_stats=NodeCSStats(
+            *(np.asarray(state[f"{prefix}.cs_stats.{c}"])
+              for c in ("offsets", "cs_ids", "counts"))),
         entity_to_id=dict(zip(obj_entity.tolist(), obj_ids.tolist())),
-        **fields)
+        packed=packed, **fields)
+
+
+def _shards_from_state(state: dict) -> list[TreeShard]:
+    shards = []
+    while f"tree_shards.{len(shards)}.id_lo" in state:
+        prefix = f"tree_shards.{len(shards)}"
+        shards.append(TreeShard(_tree_from_state(state, prefix),
+                                id_lo=int(state[f"{prefix}.id_lo"]),
+                                id_hi=int(state[f"{prefix}.id_hi"])))
+    return shards
 
 
 def _dictionary_from_state(state: dict) -> Dictionary:
@@ -80,7 +107,8 @@ def _dictionary_from_state(state: dict) -> Dictionary:
 
 
 def store_from_state(state: dict) -> QuadStore:
-    """The port's `QuadStore` over the given arrays (see module docstring).
+    """The port's `QuadStore` over the given arrays (see module docstring),
+    a `ShardedQuadStore` where the state holds shards.
 
     Arrays are used as given (no copies), so the caller must not mutate them
     while the store is in use."""
@@ -94,7 +122,9 @@ def store_from_state(state: dict) -> QuadStore:
                            np.asarray(state["cs_catalog.preds"]))
     exact = _csr_split(np.asarray(state["exact_geoms.offsets"]),
                        np.asarray(state["exact_geoms.points"]))
-    return QuadStore(
+    shards = _shards_from_state(state)
+    extra = dict(tree_shards=shards) if shards else {}
+    return (ShardedQuadStore if shards else QuadStore)(
         quads=np.asarray(state["quads"]),
         dictionary=_dictionary_from_state(state),
         indexes={name: np.asarray(state[f"index.{name}"]) for name in ORDERS},
@@ -114,6 +144,7 @@ def store_from_state(state: dict) -> QuadStore:
         block=int(state["block"]),
         _num_ids=np.asarray(state["num_ids"]),
         _num_vals=np.asarray(state["num_vals"]),
+        **extra,
     )
 
 

@@ -5,7 +5,18 @@ and layout, allocates the outputs with `torch.empty`, launches its kernel on
 the current stream (built from `csrc/` at first use, see `_build.py`), raises
 if the launch fails, and adds one to its count in `LAUNCHES`. On CPU tensors
 it runs the kernel's plain torch version from `ref.py`. Tensors on any other
-device raise. There is no fallback from the kernel to the plain version.
+device raise.
+
+The ops the engine calls (`distance_join_pairs`, `fused_topk_join`,
+`bucketed_min_core_group`, `merge_join_ranks`, `tree_descend`,
+`tree_descend_sharded`, `bloom_probe_any`) run through a failover chain
+(`core/fault.run_op`, under the reference's op names, so one `FaultRule`
+targets the same stage in both packages): on CUDA the kernel, then the
+plain version on the same card; on the CPU the plain version, then the same
+function again. A chain moves on only on the fault layer's own failures (an
+injected fault, a watchdog timeout, a detected corruption); every other
+exception, a failed launch included, propagates. A non-primary attempt
+counts in `LAUNCHES` under "<op>:<backend>", never as a kernel launch.
 
 The host-side helpers the kernel paths need (`f64_sort_keys`,
 `DESCEND_PAD_BOX`) live here too, and the calls the engine makes with host
@@ -20,20 +31,81 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import threading
 
 import numpy as np
 import torch
 
+from ..core import fault
 from . import _build, ref
 
-# launches per kernel; only a launch of the CUDA kernel counts
+# launches per kernel; only a launch of the CUDA kernel counts. A chain's
+# non-primary attempts count under "<op>:<backend>" keys, added when one runs
 LAUNCHES = {name: 0 for name in _build.KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for name in list(LAUNCHES):
+        if name in _build.KERNELS:
+            LAUNCHES[name] = 0
+        else:
+            del LAUNCHES[name]
+
+
+def _fallback(op: str, backend: str, fn):
+    """Attempt `backend` of `op`'s chain: `fn`, counted in `LAUNCHES` under
+    "<op>:<backend>" when it returns."""
+    def run():
+        out = fn()
+        key = f"{op}:{backend}"
+        LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
+        return out
+    return run
+
+
+def _chain(op: str, on_cuda: bool, kernel, plain, validate=None):
+    """One call of `op` through its failover chain (core/fault.run_op): on
+    CUDA the kernel, then the plain version on the same card; on the CPU
+    the plain version, then the same function again ("oracle", as the
+    reference retries its jitted oracle)."""
+    attempts = ([("kernel", kernel), ("plain", _fallback(op, "plain", plain))]
+                if on_cuda else
+                [("plain", plain), ("oracle", _fallback(op, "oracle", plain))])
+    return fault.run_op(op, attempts, validate)
+
+
+# structural validators of the chained ops' results (the corrupt-then-detect
+# hook: they run only under an installed FaultPlan)
+def _v_pairs(out, m: int, n: int) -> bool:
+    i, j = out
+    return bool(len(i) == len(j) and (len(i) == 0 or (
+        i.min() >= 0 and i.max() < m and j.min() >= 0 and j.max() < n)))
+
+
+def _v_fused(out, n: int) -> bool:
+    # counts are survivor totals (above k on overflow, the recovery signal),
+    # so their structural bound is the column count
+    scores, _, counts = out
+    return bool(not torch.isnan(scores).any() and (counts >= 0).all()
+                and (counts <= n).all())
+
+
+def _v_min_core(out: torch.Tensor) -> bool:
+    return bool(torch.isfinite(out).all() and (out >= 0).all())
+
+
+def _v_ranks(out, n: int, side: str) -> bool:
+    lo, hi = out if side == "both" else (out, out)
+    return bool((lo >= 0).all() and (hi <= n).all() and (lo <= hi).all())
+
+
+def _v_mask01(out) -> bool:
+    """A bool mask's bytes are all 0 or 1 (a corrupted one holds a 2)."""
+    if isinstance(out, torch.Tensor):
+        return bool(out.numel() == 0 or out.view(torch.uint8).max() <= 1)
+    a = np.asarray(out)
+    return bool(a.size == 0 or a.view(np.uint8).max() <= 1)
 
 
 def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
@@ -124,8 +196,8 @@ def distance_join_pairs(driver, driven, dist: float,
     memory and go up in one copy; the kernel writes the pairs and their
     count into pinned memory, and the host sorts them into row-major order.
     A count above the buffer's capacity grows the buffer and runs the call
-    again (`pair_capacity_retries`). On the CPU the plain version runs."""
-    global pair_capacity_retries
+    again (`pair_capacity_retries`). On the CPU the plain version runs. One
+    call of the "distance_join_matrix" chain."""
     dist32 = np.float32(dist)
     staged = None
     if isinstance(driver, np.ndarray):
@@ -141,16 +213,33 @@ def distance_join_pairs(driver, driven, dist: float,
         if device.type != "cuda":
             driver, driven = (torch.from_numpy(x).to(device) for x in staged)
             staged = None
+    on_cuda = staged is not None or _on_cuda("distance_join", driver, driven)
+    m, n = (len(x) for x in (staged or (driver, driven)))
+    if m == 0 or n == 0:
+        return np.empty(0, np.int64), np.empty(0, np.int64)
+
+    def plain():
+        a, b = ((torch.from_numpy(x).to(device) for x in staged)
+                if staged is not None else (driver, driven))
+        i, j = ref.distance_join_pairs_ref(a, b, dist32)
+        return i.cpu().numpy(), j.cpu().numpy()
+
+    return _chain("distance_join_matrix", on_cuda,
+                  lambda: _pairs_round_trip(driver, driven, staged, dist32,
+                                            device),
+                  plain, functools.partial(_v_pairs, m=m, n=n))
+
+
+def _pairs_round_trip(driver, driven, staged, dist32: np.float32,
+                      device: torch.device) -> tuple[np.ndarray, np.ndarray]:
+    """The pair call's CUDA round trip (see `distance_join_pairs`), on the
+    staged host boxes or on CUDA tensors."""
+    global pair_capacity_retries
     if staged is None:
-        if not _on_cuda("distance_join", driver, driven):
-            i, j = ref.distance_join_pairs_ref(driver, driven, dist32)
-            return i.cpu().numpy(), j.cpu().numpy()
         _check("distance_join", driver, torch.float32, (None, 4), 16)
         _check("distance_join", driven, torch.float32, (None, 4), 16)
         device = driver.device
     m, n = (len(x) for x in (staged or (driver, driven)))
-    if m == 0 or n == 0:
-        return np.empty(0, np.int64), np.empty(0, np.int64)
     if max(m, n) >= 1 << 31 or m * -(-n // _DJ_COLS) >= 1 << 31:
         raise ValueError(f"distance_join_pairs: {m} x {n} exceeds the grid")
     with _staging_lock:
@@ -230,7 +319,7 @@ def fused_topk_join(driver: torch.Tensor, driven: torch.Tensor,
     driver (M, 4) / driven (N, 4) f32 boxes, driver_keys (M,) / driven_keys
     (N,) f32 score-key bounds, per-row dist / theta (M,) f32, optional int32
     query ids (absent = all zero). Returns (scores (M, k) f32, idx (M, k)
-    int32, counts (M,) int32).
+    int32, counts (M,) int32). One call of the "fused_topk_join" chain.
     """
     m, n = driver.shape[0], driven.shape[0]
     dev = driver.device
@@ -240,17 +329,25 @@ def fused_topk_join(driver: torch.Tensor, driven: torch.Tensor,
         col_qid = torch.zeros(n, dtype=torch.int32, device=dev)
     args = (driver, driven, driver_keys, driven_keys, dist, theta,
             row_qid, col_qid)
-    if not _on_cuda("fused_topk_join", *args):
-        return ref.fused_topk_join_ref(*args, k)
+    return _chain("fused_topk_join", _on_cuda("fused_topk_join", *args),
+                  lambda: _fused_launch(args, k),
+                  lambda: ref.fused_topk_join_ref(*args, k),
+                  functools.partial(_v_fused, n=n))
+
+
+def _fused_launch(args: tuple, k: int
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Check the fused join's CUDA inputs and launch its kernel."""
+    driver, driven = args[0], args[1]
+    m, n = driver.shape[0], driven.shape[0]
+    dev = driver.device
     if not 1 <= k <= FUSED_MAX_K:
         raise ValueError(f"fused_topk_join: k={k} outside [1, {FUSED_MAX_K}]")
-    for t, dtype, shape, align in (
-            (driver, torch.float32, (m, 4), 16),
-            (driven, torch.float32, (n, 4), 16),
-            (driver_keys, torch.float32, (m,), 4),
-            (driven_keys, torch.float32, (n,), 4),
-            (dist, torch.float32, (m,), 4), (theta, torch.float32, (m,), 4),
-            (row_qid, torch.int32, (m,), 4), (col_qid, torch.int32, (n,), 4)):
+    for t, (dtype, shape, align) in zip(args, (
+            (torch.float32, (m, 4), 16), (torch.float32, (n, 4), 16),
+            (torch.float32, (m,), 4), (torch.float32, (n,), 4),
+            (torch.float32, (m,), 4), (torch.float32, (m,), 4),
+            (torch.int32, (m,), 4), (torch.int32, (n,), 4))):
         _check("fused_topk_join", t, dtype, shape, align)
     scores = torch.empty((m, k), dtype=torch.float32, device=dev)
     idx = torch.empty((m, k), dtype=torch.int32, device=dev)
@@ -366,13 +463,16 @@ def bucketed_min_core_group(buf: torch.Tensor, group: MinCoreGroup
 
     buf: `group.pack()`'s 1-d f32 buffer, planes filled, on the device
     (one upload). Returns the (group.n_rows,) f32 cores, bucket after
-    bucket (`group.rows(g)`)."""
-    if not _on_cuda("bucketed_min_core", buf):
-        return ref.bucketed_min_core_group_ref(buf, group.desc, group.dims)
-    _check("bucketed_min_core", buf, torch.float32,
-           (group.header + group.n_floats,), 16)
-    return _min_core_launch(buf[:group.header].view(torch.int32),
-                            buf[group.header:], group)
+    bucket (`group.rows(g)`). One call of the "bucketed_min_core" chain."""
+    def kernel():
+        _check("bucketed_min_core", buf, torch.float32,
+               (group.header + group.n_floats,), 16)
+        return _min_core_launch(buf[:group.header].view(torch.int32),
+                                buf[group.header:], group)
+
+    return _chain("bucketed_min_core", _on_cuda("bucketed_min_core", buf),
+                  kernel, lambda: ref.bucketed_min_core_group_ref(
+                      buf, group.desc, group.dims), _v_min_core)
 
 
 def bucketed_min_core(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -426,10 +526,19 @@ def tree_descend(node_keys: torch.Tensor, cs_path: torch.Tensor,
     node_keys (4, N) int64 `f64_sort_keys` planes of the node MBRs (rows
     x0, y0, x2, y3); cs_path (N,) bool root-path Bloom verdicts; box_keys
     (B, M, 4) int64 keys of the expanded driver boxes, padding rows set to
-    `DESCEND_PAD_BOX`. Returns the (B, N) bool candidate masks.
+    `DESCEND_PAD_BOX`. Returns the (B, N) bool candidate masks. One call of
+    the "tree_descend" chain.
     """
-    if not _on_cuda("tree_descend", node_keys, cs_path, box_keys):
-        return ref.tree_descend_ref(node_keys, cs_path, box_keys)
+    return _chain("tree_descend",
+                  _on_cuda("tree_descend", node_keys, cs_path, box_keys),
+                  lambda: _descend_launch(node_keys, cs_path, box_keys),
+                  lambda: ref.tree_descend_ref(node_keys, cs_path, box_keys),
+                  _v_mask01)
+
+
+def _descend_launch(node_keys: torch.Tensor, cs_path: torch.Tensor,
+                    box_keys: torch.Tensor) -> torch.Tensor:
+    """Check the descent's CUDA inputs and launch its kernel: (B, N)."""
     n = node_keys.shape[1]
     nb, m = box_keys.shape[0], box_keys.shape[1]
     _check("tree_descend", node_keys, torch.int64, (4, n), 8)
@@ -443,6 +552,56 @@ def tree_descend(node_keys: torch.Tensor, cs_path: torch.Tensor,
                 _ptr(box_keys), _ptr(out), ctypes.c_int(n), ctypes.c_int(nb),
                 ctypes.c_int(m))
     return out
+
+
+def tree_descend_sharded(node_keys: torch.Tensor, cs_path: torch.Tensor,
+                         box_keys: torch.Tensor) -> torch.Tensor:
+    """Phase-1 descent over every store shard in one call (see
+    csrc/tree_descend.cu).
+
+    node_keys (S, 4, N_max) int64 stacked per-shard key planes, pad columns
+    set to `DESCEND_PAD_BOX`; cs_path (S, N_max) bool, False on pad
+    columns; box_keys (B, M, 4) the shared driver boxes. Returns (S, B,
+    N_max) bool masks.
+
+    On CUDA the S x N_max node columns are one `tree_descend` launch: the
+    planes as (4, S·N_max), a grid of ceil(S·N_max/32) x B blocks, the
+    (B, S·N_max) result viewed as (S, B, N_max). A pad column is off the
+    Bloom path, so its lane tests no box. Planes that are a transposed
+    view of a contiguous (4, S, N_max) tensor (core/shard.py keeps them so)
+    go to the kernel without a copy. One call of the
+    "tree_descend_sharded" chain: the one launch (on the CPU, the plain
+    version), then a loop of per-shard `tree_descend` calls, each with its
+    own chain, as the reference's `shard_map` then `sequential`.
+    """
+    if node_keys.dim() != 3 or node_keys.shape[1] != 4 \
+            or tuple(cs_path.shape) != (node_keys.shape[0],
+                                        node_keys.shape[2]):
+        raise ValueError(f"tree_descend_sharded: planes "
+                         f"{tuple(node_keys.shape)}, cs_path "
+                         f"{tuple(cs_path.shape)}; needs (S, 4, N) and (S, N)")
+    s, _, n = node_keys.shape
+    nb = box_keys.shape[0]
+    on_cuda = _on_cuda("tree_descend", node_keys, cs_path, box_keys)
+    if s == 0 or n == 0 or nb == 0:
+        return torch.zeros((s, nb, n), dtype=torch.bool,
+                           device=node_keys.device)
+
+    def kernel():
+        out = _descend_launch(node_keys.transpose(0, 1).reshape(4, s * n),
+                              cs_path.reshape(s * n), box_keys)
+        return out.view(nb, s, n).transpose(0, 1)
+
+    def sequential():
+        return torch.stack([tree_descend(node_keys[i].contiguous(),
+                                         cs_path[i].contiguous(), box_keys)
+                            for i in range(s)])
+
+    first = (("kernel", kernel) if on_cuda else ("plain", lambda: (
+        ref.tree_descend_sharded_ref(node_keys, cs_path, box_keys))))
+    return fault.run_op("tree_descend_sharded", [
+        first, ("sequential", _fallback("tree_descend_sharded", "sequential",
+                                        sequential))], _v_mask01)
 
 
 # ------------------------------------------------------------ bloom probe --
@@ -502,7 +661,7 @@ def bloom_probe_any(bits: torch.Tensor, filter_idx: np.ndarray,
     Returns the (F,) bool verdicts as a host array. On CUDA a call is one C
     call: the indices and keys staged in pinned memory go up in one copy,
     one launch writes the verdicts into pinned memory, one synchronise. On
-    the CPU the plain version runs."""
+    the CPU the plain version runs. One call of the "bloom_probe" chain."""
     fi = np.asarray(filter_idx, dtype=np.int64)
     keys = np.asarray(keys, dtype=np.int64)
     if bits.dim() != 2 or bits.shape[1] not in BLOOM_WORDS or k < 1:
@@ -514,9 +673,21 @@ def bloom_probe_any(bits: torch.Tensor, filter_idx: np.ndarray,
                          f"bank's {bits.shape[0]} rows")
     if n_f == 0 or n_c == 0:
         return np.zeros(n_f, dtype=bool)
-    if not _on_cuda("bloom_probe", bits):
-        return ref.bloom_probe_any_ref(bits, torch.from_numpy(fi),
-                                       torch.from_numpy(keys), k).numpy()
+
+    def plain():
+        return ref.bloom_probe_any_ref(
+            bits, torch.from_numpy(fi).to(bits.device),
+            torch.from_numpy(keys).to(bits.device), k).cpu().numpy()
+
+    return _chain("bloom_probe", _on_cuda("bloom_probe", bits),
+                  lambda: _any_round_trip(bits, fi, keys, k), plain,
+                  _v_mask01)
+
+
+def _any_round_trip(bits: torch.Tensor, fi: np.ndarray, keys: np.ndarray,
+                    k: int) -> np.ndarray:
+    """The per-filter probe's CUDA round trip (see `bloom_probe_any`)."""
+    n_f, n_c = len(fi), len(keys)
     if bits.dtype == torch.uint32:
         bits = bits.view(torch.int32)
     _check("bloom_probe", bits, torch.int32, tuple(bits.shape), 4)
@@ -676,8 +847,6 @@ def _cuda_round_trip(table: np.ndarray, probes: np.ndarray, side: str,
     and probes go up in one copy first; one synchronise."""
     n, m = len(table), len(probes)
     rows = 2 if side == "both" else 1
-    if n == 0 or m == 0:
-        return np.zeros((rows, m), dtype=np.int64)
     if n >= 1 << 31:
         raise ValueError(f"merge_join_ranks: table of {n} rows exceeds 2^31")
     resident = None
@@ -723,36 +892,58 @@ def merge_join_ranks(table: np.ndarray, probes: np.ndarray,
     output. With the table resident the kernel reads the staged probes in
     place over the bus and no copy runs; without it the table is staged
     before the probes and both go up in one host-to-device copy. On the
-    CPU the plain version runs (`insertion_ranks`)."""
+    CPU the plain version runs.
+
+    One call of the "merge_join_ranks" chain, every backend (the reference
+    chains numpy too): numpy's search then the same again; the kernel, then
+    the plain version on `device`. Empty tables or probes give zeros
+    without a call."""
     if side not in RANK_SIDES:
         raise ValueError(f"unknown rank side {side!r}")
     backend = resolve_rank_backend(backend)
     table = np.asarray(table, dtype=np.int64)
     probes = np.asarray(probes, dtype=np.int64)
-    if backend == "kernel":
-        if device is None:
-            raise ValueError("the kernel rank backend needs a device")
-        if not isinstance(device, torch.device):
-            device = torch.device(device)
-        if table_on_device is not None and len(table_on_device) != len(table):
-            raise ValueError("merge_join_ranks: the resident table has "
-                             f"{len(table_on_device)} rows, not {len(table)}")
-        if device.type == "cuda":
-            out = _cuda_round_trip(table, probes, side, device,
-                                   table_on_device)
-            return (out[0], out[1]) if side == "both" else out[0]
+    m = len(probes)
+    if len(table) == 0 or m == 0:
+        z = np.zeros(m, dtype=np.int64)
+        return (z, z.copy()) if side == "both" else z
+    validate = functools.partial(_v_ranks, n=len(table), side=side)
+
+    def numpy_ranks():
+        if side != "both":
+            return np.searchsorted(table, probes, side)
+        return (np.searchsorted(table, probes, "left"),
+                np.searchsorted(table, probes, "right"))
+
+    if backend == "numpy":
+        return fault.run_op("merge_join_ranks", [
+            ("numpy", numpy_ranks),
+            ("oracle", _fallback("merge_join_ranks", "oracle", numpy_ranks))],
+            validate)
+    if device is None:
+        raise ValueError("the kernel rank backend needs a device")
+    if not isinstance(device, torch.device):
+        device = torch.device(device)
+    if table_on_device is not None and len(table_on_device) != len(table):
+        raise ValueError("merge_join_ranks: the resident table has "
+                         f"{len(table_on_device)} rows, not {len(table)}")
+
+    def kernel():
+        out = _cuda_round_trip(table, probes, side, device, table_on_device)
+        return (out[0], out[1]) if side == "both" else out[0]
+
+    def plain():
         tab = (table_on_device if table_on_device is not None
                else torch.from_numpy(np.ascontiguousarray(table)).to(device))
-        out = insertion_ranks(
+        out = ref.merge_join_ranks_ref(
             tab, torch.from_numpy(np.ascontiguousarray(probes)).to(device),
             side)
         if side != "both":
             return out.cpu().numpy()
         return out[0].cpu().numpy(), out[1].cpu().numpy()
-    if side != "both":
-        return np.searchsorted(table, probes, side)
-    return (np.searchsorted(table, probes, "left"),
-            np.searchsorted(table, probes, "right"))
+
+    return _chain("merge_join_ranks", device.type == "cuda", kernel, plain,
+                  validate)
 
 
 # -------------------------------------------------------------- block scan --

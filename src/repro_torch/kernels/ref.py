@@ -133,6 +133,16 @@ def tree_descend_ref(node_keys: torch.Tensor, cs_path: torch.Tensor,
     return out
 
 
+def tree_descend_sharded_ref(node_keys: torch.Tensor, cs_path: torch.Tensor,
+                             box_keys: torch.Tensor) -> torch.Tensor:
+    """Candidate-node masks of every shard against shared boxes: node_keys
+    (S, 4, N) stacked key planes (pad columns never hit), cs_path (S, N)
+    bool, box_keys (B, M, 4) int64 -> (S, B, N) bool, `tree_descend_ref`
+    per shard."""
+    return torch.stack([tree_descend_ref(node_keys[i], cs_path[i], box_keys)
+                        for i in range(node_keys.shape[0])])
+
+
 # ------------------------------------------------------------ bloom probe --
 _M32 = 0xFFFFFFFF
 

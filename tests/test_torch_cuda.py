@@ -683,6 +683,152 @@ def test_hotq_serve_on_cuda_equals_cpu(dev, join):
         assert srv.stats.join_launches > 0
 
 
+
+# ------------------------------------------ sharded descent and failover --
+def _stacked(dev, sizes, nb, m, seed=0):
+    """Stacked per-shard node planes (pad columns `DESCEND_PAD_BOX`, their
+    root-path bits False), as core/shard keeps them: a transposed view of
+    a contiguous (4, S, N_max) tensor; shared box keys with ragged
+    padding rows."""
+    rng = np.random.default_rng(seed)
+    n_max = max(sizes)
+    planes = np.empty((4, len(sizes), n_max), dtype=np.int64)
+    planes[:] = ops.DESCEND_PAD_BOX[:, None, None]
+    cs = np.zeros((len(sizes), n_max), dtype=bool)
+    for si, n in enumerate(sizes):
+        lo = rng.random((n, 2))
+        mbr = np.concatenate([lo, lo + 0.1 * rng.random((n, 2))], axis=1)
+        planes[:, si, :n] = ops.f64_sort_keys(np.ascontiguousarray(mbr.T))
+        cs[si, :n] = rng.random(n) < 0.9
+    lo = rng.random((nb, m, 2))
+    boxes = np.concatenate([lo, lo + 0.004], axis=2)
+    boxes[:, m // 2:] += 10.0              # half the boxes hit nothing
+    keys = ops.f64_sort_keys(boxes)
+    keys[:, m - 7:] = ops.DESCEND_PAD_BOX
+    return (torch.from_numpy(planes).to(dev).transpose(0, 1),
+            torch.from_numpy(cs).to(dev), torch.from_numpy(keys).to(dev))
+
+
+# shard tree sizes of `make_lgd(n_per_class=6000)`'s sharded stores (S = 8
+# and 2) and of a set with a one-node shard
+SHARDED_SHAPES = {"lgd_s8": ((135, 151, 160, 171, 178, 185, 190, 197), 8,
+                             230),
+                  "lgd_s2": ((648, 661), 8, 1024),
+                  "one_node_shard": ((1, 40, 33), 3, 45)}
+
+
+@pytest.mark.parametrize("case", sorted(SHARDED_SHAPES))
+def test_tree_descend_sharded_one_launch_matches_plain(dev, case):
+    sizes, nb, m = SHARDED_SHAPES[case]
+    args = _stacked(dev, sizes, nb, m)
+    launches = ops.LAUNCHES["tree_descend"]
+    got = ops.tree_descend_sharded(*args)
+    assert ops.LAUNCHES["tree_descend"] == launches + 1
+    want = ref.tree_descend_sharded_ref(*args)
+    _equal([got], [want])
+    assert got.shape == (len(sizes), nb, max(sizes))
+    for si, n in enumerate(sizes):
+        assert not bool(got[si, :, n:].any())
+        _equal([got[si]], [ops.tree_descend(args[0][si].contiguous(),
+                                            args[1][si].contiguous(),
+                                            args[2])])
+    assert bool(got.any())
+
+
+def test_engine_on_a_sharded_store_on_cuda_equals_cpu(dev):
+    """Every stage on its kernel over a four-shard store: one launch a
+    sharded descent, answers equal to the CPU run's."""
+    from repro_torch.core import fault
+    ds = synth_rdf.make_lgd(n_per_class=300, seed=0)
+    store = repro_torch.shard_store(ds.store, 4)
+    cfg = ExecConfig(policy=BackendPolicy(join="fused", descend="kernel",
+                                          probe="kernel", rank="kernel"))
+    plan = fault.FaultPlan()
+    launches = ops.LAUNCHES["tree_descend"]
+    with fault.fault_plan(plan):
+        got = [StreakEngine(store, cfg).execute(q) for q in ds.queries]
+    assert ops.LAUNCHES["tree_descend"] - launches == \
+        plan.calls["tree_descend_sharded"] > 0
+    assert "tree_descend" not in plan.calls
+    cpu = StreakEngine(store, cfg, device="cpu")
+    for g, q in zip(got, ds.queries):
+        w = cpu.execute(q)
+        np.testing.assert_array_equal(g[0], w[0])
+        assert list(g[1]) == list(w[1])
+        for c in w[1]:
+            np.testing.assert_array_equal(g[1][c], w[1][c])
+        assert dataclasses.asdict(g[2]) == dataclasses.asdict(w[2])
+
+
+def _op_call(op, dev):
+    """A call of one chained op on card inputs, and its kernel's name."""
+    rng = np.random.default_rng(5)
+    a, b = _boxes(rng, 40, dev), _boxes(rng, 300, dev)
+    if op == "distance_join_matrix":
+        return lambda: ops.distance_join_pairs(a, b, 0.03), "distance_join"
+    if op == "fused_topk_join":
+        dk = torch.from_numpy(rng.random(40).astype(np.float32)).to(dev)
+        vk = torch.from_numpy(rng.random(300).astype(np.float32)).to(dev)
+        dist = torch.full((40,), 0.05, device=dev)
+        theta = torch.full((40,), 0.5, device=dev)
+        return (lambda: ops.fused_topk_join(a, b, dk, vk, dist, theta, 16),
+                op)
+    if op == "bucketed_min_core":
+        group = ops.min_core_group(2, [(30, 4, 8), (5, 32, 2)])
+        buf = group.pack()
+        buf[group.header:] = rng.random(group.n_floats)
+        buf_t = torch.from_numpy(buf).to(dev)
+        return lambda: ops.bucketed_min_core_group(buf_t, group), op
+    if op == "merge_join_ranks":
+        table = np.sort(rng.integers(0, 1000, 500))
+        probes = rng.integers(0, 1000, 64)
+        return (lambda: ops.merge_join_ranks(table, probes, "kernel",
+                                             device=dev), op)
+    if op == "bloom_probe":
+        bits = torch.from_numpy(rng.integers(0, 1 << 31, (20, 8)).astype(
+            np.int32)).to(dev)
+        fi, keys = np.arange(20), rng.integers(0, 1 << 40, 4)
+        return lambda: ops.bloom_probe_any(bits, fi, keys, 3), op
+    planes, cs, keys = _stacked(dev, (30, 21), 2, 40)
+    if op == "tree_descend":
+        nk = planes[0].contiguous()
+        return lambda: ops.tree_descend(nk, cs[0].contiguous(), keys), op
+    return lambda: ops.tree_descend_sharded(planes, cs, keys), "tree_descend"
+
+
+def _as_list(out) -> list:
+    out = out if isinstance(out, tuple) else (out,)
+    return [torch.as_tensor(x).cpu() for x in out]
+
+
+@pytest.mark.parametrize("op", ["distance_join_matrix", "fused_topk_join",
+                                "bucketed_min_core", "merge_join_ranks",
+                                "tree_descend", "tree_descend_sharded",
+                                "bloom_probe"])
+def test_planted_fault_on_the_card_falls_back_to_plain(dev, op):
+    """A fault injected into the kernel attempt of each chained op: the
+    plain version on the card answers alike, counted under "<op>:plain"
+    (the sharded descent's per-shard loop under ":sequential"), and the
+    kernel does not launch for that attempt."""
+    from repro_torch.core import fault
+    call, kernel = _op_call(op, dev)
+    want = _as_list(call())
+    fault.STATE.reset()
+    ops.reset_launch_counts()
+    plan = fault.FaultPlan(rules=(fault.FaultRule(op=op, call=0),))
+    try:
+        with fault.fault_plan(plan):
+            got = _as_list(call())
+        takeover = "sequential" if op == "tree_descend_sharded" else "plain"
+        assert plan.injected == 1 and fault.STATE.stats.fallbacks == 1
+        assert ops.LAUNCHES[f"{op}:{takeover}"] == 1
+        # the per-shard loop launches the kernel once a shard
+        assert ops.LAUNCHES[kernel] == (2 if takeover == "sequential" else 0)
+        _equal(got, want)
+    finally:
+        fault.STATE.reset()
+        ops.reset_launch_counts()
+
 # ------------------------------------ block scan, Morton, flash attention --
 @pytest.mark.parametrize("nb,bsz", [(1, 1), (3, 7), (64, 1024), (17, 4100)])
 @pytest.mark.parametrize("theta", [-1e30, 0.5])

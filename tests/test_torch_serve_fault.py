@@ -1,11 +1,10 @@
 """Port vs reference: the serving loop's crash isolation and deadlines.
 
-The twins of the serve cases of `tests/test_fault.py`. The port has no
-`FaultPlan` (its failover layer is a later slice), so a fault is planted by
-wrapping the port's `ops.fused_topk_join` to raise `fault.OpTimeout`, a
-transient failure, on the calls the reference's plan fails; the reference
-runs under that plan. Requests and `ServeStats` must be equal, and a
-restarted tenant must answer exactly as in the clean run.
+The twins of the serve cases of `tests/test_fault.py`: each package runs
+under its own copy of one `FaultPlan` (the port's `fused_topk_join` calls
+are counted and failed at the same call indices as the reference's).
+Requests and `ServeStats` must be equal, and a restarted tenant must answer
+exactly as in the clean run.
 """
 import dataclasses
 
@@ -21,17 +20,19 @@ from repro.serve import spatial as ref_serve
 from repro_torch.core import fault as port_fault
 from repro_torch.core import spatial_join as port_sj
 from repro_torch.data import synth_rdf as port_synth
-from repro_torch.kernels import ops
 from repro_torch.serve import spatial as port_serve
 from test_torch_serve_spatial import assert_same_request, assert_same_serve
 
 
 @pytest.fixture(autouse=True)
 def _clean_fault_state():
-    """Every test starts and ends with no plan on the reference's side."""
-    ref_fault.STATE.reset()
+    """Every test starts and ends with no plan and no breakers in either
+    package."""
+    for f in (ref_fault, port_fault):
+        f.STATE.reset()
     yield
-    ref_fault.STATE.reset()
+    for f in (ref_fault, port_fault):
+        f.STATE.reset()
 
 
 @pytest.fixture(scope="module")
@@ -56,20 +57,11 @@ def _serve_both(lgd, queries_of, **kw):
                    **kw))
 
 
-class _Failing:
-    """`ops.fused_topk_join` that raises `OpTimeout` on the listed calls
-    (0-based; None: every call) and counts every call."""
-
-    def __init__(self, fail_at=None):
-        self.fail_at, self.calls = fail_at, 0
-        self.fused = ops.fused_topk_join
-
-    def __call__(self, *args, **kwargs):
-        idx = self.calls
-        self.calls += 1
-        if self.fail_at is None or idx == self.fail_at:
-            raise port_fault.OpTimeout(f"planted on fused_topk_join #{idx}")
-        return self.fused(*args, **kwargs)
+def _fused_plan(f, call=None):
+    """A plan of fault module `f` that defeats the whole chain of the fused
+    join's call `call` (None: every call)."""
+    return f.FaultPlan(rules=(f.FaultRule(op="fused_topk_join", call=call,
+                                          attempts=99),))
 
 
 def test_transient_set_names_the_reference_classes():
@@ -103,24 +95,27 @@ def test_serve_deadline_tenant_partial_others_exact(lgd):
         np.testing.assert_array_equal(reqs[i].scores, want[0])
 
 
-def test_serve_transient_fault_retries_bit_identical(lgd, monkeypatch):
+def test_serve_transient_fault_retries_bit_identical(lgd):
     def queries(d):
         return [dataclasses.replace(q, k=30) for q in d.queries[:4]]
-    counting = _Failing(fail_at=-1)
-    monkeypatch.setattr(ops, "fused_topk_join", counting)
-    clean_ref, clean = _serve_both(lgd, queries)
+    # probe runs: an empty plan's per-op counters give the clean serve's
+    # dispatches, the same in both packages
+    probes = [ref_fault.FaultPlan(), port_fault.FaultPlan()]
+    with ref_fault.fault_plan(probes[0]), port_fault.fault_plan(probes[1]):
+        clean_ref, clean = _serve_both(lgd, queries)
     assert_same_serve(clean_ref, clean)
-    ncalls = counting.calls
+    ncalls = probes[1].calls.get("fused_topk_join", 0)
+    assert ncalls == probes[0].calls["fused_topk_join"]
     assert ncalls >= 2, "serve run never reached the fused join"
     # fail one mid-serve launch: its riders restart from fresh cursors
-    failing = _Failing(fail_at=ncalls // 2)
-    monkeypatch.setattr(ops, "fused_topk_join", failing)
-    plan = ref_fault.FaultPlan(rules=(ref_fault.FaultRule(
-        op="fused_topk_join", call=ncalls // 2, attempts=99),))
+    plan = _fused_plan(ref_fault, ncalls // 2)
     with ref_fault.fault_plan(plan):
         faulted_ref = _serve(repro, ref_serve, lgd[0], queries(lgd[0]))
     assert plan.injected > 0
-    srv, reqs = _serve(repro_torch, port_serve, lgd[1], queries(lgd[1]))
+    plan = _fused_plan(port_fault, ncalls // 2)
+    with port_fault.fault_plan(plan):
+        srv, reqs = _serve(repro_torch, port_serve, lgd[1], queries(lgd[1]))
+    assert plan.injected > 0
     assert srv.stats.faults >= 1 and srv.stats.retries >= 1
     assert all(r.done and r.error is None for r in reqs)
     for req, want in zip(reqs, clean[1]):
@@ -129,18 +124,15 @@ def test_serve_transient_fault_retries_bit_identical(lgd, monkeypatch):
     assert_same_serve(faulted_ref, (srv, reqs))
 
 
-def test_serve_retries_exhausted_surfaces_error_and_terminates(lgd,
-                                                               monkeypatch):
+def test_serve_retries_exhausted_surfaces_error_and_terminates(lgd):
     def queries(d):
         return [dataclasses.replace(q, k=30) for q in d.queries[:3]]
-    monkeypatch.setattr(ops, "fused_topk_join", _Failing())
-    plan = ref_fault.FaultPlan(rules=(
-        ref_fault.FaultRule(op="fused_topk_join", attempts=99),))
-    with ref_fault.fault_plan(plan):
+    with ref_fault.fault_plan(_fused_plan(ref_fault)):   # every call dies
         ref_run = _serve(repro, ref_serve, lgd[0], queries(lgd[0]),
                          max_retries=1)
-    srv, reqs = _serve(repro_torch, port_serve, lgd[1], queries(lgd[1]),
-                       max_retries=1)
+    with port_fault.fault_plan(_fused_plan(port_fault)):
+        srv, reqs = _serve(repro_torch, port_serve, lgd[1], queries(lgd[1]),
+                           max_retries=1)
     assert all(r.done for r in reqs)                      # loop terminated
     assert all(isinstance(r.error, port_fault.TRANSIENT) for r in reqs)
     assert all(len(r.scores) == 0 for r in reqs)
@@ -199,19 +191,23 @@ def test_stream_entry_fault_isolates_one_rider():
         np.testing.assert_array_equal(gj, wj)
 
 
-def test_whole_launch_failure_marks_every_rider(monkeypatch):
-    """A launch that raises faults every entry riding it, and the call
-    returns with no launch counted."""
+def test_whole_launch_failure_marks_every_rider():
+    """A launch whose whole chain fails faults every entry riding it, and
+    the call returns with no launch counted."""
     rng = np.random.default_rng(10)
     lo = rng.random((20, 2))
     drv = np.concatenate([lo, lo + 0.05], axis=1)
-    monkeypatch.setattr(ops, "fused_topk_join", _Failing())
     entries = [port_sj.StreamEntry(drv, drv, rng.random(20), rng.random(20),
                                    0.2, 4, theta_fn=lambda: -np.inf,
                                    emit=lambda pi, pj: None)
                for _ in range(3)]
-    assert port_sj.fused_stream_join_multi(entries, 64, device="cpu") == 0
-    assert all(isinstance(e.error, port_fault.OpTimeout) for e in entries)
+    plan = _fused_plan(port_fault)
+    with port_fault.fault_plan(plan):
+        assert port_sj.fused_stream_join_multi(entries, 64,
+                                               device="cpu") == 0
+    assert plan.calls == {"fused_topk_join": 1}
+    assert all(isinstance(e.error, port_fault.FallbackExhausted)
+               for e in entries)
     assert len({id(e.error) for e in entries}) == 1
 
 
@@ -233,14 +229,13 @@ def test_multi_join_without_device_raises():
                                        rng.random(8), 0.2, 4))
 
 
-def test_faulted_request_results_are_typed_empty(lgd, monkeypatch):
+def test_faulted_request_results_are_typed_empty(lgd):
     """A retired request carries an empty float score array, an empty
     relation and fresh stats, as the reference's `_fail` gives."""
-    monkeypatch.setattr(ops, "fused_topk_join", _Failing())
-    srv, reqs = _serve(repro_torch, port_serve, lgd[1],
-                       [lgd[1].queries[0]], max_retries=0)
-    with ref_fault.fault_plan(ref_fault.FaultPlan(rules=(
-            ref_fault.FaultRule(op="fused_topk_join", attempts=99),))):
+    with port_fault.fault_plan(_fused_plan(port_fault)):
+        srv, reqs = _serve(repro_torch, port_serve, lgd[1],
+                           [lgd[1].queries[0]], max_retries=0)
+    with ref_fault.fault_plan(_fused_plan(ref_fault)):
         ref_run = _serve(repro, ref_serve, lgd[0], [lgd[0].queries[0]],
                          max_retries=0)
     assert_same_request(reqs[0], ref_run[1][0])
