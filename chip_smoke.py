@@ -26,7 +26,11 @@ In order it:
    "auto") and the matrix join, a batch through a fresh
    `SpatialServeEngine` against `serial_perquery` (a fresh engine a
    query) and `serial_warm` (one warmed engine), in turns, medians, every
-   request equal to serial execution;
+   request equal to serial execution; then the paper's baseline engines
+   ("baseline turns": the full scan, the sync R-tree engine and both fixed
+   plans beside STREAK on LGD Q1-Q8, the full scan and STREAK on the YAGO
+   queries, three turns, per-query medians and the full scan's over
+   STREAK's, Fig. 10's shape);
 3. holds each kernel against its plain torch version on the card, at the
    shapes the main path gives it: bit-identical output for the STREAK
    kernels (the rank kernel in both of its layouts, at the main path's
@@ -100,9 +104,25 @@ In order it:
    plain attempt and no demotion.
    Every other phase ends by requiring the fault layer clean: no plan, no
    watchdog, every `FaultStats` counter 0, no fallback launch counted;
-9. calls the reference's kernel entry points `ops.block_scan` (64 x 1024)
+9. drives the baseline engines (core/baselines.py), the ingested GTFS
+   sample, the differential fuzzer and the analytics launcher, each with
+   the counts set to 0 before and read after: "baselines" (the full scan
+   and STREAK on LGD and YAGO Q1-Q8, the sync R-tree engine and both fixed
+   plans on LGD; each equal to its CPU run and to STREAK's scores, a sync
+   R-tree join over both full sides refined to the full scan's candidates,
+   every refinement launch replayed bit for bit, the full scan's largest,
+   ~1.16M pairs, on its own, the rank kernel at the median and largest
+   recorded calls); "ingest" (`build_stops_store` on the port's sample,
+   the top-k query and the four shapes under both joins, equal to the full
+   scan on the card and to the CPU); "fuzz" (50 seeded random queries of
+   the fuzzer's generator on its two stores, equal to the full scan on the
+   card, every STREAK kernel launched, then again under a fault rate of
+   0.05: the same answers, with fallbacks); "analytics" (one
+   `repro_torch.launch.analytics --n 2000` run, STREAK equal to the full
+   scan on each query);
+10. calls the reference's kernel entry points `ops.block_scan` (64 x 1024)
    and `ops.morton_encode` (1M codes), counts set to 0 before;
-10. drives the dense-LM serving stack at gemma-7b's full width and depth
+11. drives the dense-LM serving stack at gemma-7b's full width and depth
    (random bf16 weights from a seed, 8.54 B parameters): the 4,096-token
    prefill through `forward_with_cache` with the flash kernel (28 launches
    a call), held against the plain path and `forward` + `logits_fn`, with
@@ -110,14 +130,16 @@ In order it:
    `ServeEngine` on the launcher's requests, request 0's decode logits held
    against the full forward over its prefix; then the three dense smoke
    configs (f32) on the card against the CPU;
-11. traces one more pass of each query set on the card: host ms per
+12. traces one more pass of each query set on the card: host ms per
    executor layer, device busy ms (by kind: each kernel, memcpy) and the
    device's idle share; then the LGD and 1M-quad sets (fused join) with
    the rank pass alone on numpy and on its kernel, in turns ("rank turn");
    then the Bloom bank uploads over the run and each pass's memcpy ms;
-12. prints the kernels line (JSON; `serve_launches` and
-   `sharded_launches` beside `launches`, tree_descend's `sharded` figures),
-   then the ok line (JSON) last.
+13. prints the kernels line (JSON; `serve_launches`, `sharded_launches`,
+   `baselines_launches`, `ingest_launches`, `fuzz_launches` and
+   `analytics_launches` beside `launches`, tree_descend's `sharded`
+   figures, bucketed_min_core's `fullscan_largest`), then the ok line
+   (JSON) last.
 
 Any failed phase raises, so the script exits non-zero without the ok line.
 """
@@ -1085,6 +1107,7 @@ def recording_launches(ops, ref, build, spatial_join, tag,
         rec["refine_in"].append(dict(
             set=tag["set"], shape=f"dims={group.dims} rows={group.n_rows} "
             f"buckets={len(group.desc)} classes={classes}",
+            rows=group.n_rows,
             kernel=lambda: ops.bucketed_min_core_group(b, group),
             plain=lambda: ref.bucketed_min_core_group_ref(b, group.desc,
                                                           group.dims),
@@ -1893,27 +1916,28 @@ def descend_replays(ops, ref, captured, sets) -> list:
     return out
 
 
-def check_serve_ranks(ops, ref, rank_in, cases) -> None:
+def check_serve_ranks(ops, ref, rank_in, cases, path="serve") -> None:
     """The serving loop's rank calls, from their recorded tables and
     probes: the median and the largest call by (probes, table rows), every
     side through the wrapper and through both layouts bit-identical to the
     plain version (`_require_ranks`, as `check_merge_join_ranks` holds the
     serial path's shapes), then timed; a "case" line each, with "path":
-    "serve"."""
+    "serve", or `path`)."""
     if not rank_in:
-        raise AssertionError("serve: no merge_join_ranks launch recorded")
+        raise AssertionError(f"{path}: no merge_join_ranks launch recorded")
     by_size = sorted(range(len(rank_in)), key=lambda i: (
         len(rank_in[i][1]), len(rank_in[i][0]), i))
     for label, i in (("median", by_size[len(by_size) // 2]),
                      ("largest", by_size[-1])):
         table, probes = (torch.from_numpy(x).cuda() for x in rank_in[i])
         n, m = table.shape[0], probes.shape[0]
-        _require_ranks(ops, ref, f"serve {label} N={n} M={m}", table, probes)
+        _require_ranks(ops, ref, f"{path} {label} N={n} M={m}", table,
+                       probes)
         words, sectors = rank_words_touched(table, probes)
         bnd, by = bound_ms(m * 8 * 3 + words * 8,
                            2 * m * int(n).bit_length() * 4)
         case = dict(
-            kernel="merge_join_ranks", path="serve", call=label,
+            kernel="merge_join_ranks", path=path, call=label,
             launches=len(rank_in), N=n, M=m, side="both",
             lanes=32 if m <= ops.RANK_WARP_MAX_M else 1, table_words=words,
             table_sectors=sectors,
@@ -1924,6 +1948,64 @@ def check_serve_ranks(ops, ref, rank_in, cases) -> None:
             bound_ms=bnd, bound_by=by)
         cases.append(case)
         print("case " + json.dumps(case), flush=True)
+
+
+# the kernels whose calls `recording_launches` keeps for a replay: name,
+# the symbol of its trace spans, the record's key
+RECORDED = (("fused_topk_join", "fused_topk_join_kernel", "fused_in"),
+            ("tree_descend", "tree_descend_kernel", "descend_in"),
+            ("distance_join", "distance_join_kernel", "pairs_in"),
+            ("bucketed_min_core", "bucketed_min_core_kernel", "refine_in"),
+            ("bloom_probe", "bloom_probe_any_kernel", "any_in"))
+
+
+def require_recorded(path: str, launches: dict, rec, retries: int) -> None:
+    """Every launch of a recorded run (`launches`, the counts read right
+    after it) is one recorded call: a `fused_topk_join` launch, a pair call
+    or a capacity retry, a refinement call, a descent with nodes and
+    boxes, a per-filter probe, a rank call on the card."""
+    calls = dict(
+        fused_topk_join=len(rec["fused_in"]),
+        distance_join=len(rec["pairs_in"]) + retries,
+        bucketed_min_core=rec["refine_calls"][0],
+        tree_descend=sum(1 for nk, _, b in rec["descend_in"]
+                         if nk.shape[1] and b.shape[0]),
+        bloom_probe=len(rec["any_in"]), merge_join_ranks=len(rec["rank_in"]))
+    if {n: launches[n] for n in STREAK_KERNELS} != calls:
+        raise AssertionError(
+            f"{path}: launches {launches} for the recorded calls {calls} "
+            f"({retries} pair capacity retries): every launch must be one "
+            "recorded call, one refinement launch a refinement call")
+
+
+def replay_recorded(ops, ref, rec, cases, path: str, required=STREAK_KERNELS,
+                    by_set: bool = False) -> None:
+    """Every call that `recording_launches` (with `rank_inputs`) kept,
+    replayed on the card bit for bit against its plain version and timed
+    (`check_path_replays`; "case" lines with "path": `path`, or one a set
+    with `by_set`), and the rank kernel at the median and largest recorded
+    call (`check_serve_ranks`). A kernel of `required` with no recorded
+    call fails."""
+    launching = [(a, s) for a, s in zip(rec["descend_in"],
+                                        rec["descend_sets"])
+                 if a[0].shape[1] and a[2].shape[0]]
+    recorded = dict(rec, descend_in=descend_replays(
+        ops, ref, [a for a, _ in launching], [s for _, s in launching]))
+    print(f"{path} descend launches (B, M, N): " + json.dumps(sorted(
+        collections.Counter(r["shape"] for r in recorded["descend_in"])
+        .items())), flush=True)
+    for name, symbol, key in RECORDED:
+        rs = recorded[key]
+        if not rs:
+            if name in required:
+                raise AssertionError(f"{path}: no {name} launch recorded")
+            continue
+        groups = ({s: [r for r in rs if r["set"] == s]
+                   for s in dict.fromkeys(r["set"] for r in rs)}
+                  if by_set else {path: rs})
+        check_path_replays(name, symbol, rs, None, cases, groups=groups)
+    if rec["rank_in"] or "merge_join_ranks" in required:
+        check_serve_ranks(ops, ref, rec["rank_in"], cases, path=path)
 
 
 def check_serve(rt, ops, ref, build, spatial_join, ds, cases) -> dict:
@@ -1957,18 +2039,7 @@ def check_serve(rt, ops, ref, build, spatial_join, ds, cases) -> dict:
         launches = dict(ops.LAUNCHES)
         retries = ops.pair_capacity_retries - retries
     require_launched("the serving loop", launches, STREAK_KERNELS)
-    calls = dict(
-        fused_topk_join=len(rec["fused_in"]),
-        distance_join=len(rec["pairs_in"]) + retries,
-        bucketed_min_core=rec["refine_calls"][0],
-        tree_descend=sum(1 for nk, _, b in rec["descend_in"]
-                         if nk.shape[1] and b.shape[0]),
-        bloom_probe=len(rec["any_in"]), merge_join_ranks=len(rec["rank_in"]))
-    if {n: launches[n] for n in STREAK_KERNELS} != calls:
-        raise AssertionError(
-            f"serving loop: launches {launches} for the recorded calls "
-            f"{calls} ({retries} pair capacity retries): every launch must "
-            "be one recorded call, one refinement launch a refinement call")
+    require_recorded("serving loop", launches, rec, retries)
     stats = {}
     for (policy, mix), (srv, reqs) in runs.items():
         label = f"{policy} {mix}"
@@ -2020,22 +2091,7 @@ def check_serve(rt, ops, ref, build, spatial_join, ds, cases) -> dict:
           f"{max(r['cols'] for r in fused_launches)}; splits "
           f"{dict(collections.Counter(r['splits'] for r in fused_launches))}",
           flush=True)
-    descends = descend_replays(ops, ref, rec["descend_in"],
-                               rec["descend_sets"])
-    print("serve descend launches (B, M, N): " + json.dumps(sorted(
-        collections.Counter(r["shape"] for r in descends).items())))
-    for name, symbol, recorded in (
-            ("fused_topk_join", "fused_topk_join_kernel", rec["fused_in"]),
-            ("tree_descend", "tree_descend_kernel", descends),
-            ("distance_join", "distance_join_kernel", rec["pairs_in"]),
-            ("bucketed_min_core", "bucketed_min_core_kernel",
-             rec["refine_in"]),
-            ("bloom_probe", "bloom_probe_any_kernel", rec["any_in"])):
-        if not recorded:
-            raise AssertionError(f"serve: no {name} launch recorded")
-        check_path_replays(name, symbol, recorded, None, cases,
-                           groups={"serve": recorded})
-    check_serve_ranks(ops, ref, rec["rank_in"], cases)
+    replay_recorded(ops, ref, rec, cases, "serve")
     traces = [trace_serve(rt, ops, ds, policy, mix, queries)
               for policy in SERVE_POLICIES
               for mix, queries in serve_mixes(ds).items()]
@@ -2448,6 +2504,437 @@ def check_failover(rt, ops, fault, lgd, clean, dev) -> list:
     ops.reset_launch_counts()
     return rows
 
+# ------------------------------------------------ the baseline engines --
+# the paper's comparisons (core/baselines.py) beside STREAK (APS), each a
+# fresh engine under the accelerator policy with the fused join; the
+# baselines run on lgd, the full scan and STREAK on yago too
+BASELINE_ENGINES = {"lgd": ("streak", "fullscan", "sync_rtree", "fixed_n",
+                            "fixed_s"),
+                    "yago": ("streak", "fullscan")}
+
+
+def baseline_engine(rt, store, which: str, device: str):
+    from repro_torch.core import baselines
+    cfg = rt.ExecConfig(policy=rt.BackendPolicy(join="fused",
+                                                **SLICE_POLICY))
+    if which == "fullscan":
+        return baselines.FullScanEngine(store, device=device)
+    if which == "sync_rtree":
+        return baselines.SyncRTreeEngine(store, cfg, device=device)
+    if which in ("fixed_n", "fixed_s"):
+        return baselines.fixed_plan_engine(store, which[-1].upper(), cfg,
+                                           device=device)
+    return rt.StreakEngine(store, cfg, device=device)
+
+
+def baseline_turns(rt, sets, turns: int = 3) -> dict:
+    """Before any profiler session: per set, the engines of
+    `BASELINE_ENGINES` over Q1-Q8 in turns (forward, reversed, forward), a
+    fresh engine a pass, untraced; per engine and query the wall ms of each
+    turn (ending in a synchronise) and their median, and per query the
+    full scan's median over STREAK's (the paper's Fig. 10)."""
+    out = {}
+    for name, engines in BASELINE_ENGINES.items():
+        ds = sets[name]
+        ms = {e: [[] for _ in ds.queries] for e in engines}
+        for t in range(turns):
+            for which in (engines if t % 2 == 0 else engines[::-1]):
+                eng = baseline_engine(rt, ds.store, which, "cuda")
+                for qi, q in enumerate(ds.queries):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    eng.execute(q)
+                    torch.cuda.synchronize()
+                    ms[which][qi].append((time.perf_counter() - t0) * 1e3)
+        med = {e: [float(np.median(x)) for x in ms[e]] for e in engines}
+        out[name] = dict(
+            turns=ms, median_ms=med,
+            pass_median_ms={e: sum(med[e]) for e in engines},
+            fullscan_over_streak=[f / s for f, s in zip(med["fullscan"],
+                                                        med["streak"])])
+    return out
+
+
+def sync_join_candidates(store, full, q, dev) -> int:
+    """The candidate pairs of one sync R-tree join over both full sides'
+    entity boxes (`rtree.build_str`, `sync_distance_join` at the plan's
+    normalized distance), refined on the card: the pairs the full scan's
+    cell-list filter keeps, found by another index."""
+    from repro_torch.core import rtree, spatial_join
+    plan = full._plan(q)
+    ents = []
+    for side in (plan.driver, plan.driven):
+        e = np.unique(full._full_side(side)[side.entity_var])
+        boxes = store.spatial_box_of(e)
+        ok = ~np.isnan(boxes[:, 0])
+        ents.append((e[ok], boxes[ok]))
+    (ua, ba), (ub, bb) = ents
+    i, j = rtree.sync_distance_join(rtree.build_str(ba), rtree.build_str(bb),
+                                    plan.dist_norm)
+    keep = spatial_join.refine(i, j, store.geom_pool,
+                               store.geom_rows(ua[i]), store.geom_rows(ub[j]),
+                               plan.dist_world, plan.metric, device=dev)
+    return int(keep.sum())
+
+
+def check_baselines(rt, ops, ref, build, spatial_join, sets, cases,
+                    entry) -> dict:
+    """The baseline engines on the card, with the counts set to 0 before
+    and read after: on each set the full scan and STREAK, on lgd also the
+    sync R-tree engine and both fixed plans. Each equals its CPU run
+    (rows, scores, statistics) and STREAK's scores; on lgd a sync R-tree
+    join over both full sides refines to the full scan's candidates.
+    `bucketed_min_core` and `merge_join_ranks` must have launched, every
+    launch one recorded call, and every recorded call is replayed bit for
+    bit ("case" lines with the engine and set as path); the full scan's
+    largest refinement launch again on its own, with its trace and event
+    times (`entry["fullscan_largest"]`)."""
+    tag: dict = {}
+    runs = {}
+    with recording_launches(ops, ref, build, spatial_join, tag,
+                            rank_inputs=True) as rec:
+        ops.reset_launch_counts()
+        retries = ops.pair_capacity_retries
+        for name, engines in BASELINE_ENGINES.items():
+            ds = sets[name]
+            for which in engines:
+                tag["set"] = f"{which} {name}"
+                eng = baseline_engine(rt, ds.store, which, "cuda")
+                runs[name, which] = [eng.execute(q) for q in ds.queries]
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        retries = ops.pair_capacity_retries - retries
+    require_launched("the baselines", launches,
+                     ("bucketed_min_core", "merge_join_ranks"))
+    require_recorded("baselines", launches, rec, retries)
+    rows = []
+    for name, engines in BASELINE_ENGINES.items():
+        ds = sets[name]
+        full = baseline_engine(rt, ds.store, "fullscan", "cuda")
+        for which in engines:
+            cpu = baseline_engine(rt, ds.store, which, "cpu")
+            for qi, q in enumerate(ds.queries):
+                got = runs[name, which][qi]
+                if not same_answer(got, cpu.execute(q)):
+                    raise AssertionError(f"baselines {which} {name} Q{qi + 1}"
+                                         ": the card differs from the CPU")
+                want = runs[name, "streak"][qi][0]
+                if not np.array_equal(np.sort(got[0]), np.sort(want)):
+                    raise AssertionError(f"baselines {which} {name} Q{qi + 1}"
+                                         ": scores differ from STREAK's")
+        for qi, q in enumerate(ds.queries):
+            st = runs[name, "fullscan"][qi][2]
+            row = dict(set=name, q=qi + 1,
+                       rows=len(runs[name, "streak"][qi][0]),
+                       **dataclasses.asdict(st))
+            if name == "lgd":
+                row["sync_join_candidates"] = sync_join_candidates(
+                    ds.store, full, q, "cuda")
+                row["sync_rtree_join"] = dataclasses.asdict(
+                    runs[name, "sync_rtree"][qi][2].join)
+                row["plan_logs"] = {
+                    w: "".join(runs[name, w][qi][2].plan_log)
+                    for w in ("streak", "sync_rtree", "fixed_n", "fixed_s")}
+                if row["sync_join_candidates"] != st.candidates:
+                    raise AssertionError(
+                        f"baselines lgd Q{qi + 1}: the sync R-tree join "
+                        f"refines to {row['sync_join_candidates']} pairs, "
+                        f"the full scan to {st.candidates}")
+            rows.append(row)
+            print("baselines " + json.dumps(row), flush=True)
+    if not any(r["candidates"] for r in rows):
+        raise AssertionError("baselines: no query had a candidate pair")
+    replay_recorded(ops, ref, rec, cases, "baselines",
+                    required=("bucketed_min_core", "merge_join_ranks"),
+                    by_set=True)
+    largest = max((r for r in rec["refine_in"]
+                   if r["set"].startswith("fullscan")),
+                  key=lambda r: r["rows"])
+    require_equal(f"bucketed_min_core fullscan largest {largest['shape']}",
+                  _outputs(largest["kernel"]()), _outputs(largest["plain"]()))
+    # traced alone; a trace that misses a span gives no time
+    reps = 20
+    trace_ms, spans = traced_spans(largest["kernel"],
+                                   "bucketed_min_core_kernel", reps)
+    entry["fullscan_largest"] = dict(
+        shape=largest["shape"], device_ms=trace_ms if spans == reps else None,
+        trace_spans=spans, trace_spans_expected=reps,
+        event_ms=event_ms(largest["kernel"], reps),
+        call_ms=time_ms(largest["kernel"], reps),
+        plain_ms=time_ms(largest["plain"], 5), bound_ms=largest["bound"][0],
+        bound_by=largest["bound"][1])
+    print("baselines fullscan largest refinement launch " + json.dumps(
+        entry["fullscan_largest"]), flush=True)
+    return dict(launches={n: launches[n] for n in STREAK_KERNELS},
+                queries=rows, fullscan_largest=entry["fullscan_largest"])
+
+
+# ------------------------------------------------------ ingested data ----
+def ingest_queries(rt, d) -> dict:
+    """One top-k join ranked by an ingested numeric column and the four
+    shapes over stops, as tests/test_torch_ingest.py builds them."""
+    ns, Var, TP = d.ns, rt.Var, rt.TriplePattern
+
+    def side(sfx=""):
+        s, g = Var(f"stop{sfx}"), Var(f"geo{sfx}")
+        return s, g, (TP(s, ns["rdf:type"], ns["gtfs:Stop"],
+                         g=Var(f"r{sfx}")),
+                      TP(s, ns["hasGeometry"], g))
+    (s, g, pats), (s2, g2, pats2) = side(), side("2")
+    board = Var("board")
+    out = {"topk": rt.Query(
+        select=(s, s2),
+        patterns=pats + pats2 + (TP(s, ns["gtfs:daily_boardings"], board),),
+        spatial=rt.SpatialFilter(g, g2, 0.01),
+        ranking=rt.Ranking(((board, 1.0),), descending=True), k=7)}
+    for name, f in (
+            ("range", rt.SpatialFilter(g, None, window=(-122.42, 37.78,
+                                                        -122.39, 37.80))),
+            ("within", rt.SpatialFilter(g, None, dist=0.02,
+                                        center=(-122.4075, 37.7880))),
+            ("join", rt.SpatialFilter(g, g2, dist=0.005)),
+            ("knn", rt.SpatialFilter(g, g2, knn=3))):
+        binary = f.b is not None
+        out[name] = rt.Query(select=(s, s2) if binary else (s,),
+                             patterns=pats + pats2 if binary else pats,
+                             spatial=f, ranking=None)
+    return out
+
+
+def check_ingest(rt, ops, ref, build, spatial_join, cases) -> dict:
+    """The port's GTFS sample through `build_stops_store`, then the top-k
+    query and the four shapes on the card under both joins, with the
+    counts set to 0 before and read after: every launch one recorded call,
+    replayed bit for bit ("case" lines with "path": "ingest"); STREAK equal
+    to its CPU run and, after the counts are read, to the full scan on the
+    card (scores; for the shapes rows in canonical order too), the full
+    scan equal to its CPU run."""
+    from repro_torch.core.baselines import FullScanEngine
+    from repro_torch.data import ingest
+    t0 = time.perf_counter()
+    d = ingest.build_stops_store(ingest.SAMPLE)
+    build_s = time.perf_counter() - t0
+    queries = ingest_queries(rt, d)
+
+    def config(join):
+        return rt.ExecConfig(policy=rt.BackendPolicy(join=join,
+                                                     **SLICE_POLICY))
+    tag = {"set": "ingest"}
+    runs = {}
+    with recording_launches(ops, ref, build, spatial_join, tag,
+                            rank_inputs=True) as rec:
+        ops.reset_launch_counts()
+        retries = ops.pair_capacity_retries
+        for join in ("fused", "kernel"):
+            eng = rt.StreakEngine(d.store, config(join), device="cuda")
+            for name, q in queries.items():
+                runs[join, name] = eng.execute(q)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        retries = ops.pair_capacity_retries - retries
+    require_launched("the ingested store", launches,
+                     ("bucketed_min_core", "merge_join_ranks",
+                      "tree_descend"))
+    require_recorded("ingest", launches, rec, retries)
+    full = {name: FullScanEngine(d.store).execute(q)
+            for name, q in queries.items()}
+    rows = []
+    for (join, name), got in runs.items():
+        cpu = rt.StreakEngine(d.store, config(join), device="cpu")
+        if not same_answer(got, cpu.execute(queries[name])):
+            raise AssertionError(f"ingest {join} {name}: the card differs "
+                                 "from the CPU")
+        want = full[name]
+        ok = np.array_equal(got[0], want[0]) and (
+            name == "topk" or all(np.array_equal(got[1][c], want[1][c])
+                                  for c in want[1]))
+        if not ok or len(got[0]) == 0:
+            raise AssertionError(f"ingest {join} {name}: {len(got[0])} rows,"
+                                 " not the full scan's")
+        rows.append(dict(join=join, query=name, rows=len(got[0])))
+    cpu_full = FullScanEngine(d.store, device="cpu")
+    for name, q in queries.items():
+        if not same_answer(full[name], cpu_full.execute(q)):
+            raise AssertionError(f"ingest full scan {name}: the card differs "
+                                 "from the CPU")
+    replay_recorded(ops, ref, rec, cases, "ingest",
+                    required=("bucketed_min_core", "merge_join_ranks",
+                              "tree_descend"))
+    out = dict(n_stops=d.n_stops, numeric=d.numeric_columns,
+               strings=d.string_columns, build_s=build_s, queries=rows,
+               launches={n: launches[n] for n in STREAK_KERNELS})
+    print("ingest " + json.dumps(out), flush=True)
+    return out
+
+
+# ------------------------------------------------ the differential fuzzer --
+FUZZ_QUERIES, FUZZ_SEED, FUZZ_FAULT_RATE = 50, 2026, 0.05
+
+
+def fuzz_agrees(kind, got, want) -> bool:
+    """Top-k: the same sorted scores, as many rows; a shape: the same
+    scores and rows in canonical order."""
+    if kind == "topk":
+        return (np.array_equal(np.sort(got[0]), np.sort(want[0]))
+                and all(len(v) == len(got[0]) for v in got[1].values()))
+    return (np.array_equal(got[0], want[0])
+            and sorted(got[1].keys()) == sorted(want[1].keys())
+            and all(np.array_equal(got[1][c], want[1][c]) for c in want[1]))
+
+
+def check_fuzz(rt, ops, ref, build, spatial_join, fault, sets,
+               cases) -> dict:
+    """`FUZZ_QUERIES` random queries (`fuzz_queries.sample`, the
+    differential tests' generator) over the fuzzer's stores (`make_lgd(60)`
+    at seeds 0 and 1), each under the accelerator policy with the fused or
+    the matrix join on the card, with the counts set to 0 before and read
+    after: every STREAK kernel launched, every launch one recorded call,
+    replayed bit for bit ("case" lines with "path": "fuzz"). After the
+    counts are read, every answer equal to the same query on the CPU and
+    to the full scan on the card. Then the same queries under
+    `FaultPlan(rate=FUZZ_FAULT_RATE, seed=7)`: the same answers, at least
+    one fallback, no exhausted chain. The fault layer and the fallback
+    counts are reset after."""
+    from repro_torch.core.baselines import FullScanEngine
+    from repro_torch.data import fuzz_queries
+    rng = np.random.default_rng(FUZZ_SEED)
+    queries = []
+    for i in range(FUZZ_QUERIES):
+        seed = int(rng.integers(2))
+        kind, params, q = fuzz_queries.sample(sets[seed].ns, rng)
+        queries.append(dict(seed=seed, kind=kind, params=params, q=q,
+                            join=("fused", "kernel")[i % 2]))
+
+    def run_all(device="cuda") -> list:
+        out = []
+        for c in queries:
+            cfg = rt.ExecConfig(policy=rt.BackendPolicy(
+                join=c["join"], **SLICE_POLICY), fused_batch_cols=256)
+            out.append(rt.StreakEngine(sets[c["seed"]].store, cfg,
+                                       device=device).execute(c["q"]))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return out
+
+    tag = {"set": "fuzz"}
+    t0 = time.perf_counter()
+    with recording_launches(ops, ref, build, spatial_join, tag,
+                            rank_inputs=True) as rec:
+        ops.reset_launch_counts()
+        retries = ops.pair_capacity_retries
+        clean = run_all()
+        launches = dict(ops.LAUNCHES)
+        retries = ops.pair_capacity_retries - retries
+    clean_s = time.perf_counter() - t0
+    require_launched("the fuzzer's queries", launches, STREAK_KERNELS)
+    require_recorded("fuzz", launches, rec, retries)
+    oracle = [FullScanEngine(sets[c["seed"]].store).execute(c["q"])
+              for c in queries]
+    for i, (c, got, want, cpu) in enumerate(zip(queries, clean, oracle,
+                                                 run_all("cpu"))):
+        if not same_answer(got, cpu):
+            raise AssertionError(f"fuzz #{i} {c['kind']} {c['params']} "
+                                 f"{c['join']}: the card differs from the "
+                                 "CPU")
+        if not fuzz_agrees(c["kind"], got, want):
+            raise AssertionError(f"fuzz #{i} {c['kind']} {c['params']} "
+                                 f"{c['join']}: STREAK differs from the "
+                                 "full scan")
+    replay_recorded(ops, ref, rec, cases, "fuzz")
+    del rec
+    t0 = time.perf_counter()
+    fault.STATE.reset()
+    ops.reset_launch_counts()
+    plan = fault.FaultPlan(rate=FUZZ_FAULT_RATE, seed=7)
+    with fault.fault_plan(plan):
+        faulted = run_all()
+    st = dataclasses.asdict(fault.STATE.stats)
+    fallback_launches = {k: v for k, v in ops.LAUNCHES.items() if ":" in k}
+    fault_s = time.perf_counter() - t0
+    for i, (c, got, want) in enumerate(zip(queries, faulted, oracle)):
+        if not fuzz_agrees(c["kind"], got, want):
+            raise AssertionError(f"fuzz #{i} {c['kind']} {c['params']} "
+                                 f"{c['join']}: under the fault rate STREAK "
+                                 "differs from the full scan")
+    if plan.injected < 1 or st["fallbacks"] < 1 or st["exhausted"]:
+        raise AssertionError(f"fuzz fault lane: {plan.injected} injected, "
+                             f"stats {st}")
+    fault.STATE.reset()
+    ops.reset_launch_counts()
+    out = dict(queries=len(queries),
+               kinds=dict(collections.Counter(c["kind"] for c in queries)),
+               rows=sum(len(r[0]) for r in clean),
+               empty=sum(len(r[0]) == 0 for r in clean),
+               launches={n: launches[n] for n in STREAK_KERNELS},
+               clean_s=clean_s, fault_rate=FUZZ_FAULT_RATE,
+               injected=plan.injected, fault_stats=st,
+               fallback_launches=fallback_launches, fault_s=fault_s)
+    print("fuzz " + json.dumps(out), flush=True)
+    return out
+
+
+ANALYTICS_STEADY = ("plan_n", "plan_s", "join_rows", "early", "same")
+
+
+def check_analytics(ops, ref, build, spatial_join, cases) -> dict:
+    """One `python -m repro_torch.launch.analytics --n 2000` run in this
+    process, with the counts set to 0 before and read after and the full
+    scan's launches told apart from STREAK's (`FullScanEngine.execute`
+    wrapped): STREAK's scores equal the full scan's on every query,
+    STREAK's own refinement, rank, descent and Bloom launches (the default
+    policy, whose Phase-3 join is the host's), every launch one recorded
+    call, replayed bit for bit ("case" lines per engine). Then the same
+    run on the CPU: each query's plans, join rows, early stop and
+    agreement equal."""
+    from repro_torch.core.baselines import FullScanEngine
+    from repro_torch.launch import analytics
+    tag = {"set": "analytics streak"}
+    full_launches = collections.Counter()
+    execute = FullScanEngine.execute
+
+    def full_execute(self, q):
+        before = dict(ops.LAUNCHES)
+        tag["set"] = "analytics fullscan"
+        try:
+            return execute(self, q)
+        finally:
+            tag["set"] = "analytics streak"
+            full_launches.update({n: ops.LAUNCHES[n] - before[n]
+                                  for n in STREAK_KERNELS})
+    with recording_launches(ops, ref, build, spatial_join, tag,
+                            rank_inputs=True) as rec:
+        FullScanEngine.execute = full_execute
+        try:
+            ops.reset_launch_counts()
+            retries = ops.pair_capacity_retries
+            r = analytics.main(["--n", "2000"])
+            torch.cuda.synchronize()
+            launches = dict(ops.LAUNCHES)
+            retries = ops.pair_capacity_retries - retries
+        finally:
+            FullScanEngine.execute = execute
+    require_recorded("analytics", launches, rec, retries)
+    streak = {n: launches[n] - full_launches[n] for n in STREAK_KERNELS}
+    require_launched("the analytics launcher's STREAK runs", streak,
+                     ("bucketed_min_core", "merge_join_ranks", "tree_descend",
+                      "bloom_probe"))
+    if len(r["queries"]) != 8 or not all(q["same"] for q in r["queries"]):
+        raise AssertionError("analytics: STREAK and the full scan disagree")
+    cpu = analytics.analytics(2000, "cpu")
+    for qi, (got, want) in enumerate(zip(r["queries"], cpu["queries"])):
+        got, want = ({k: x[k] for k in ANALYTICS_STEADY} for x in (got, want))
+        if got != want:
+            raise AssertionError(f"analytics Q{qi + 1}: the card's {got}, "
+                                 f"the CPU's {want}")
+    replay_recorded(ops, ref, rec, cases, "analytics",
+                    required=("bucketed_min_core", "merge_join_ranks",
+                              "tree_descend", "bloom_probe"), by_set=True)
+    out = dict(n_quads=r["n_quads"], device=r["device"], launches=streak,
+               fullscan_launches=dict(full_launches), queries=r["queries"])
+    print("analytics " + json.dumps(out), flush=True)
+    return out
+
+
 # ------------------------------------------------- the LM serving stack --
 # Full-width gemma-7b (bf16) agreements are held to a relative RMS error,
 # ||got - want|| / ||want|| over all elements, of at most LM_REL_TOL; see
@@ -2835,6 +3322,8 @@ def main() -> None:
         "scale1m": (synth_rdf.make_scale(1_000_000, seed=0), 2),
     }
     lgd = datasets["lgd"][0]
+    yago = synth_rdf.make_yago(n_places=600, seed=1, block=128)
+    baseline_sets = {"lgd": lgd, "yago": yago}
     for name, (ds, _) in datasets.items():
         print(f"data {name}: {ds.store.n_quads} quads, "
               f"{ds.store.tree.n_objects} spatial, "
@@ -2858,6 +3347,11 @@ def main() -> None:
     for row in serve_times:
         print("serve " + json.dumps(row), flush=True)
     phase_done("serve turns", t0)
+    t0 = time.perf_counter()
+    base_turns = baseline_turns(rt, baseline_sets)
+    for name, row in base_turns.items():
+        print(f"baseline turns {name} " + json.dumps(row), flush=True)
+    phase_done("baseline turns", t0)
 
     # ---- per-kernel phase: kernel vs plain version, bit for bit ----------
     t0 = time.perf_counter()
@@ -2899,8 +3393,7 @@ def main() -> None:
     # the main path over lgd and scale1m, and the YAGO queries, whose
     # object-position joins (Q5, Q6, Q8) reach the spatial variable through
     # an object
-    main_sets = dict(datasets, yago=(synth_rdf.make_yago(
-        n_places=600, seed=1, block=128), 8))
+    main_sets = dict(datasets, yago=(yago, 8))
     checked = {"fused": main_sets, "kernel": main_sets}
     with recording_launches(ops, ref, _build, spatial_join, tag) as rec:
         ops.reset_launch_counts()
@@ -3035,6 +3528,24 @@ def main() -> None:
     phase_done("failover", t0)
     require_clean_fault_layer(fault, ops, "after the failover phase")
 
+    # ---- the paper's baseline engines, ingested data, the fuzzer ----------
+    t0 = time.perf_counter()
+    baselines = check_baselines(rt, ops, ref, _build, spatial_join,
+                                baseline_sets, cases,
+                                entries["bucketed_min_core"])
+    phase_done("baselines", t0)
+    t0 = time.perf_counter()
+    ingested = check_ingest(rt, ops, ref, _build, spatial_join, cases)
+    phase_done("ingest", t0)
+    t0 = time.perf_counter()
+    fuzz = check_fuzz(rt, ops, ref, _build, spatial_join, fault, {
+        seed: synth_rdf.make_lgd(n_per_class=60, seed=seed, block=64)
+        for seed in (0, 1)}, cases)
+    phase_done("fuzz", t0)
+    t0 = time.perf_counter()
+    analytics_run = check_analytics(ops, ref, _build, spatial_join, cases)
+    phase_done("analytics", t0)
+
     # ---- the reference's kernel entry points (ops.block_scan, morton) ----
     t0 = time.perf_counter()
     scores = torch.from_numpy(np.random.default_rng(9).normal(
@@ -3106,7 +3617,11 @@ def main() -> None:
                      "flash_attention": prefill["flash_launches_per_call"]}
     kernels = [dict(entries[n], launches=path_launches[n], match=True,
                     serve_launches=serve["launches"].get(n, 0),
-                    sharded_launches=sharded["launches"].get(n, 0))
+                    sharded_launches=sharded["launches"].get(n, 0),
+                    baselines_launches=baselines["launches"].get(n, 0),
+                    ingest_launches=ingested["launches"].get(n, 0),
+                    fuzz_launches=fuzz["launches"].get(n, 0),
+                    analytics_launches=analytics_run["launches"].get(n, 0))
                for n in _build.KERNELS]
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -3119,7 +3634,9 @@ def main() -> None:
             descend_call_shapes=descend_shapes, traces=traces,
             rank_turns=rank_turns,
             ops_launches=ops_launches, spatial_serve=serve,
-            sharded=sharded, failover=failover,
+            sharded=sharded, failover=failover, baseline_turns=base_turns,
+            baselines=baselines, ingest=ingested, fuzz=fuzz,
+            analytics=analytics_run,
             serve_turns=serve_times, lm_prefill=prefill, lm_serve=lm_serve,
             lm_smoke_cuda_vs_cpu=smoke_lms, phase_seconds=phase_s),
             indent=1))

@@ -5,6 +5,8 @@
 - storage: QuadStore + permutation/numeric indexes (store), dictionary
 - engine: Query AST (query), planner, APS (aps), block executor (executor),
   top-k (topk), spatial join phases (spatial_join), query shapes (shapes)
+- baselines: sync R-tree join, full-scan engine (baselines, rtree); not
+  re-exported here, as in the reference
 - fault tolerance: failover chains, breakers, deadlines, injection (fault)
 - scale-out: Morton-prefix sharding + compressed E-list tier (shard)
 """

@@ -9,6 +9,7 @@ fires when the best possible remaining score key cannot beat theta.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
@@ -37,6 +38,9 @@ class ExecConfig:
     fused_batch_cols: int = 4096        # driven columns per fused-kernel call
     refine_chunk: int = 1024            # candidate pairs refined per θ check
     sip_lookahead: int = 8              # driver blocks per batched SIP call
+    # override of the Phase-3 MBR join (the baselines): called as
+    # fn(driver_boxes, driven_boxes, dist_norm, backend, stats) -> (i, j)
+    mbr_join_fn: Callable | None = None
     select_params: node_select.SelectParams = dataclasses.field(
         default_factory=node_select.SelectParams)
     cost_params: aps.CostParams = dataclasses.field(
@@ -612,7 +616,7 @@ class QueryCursor:
         dvn_ents, dvn_boxes = dvn_ents[ok], dvn_boxes[ok]
         if len(dvn_ents) == 0:
             return
-        if plan.join_backend == "fused":
+        if cfg.mbr_join_fn is None and plan.join_backend == "fused":
             # streaming fused path: driven columns arrive in score-key
             # order, each batch refined+scored+pushed before the next so
             # the θ the kernel prunes with tightens inside the block
@@ -641,14 +645,18 @@ class QueryCursor:
             # so same-shape tenants share it too; a cache hit skips the
             # per-launch JoinStats counters (they count work done, and a
             # hit does none)
+            # (an overriding join is never keyed: it need not be pure)
             sc = eng.share_cache
             key = None
-            if sc is not None:
+            if sc is not None and cfg.mbr_join_fn is None:
                 key = ("mbr", plan.join_backend, boxes.shape,
                        dvn_boxes.shape, boxes.tobytes(),
                        dvn_boxes.tobytes(), float(plan.dist_norm))
             if key is not None and key in sc:
                 pi, pj = sc[key]
+            elif cfg.mbr_join_fn is not None:
+                pi, pj = cfg.mbr_join_fn(boxes, dvn_boxes, plan.dist_norm,
+                                         plan.join_backend, stats.join)
             else:
                 pi, pj = spatial_join.mbr_distance_join(
                     boxes, dvn_boxes, plan.dist_norm, plan.join_backend,

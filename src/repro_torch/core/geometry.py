@@ -67,6 +67,12 @@ class Extent:
         return d_world / min(self.width, self.height)
 
 
+def point_boxes(xy: np.ndarray) -> np.ndarray:
+    """Degenerate MBRs for point data, shape (n, 2) -> (n, 4)."""
+    xy = np.asarray(xy, dtype=np.float64)
+    return np.concatenate([xy, xy], axis=1)
+
+
 def boxes_intersect(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """Pairwise-broadcast box intersection test. a: (..., 4), b: (..., 4)."""
     return (
@@ -106,6 +112,13 @@ def box_min_dist(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     dx = np.maximum(0.0, np.maximum(a[..., 0] - b[..., 2], b[..., 0] - a[..., 2]))
     dy = np.maximum(0.0, np.maximum(a[..., 1] - b[..., 3], b[..., 1] - a[..., 3]))
     return np.sqrt(dx * dx + dy * dy)
+
+
+def centroids(boxes: np.ndarray) -> np.ndarray:
+    return np.stack(
+        [(boxes[..., 0] + boxes[..., 2]) * 0.5, (boxes[..., 1] + boxes[..., 3]) * 0.5],
+        axis=-1,
+    )
 
 
 def euclid_dist(p: np.ndarray, q: np.ndarray) -> np.ndarray:

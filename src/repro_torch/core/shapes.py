@@ -9,7 +9,11 @@ uses: `plan_query` splits the sides, SIP Phases 1-2 run through
 I-Range/E-list material), Phase 3 goes through `mbr_distance_join` (any
 backend) and the bucketed exact-geometry kernel (`exact_pair_distance`),
 and relational assembly reuses the merge-join core. Every kernel runs on
-the engine's device. All backends give the same rows and scores.
+the engine's device. All backends give the same rows and scores. Each
+shape has a brute-force oracle in `core/baselines.py` (`FullScanEngine`)
+that must be bit-identical — the differential fuzzer
+(tests/test_torch_fuzz_queries.py) holds every backend and shard count
+to it.
 
 Shape semantics (geometries are the exact point sets in the CSR pool):
 
@@ -185,7 +189,10 @@ def _assemble_pairs(engine, plan: QueryPlan, drv_rel: Relation,
                     b_ents: np.ndarray, d: np.ndarray
                     ) -> tuple[np.ndarray, Relation]:
     """Join qualifying (a, b) entity pairs back through both sides' full
-    relations and order canonically with per-row pair distances."""
+    relations and order canonically with per-row pair distances. Shared
+    with the FullScan oracles (`engine` is then the `FullScanEngine`):
+    output assembly is plumbing, the candidate generation it consumes is
+    what the differential tests exercise."""
     a_var = plan.driver.entity_var
     b_var = plan.driven.entity_var
     pair_rel = Relation({a_var: a_ents, b_var: b_ents})

@@ -341,7 +341,8 @@ class SpatialServeEngine:
 
         # ---- phase B: APS + driven retrieval + Phase-3 -------------------
         batcher = None
-        if self.engine.config.policy.join == "fused":
+        if self.engine.config.policy.join == "fused" \
+                and self.engine.config.mbr_join_fn is None:
             batcher = _FusedJoinBatcher(self.engine.config.fused_batch_cols,
                                         tuner=self.engine.kcap_tuner,
                                         device=self.engine.device)

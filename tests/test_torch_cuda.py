@@ -531,6 +531,60 @@ def test_engine_on_cuda_equals_cpu(dev, join, probe_rank, monkeypatch):
         assert (ops.LAUNCHES[name] > 0) == (probe_rank == "kernel")
 
 
+def test_full_scan_on_cuda_equals_cpu(dev, monkeypatch):
+    """The full-scan oracle on the card answers as on the CPU over lgd
+    Q1-Q8, refining through the grouped refinement kernel; its largest
+    refinement launch, replayed, equals the plain version bit for bit."""
+    from repro_torch.core.baselines import FullScanEngine
+    ds = synth_rdf.make_lgd(n_per_class=600, seed=0, block=1024)
+    group_call = ops.bucketed_min_core_group
+    largest = {}
+
+    def recording(buf, group):
+        if group.n_rows > largest.get("rows", -1):
+            largest.update(rows=group.n_rows, buf=buf.clone(), group=group)
+        return group_call(buf, group)
+
+    monkeypatch.setattr(ops, "bucketed_min_core_group", recording)
+    ops.reset_launch_counts()
+    for q in ds.queries:
+        got = FullScanEngine(ds.store).execute(q)
+        want = FullScanEngine(ds.store, device="cpu").execute(q)
+        np.testing.assert_array_equal(got[0], want[0])
+        for c in want[1]:
+            np.testing.assert_array_equal(got[1][c], want[1][c])
+        assert dataclasses.asdict(got[2]) == dataclasses.asdict(want[2])
+    assert ops.LAUNCHES["bucketed_min_core"] > 0
+    assert ops.LAUNCHES["merge_join_ranks"] == 0      # host ranks
+    buf, group = largest["buf"], largest["group"]
+    assert buf.is_cuda and largest["rows"] > 1000
+    _equal([group_call(buf, group)],
+           [ref.bucketed_min_core_group_ref(buf, group.desc, group.dims)])
+
+
+@pytest.mark.parametrize("which", ["sync_rtree", "fixed_n", "fixed_s"])
+def test_baseline_engines_on_cuda_equal_cpu(dev, which):
+    from repro_torch.core.baselines import SyncRTreeEngine, fixed_plan_engine
+    ds = synth_rdf.make_lgd(n_per_class=600, seed=0, block=1024)
+    cfg = ExecConfig(policy=BackendPolicy(probe="kernel", rank="kernel",
+                                          descend="kernel"))
+    make = {"sync_rtree": lambda **kw: SyncRTreeEngine(ds.store, cfg, **kw),
+            "fixed_n": lambda **kw: fixed_plan_engine(ds.store, "N", cfg,
+                                                      **kw),
+            "fixed_s": lambda **kw: fixed_plan_engine(ds.store, "S", cfg,
+                                                      **kw)}[which]
+    ops.reset_launch_counts()
+    for q in ds.queries:
+        got = make().execute(q)
+        want = make(device="cpu").execute(q)
+        np.testing.assert_array_equal(got[0], want[0])
+        for c in want[1]:
+            np.testing.assert_array_equal(got[1][c], want[1][c])
+        assert dataclasses.asdict(got[2]) == dataclasses.asdict(want[2])
+    assert ops.LAUNCHES["bucketed_min_core"] > 0
+    assert ops.LAUNCHES["merge_join_ranks"] > 0
+
+
 SHAPE_FILTERS = {      # hotels <-> parks, as in tests/test_torch_shapes.py
     "range": dict(b=None, window=(15.0, 10.0, 70.0, 60.0)),
     "within": dict(b=None, dist=18.0, center=(50.0, 30.0)),

@@ -28,7 +28,9 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import repro_torch.kernels._build, repro_torch.data.synth_rdf\n"
         "import repro_torch.models.transformer, repro_torch.serve.engine\n"
         "import repro_torch.launch.serve, repro_torch.configs.registry\n"
-        "import repro_torch.serve.spatial\n"
+        "import repro_torch.serve.spatial, repro_torch.core.baselines\n"
+        "import repro_torch.core.rtree, repro_torch.data.ingest\n"
+        "import repro_torch.launch.analytics, repro_torch.data.fuzz_queries\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")
@@ -76,6 +78,44 @@ def test_serve_loop_defaults_to_cuda_and_raises_without_it(tiny,
     (req,) = srv.serve([tiny.queries[0]])
     assert req.done and req.error is None
     assert len(req.scores) and np.isfinite(req.scores).all()
+
+
+def test_baseline_engines_default_to_cuda_and_raise_without_it(tiny,
+                                                              monkeypatch):
+    from repro_torch.core.baselines import (FullScanEngine, SyncRTreeEngine,
+                                            fixed_plan_engine)
+    makers = {"FullScanEngine": FullScanEngine,
+              "SyncRTreeEngine": SyncRTreeEngine,
+              "fixed_plan_engine": lambda store, **kw: fixed_plan_engine(
+                  store, "S", **kw)}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    want = StreakEngine(tiny.store, device="cpu").execute(tiny.queries[0])[0]
+    for who, make in makers.items():
+        for kw in ({}, dict(device="cuda")):
+            with pytest.raises(RuntimeError, match=f"{who} runs on CUDA"):
+                make(tiny.store, **kw)
+        eng = make(tiny.store, device="cpu")
+        assert eng.device == torch.device("cpu")
+        scores, rows, stats = eng.execute(tiny.queries[0])
+        np.testing.assert_array_equal(np.sort(scores), np.sort(want))
+
+
+def test_analytics_launcher_refuses_to_start_without_cuda():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.analytics", "--n", "40"],
+        capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin",
+             "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0 and "CUDA" in out.stderr
+    assert "streak" not in out.stdout
+
+
+def test_analytics_launcher_runs_on_the_cpu_when_asked(capsys):
+    from repro_torch.launch import analytics
+    r = analytics.main(["--n", "40", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "on cpu" in out and out.count("ms ") >= 8
+    assert len(r["queries"]) == 8 and all(q["same"] for q in r["queries"])
 
 
 def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
