@@ -130,12 +130,30 @@ In order it:
    `ServeEngine` on the launcher's requests, request 0's decode logits held
    against the full forward over its prefix; then the three dense smoke
    configs (f32) on the card against the CPU;
+   then the MoE family: qwen2-moe-a2.7b (all 24 layers, 64 experts) and
+   qwen3-moe-30b-a3b (all 48 layers where the card holds them, else the
+   depth printed) at full width, bf16, random weights: the 4,096-token
+   prefill through the flash kernel against the plain path with the flash
+   pass's routing replayed, the SDPA control passing and the fp8 one
+   failing, the per-layer routing agreement of the free plain pass and the
+   pairs dropped at capacity ("moe prefill"); `ServeEngine` on qwen2-moe
+   with the launcher's requests, request 0's decode logits against the
+   prefill over its prefix with its routing replayed, two planted cache
+   faults failing ("moe serve"); the two MoE smokes card against CPU
+   ("moe smoke"); then training ("train"): the `tiny` preset and the MoE
+   smokes, six `Trainer` steps on the card against the CPU; gemma-7b (4 of
+   28 layers) and qwen2-moe (2 of 24) at full width, 4,096 tokens a step,
+   the first loss bit-equal to `lm_loss`, ms a step, tokens/s and peak
+   memory; and a `tiny` run saved, restored and continued, and one
+   recovered from an injected failure, bit-identical to the uninterrupted
+   run under deterministic algorithms;
 12. traces one more pass of each query set on the card: host ms per
    executor layer, device busy ms (by kind: each kernel, memcpy) and the
    device's idle share; then the LGD and 1M-quad sets (fused join) with
    the rank pass alone on numpy and on its kernel, in turns ("rank turn");
    then the Bloom bank uploads over the run and each pass's memcpy ms;
-13. prints the kernels line (JSON; `serve_launches`, `sharded_launches`,
+13. prints the kernels line (JSON; `moe_prefill_launches`,
+   `serve_launches`, `sharded_launches`,
    `baselines_launches`, `ingest_launches`, `fuzz_launches` and
    `analytics_launches` beside `launches`, tree_descend's `sharded`
    figures, bucketed_min_core's `fullscan_largest`), then the ok line
@@ -152,6 +170,7 @@ import ctypes
 import dataclasses
 import functools
 import json
+import math
 import pathlib
 import re
 import subprocess
@@ -1438,8 +1457,9 @@ def check_flash(ops, ref, dev, entry, cases):
     """The LM prefill's shape (gemma-7b: B=1, Hq=Hkv=16, S=4096, D=256,
     bf16, causal), in f32 too, then a sweep: nemotron's GQA (48/8, D=128),
     codeqwen's MHA (32/32, D=128), MQA (16/1, D=256) and gemma's heads at S
-    = 128, 256, 1024 (nemotron also 2048), f32 and bf16, causal and not;
-    each against the plain version within the reference's tolerance and,
+    = 128, 256, 1024 (nemotron also 2048), f32 and bf16, causal and not,
+    and the MoE prefills' heads (qwen2-moe 16/16, qwen3-moe 32/4, D=128)
+    at S = 4096, f32 and bf16, causal; each against the plain version within the reference's tolerance and,
     in bf16, within 2^-7 |want| + 1e-3 elementwise. Three planted faults at
     the prefill shape, computed by the plain version, must fail the bf16
     limit: the last kv tile (32 keys) skipped, q, k, v rounded to fp8
@@ -1454,9 +1474,11 @@ def check_flash(ops, ref, dev, entry, cases):
                                       ("mqa", 16, 1, 256),
                                       ("gemma", 16, 16, 256))
              for s in (128, 256, 1024)] + [("nemotron", 48, 8, 128, 2048)]
-    for name, hq, hkv, d, s in sweep:
+    moe_heads = [("qwen2-moe", 16, 16, 128, 4096),
+                 ("qwen3-moe", 32, 4, 128, 4096)]
+    for name, hq, hkv, d, s in sweep + moe_heads:
         for dtype in (torch.float32, torch.bfloat16):
-            for causal in (True, False):
+            for causal in ((True,) if s == 4096 else (True, False)):
                 q, k, v = _qkv(dev, dtype, 1, hq, hkv, s, d, seed=s + hq)
                 got = ops.flash_attention(q, k, v, causal)
                 want = ref.flash_attention_ref(q, k, v, causal)
@@ -1468,12 +1490,16 @@ def check_flash(ops, ref, dev, entry, cases):
                             elements_differing=int((got != want).sum()))
                 if dtype == torch.bfloat16:
                     case["max_err_over_limit"] = excess
-                    if causal:
-                        case.update(kernel_ms(
-                            lambda: ops.flash_attention(q, k, v, causal),
-                            "flash_attention_kernel", 5))
-                        case["bound_ms"], case["bound_by"] = flash_bound(
-                            q, k, causal)
+                if causal and (dtype == torch.bfloat16 or s == 4096):
+                    case.update(kernel_ms(
+                        lambda: ops.flash_attention(q, k, v, causal),
+                        "flash_attention_kernel", 5))
+                    case["bound_ms"], case["bound_by"] = flash_bound(
+                        q, k, causal)
+                if s == 4096:                   # the MoE prefills' shapes
+                    case["plain_ms"] = time_ms(
+                        lambda: ref.flash_attention_ref(q, k, v, causal), 2)
+                    print("flash moe " + json.dumps(case), flush=True)
                 cases.append(case)
     b, h, s, d = 1, 16, 4096, 256
     q, k, v = _qkv(dev, torch.float32, b, h, h, s, d, seed=1)
@@ -1532,12 +1558,18 @@ def check_flash(ops, ref, dev, entry, cases):
         library_max_err_over_limit=lib_excess,
         library_note="F.scaled_dot_product_attention(is_causal=True, "
                      "enable_gqa=True), device time")
-    entry["tflops"] = flash_ops(q, True) / entry["device_ms"] / 1e9
-    entry["bound_share"] = entry["bound_ms"] / entry["device_ms"]
+    # the trace's time where the trace holds the kernel (it drops spans
+    # now and then), else the events'
+    t_ms, clock = ((entry["device_ms"], "trace")
+                   if entry["device_ms"] is not None
+                   else (entry["event_ms"], "events"))
+    entry["tflops"] = flash_ops(q, True) / t_ms / 1e9
+    entry["bound_share"] = entry["bound_ms"] / t_ms
+    entry["rate_clock"] = clock
     print("flash planted faults " + json.dumps(faults), flush=True)
     print(f"flash rate: {entry['tflops']:.1f} TFLOP/s of the algorithm's "
           f"{flash_ops(q, True) / 1e9:.1f} GFLOP, {entry['bound_share']:.3f}"
-          f" of the bound", flush=True)
+          f" of the bound (by {clock})", flush=True)
 
 
 # ------------------------------------------------------- end-to-end phase --
@@ -2949,14 +2981,10 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((g - w).norm() / w.norm())
 
 
-def tree_leaves(tree: dict) -> list:
-    return [x for v in tree.values()
-            for x in (tree_leaves(v) if isinstance(v, dict) else [v])]
-
-
-def tree_to(tree: dict, dev) -> dict:
-    return {k: tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
-            for k, v in tree.items()}
+def tree_to(tree: dict, dev, copy: bool = False) -> dict:
+    """`tree`'s tensors on `dev`, detached; with `copy`, always new ones."""
+    from repro_torch import pytree
+    return pytree.tree_map(lambda x: x.detach().to(dev, copy=copy), tree)
 
 
 def traced(fn) -> dict:
@@ -3000,6 +3028,7 @@ def check_lm_prefill(ops, ref, tr, cfg, params, dev,
     config's, q, k and v rounded to fp8 (e4m3, 2^-4 relative; 8.6e-2 in
     that run), must fail it. Layer 0's caches precede any attention and
     must be bit-identical."""
+    from repro_torch import pytree
     tok = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (1, seq))).to(dev)
     ops.reset_launch_counts()
@@ -3066,8 +3095,8 @@ def check_lm_prefill(ops, ref, tr, cfg, params, dev,
     # least time: the weights read once, and the layers' products (2
     # operations a weight a token; the embedding is gathered and the head
     # meets the last token only) plus causal attention at the bf16 rate
-    leaves = tree_leaves(params)
-    n_weights = sum(x.numel() for x in tree_leaves(params["layers"]))
+    leaves = pytree.leaves(params)
+    n_weights = sum(x.numel() for x in pytree.leaves(params["layers"]))
     n_ops = (2 * tok.numel() * n_weights + cfg.n_layers * 4 * cfg.n_heads
              * seq * seq * cfg.head_dim / 2)
     bnd, by = bound_ms(sum(x.numel() * x.element_size() for x in leaves),
@@ -3108,11 +3137,31 @@ def with_planted_fault(mod, name: str, old: str, new: str):
     return namespace[name]
 
 
-def serve_decode_errors(tr, cfg, params, dev, decode_step=None) -> dict:
+# the engine steps that advance request 0 (slot 0): its three prompt steps,
+# then (after slots 1-3's prompts) the eight pool steps; position i at
+# SLOT0_STEPS[i]
+SLOT0_STEPS = list(range(3)) + list(range(12, 20))
+
+
+def planted_decode(tr, ffn, old: str, new: str):
+    """A decode step (params, cache, tokens, pos, cfg) through
+    `tr.decode` with a planted fault (`with_planted_fault`) and the
+    feed-forward half `ffn`."""
+    decode = with_planted_fault(tr, "decode", old, new)
+    return lambda p, c, t, q, cfg: decode(p, c, t, q, cfg, ffn)
+
+
+def serve_decode_errors(tr, cfg, params, dev, decode_step=None,
+                        compare: bool = True, inputs: list | None = None
+                        ) -> dict:
     """`ServeEngine` on the launcher's requests (4 slots, all active),
     through `decode_step` (the model's own unless given). Request 0's
     decode-step logits (its three prompt steps and its eight pool steps)
-    against `forward` + `logits_fn` over its own prefix on the card."""
+    against `forward` + `logits_fn` over its own prefix on the card, unless
+    `compare` is off (the caller compares). With `inputs`, each step's
+    inputs (a copy of the cache it was given, its tokens and positions,
+    copied before the step's clock starts) and its logits (all slots) are
+    appended to it, on the card."""
     from repro_torch.launch import serve as launch
     from repro_torch.serve.engine import ServeEngine
     eng = ServeEngine(tr, params, cfg, max_batch=launch.SLOTS,
@@ -3123,12 +3172,18 @@ def serve_decode_errors(tr, cfg, params, dev, decode_step=None) -> dict:
             lambda p, c, t, q: decode_step(p, c, t, q, cfg))
 
     def recorded(p, c, tokens, pos):
+        if inputs is not None:
+            inputs.append(dict(k=c["k"].clone(), v=c["v"].clone(),
+                               tokens=tokens.clone(), pos=pos.clone()))
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, c = step(p, c, tokens, pos)
         torch.cuda.synchronize()
         steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
                           token0=int(tokens[0]), pos0=int(pos[0]),
                           logits0=logits[0].float().cpu()))
+        if inputs is not None:
+            inputs[-1]["logits"] = logits.float()
         return logits, c
     eng._step = recorded
     torch.cuda.synchronize()
@@ -3144,11 +3199,13 @@ def serve_decode_errors(tr, cfg, params, dev, decode_step=None) -> dict:
                              f"{[len(r.out) for r in reqs]}")
     seq = reqs[0].prompt + reqs[0].out
     errs = []
-    for i in list(range(3)) + list(range(12, 20)):
+    for i in SLOT0_STEPS:
         s = steps[i]
-        if s["token0"] != seq[s["pos0"]]:
+        if s["token0"] != seq[s["pos0"]] or s["pos0"] != SLOT0_STEPS.index(i):
             raise AssertionError(f"serve step {i}: slot 0 fed {s['token0']}"
                                  f" at {s['pos0']}, not {seq[s['pos0']]}")
+        if not compare:
+            continue
         prefix = torch.tensor([seq[:s["pos0"] + 1]], device=dev)
         want = tr.logits_fn(params, tr.forward(params, prefix, cfg)[:, -1],
                             cfg)[0].float().cpu()
@@ -3166,13 +3223,15 @@ def check_lm_serve(tr, cfg, params, dev) -> dict:
     one position early (pos - 1) in every layer, and the write lost in one
     layer (the middle one), which leaves that layer's earlier rows at the
     cache's initial zeros."""
+    from repro_torch import pytree
     from repro_torch.launch import serve as launch
     run = serve_decode_errors(tr, cfg, params, dev)
     reqs, steps, errs = run["requests"], run["steps"], run["errors"]
     wall_s = run["wall_s"]
     n_tok = sum(len(r.out) for r in reqs)
     pool_ms = [s["ms"] for s in steps[12:]]
-    n_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    n_bytes = sum(x.numel() * x.element_size()
+                  for x in pytree.leaves(params))
     cache = run["engine"].cache
     tokens = torch.zeros(launch.SLOTS, dtype=torch.int32, device=dev)
     pos = torch.full((launch.SLOTS,), 11, dtype=torch.int32, device=dev)
@@ -3189,8 +3248,8 @@ def check_lm_serve(tr, cfg, params, dev) -> dict:
     faults = {}
     for fault, (old, new) in planted.items():
         bad = serve_decode_errors(
-            tr, cfg, params, dev,
-            with_planted_fault(tr, "decode_step", old, new))["errors"]
+            tr, cfg, params, dev, planted_decode(tr, tr._ffn, old,
+                                                 new))["errors"]
         faults[fault] = dict(decode_vs_forward_rel_err=bad,
                              max_rel_err=max(bad))
     report = dict(requests=len(reqs), tokens=n_tok, wall_s=wall_s,
@@ -3212,18 +3271,24 @@ def check_lm_serve(tr, cfg, params, dev) -> dict:
     return report
 
 
-def check_lm_cuda_vs_cpu(ops, tr, dev) -> list:
-    """The three dense SMOKE configs (f32): flash prefill at B=2 x S=128 and
-    the launcher's requests through `ServeEngine`, on the card and on the
-    CPU, every logit within SMOKE_TOL = 1e-4 (absolute and relative): the
-    f32 products sum in other orders on the two devices (~1e-6 here), while
-    TF32 (10 bits of mantissa, ~1e-3) would fail it."""
+def check_lm_cuda_vs_cpu(ops, dev, family: str = "lm") -> list:
+    """The SMOKE configs (f32) of a family (the dense "lm" or "moe"): flash
+    prefill at B=2 x S=128 where the head dim is one the kernel takes (the
+    plain attention elsewhere: qwen3-moe's 16), the launcher's requests
+    through `ServeEngine` and `lm_loss` over 2 x 65 tokens, on the card and
+    on the CPU, every logit and loss within SMOKE_TOL = 1e-4 (absolute and
+    relative): the f32 products sum in other orders on the two devices
+    (~1e-6 here), while TF32 (10 bits of mantissa, ~1e-3) would fail it."""
     from repro_torch.configs import registry
     from repro_torch.launch import serve as launch
     from repro_torch.serve.engine import ServeEngine
     out = []
-    for arch in registry.ARCHS:
-        cfg = dataclasses.replace(registry.get(arch).smoke, use_flash=True)
+    for arch in [a for a in registry.ARCHS
+                 if registry.get(a).family == family]:
+        smoke = registry.get(arch).smoke
+        flash = smoke.head_dim in ops.FLASH_HEAD_DIMS
+        cfg = dataclasses.replace(smoke, use_flash=flash)
+        tr = registry.model_module(cfg)
         params = tr.init_params(cfg, seed=0, device="cpu")
         tok = torch.from_numpy(np.random.default_rng(1).integers(
             0, cfg.vocab, (2, 128)))
@@ -3232,9 +3297,14 @@ def check_lm_cuda_vs_cpu(ops, tr, dev) -> list:
             p = tree_to(params, d)
             ops.reset_launch_counts()
             logits, cache = tr.forward_with_cache(p, tok.to(d), cfg)
-            if d.type == "cuda" and \
-                    ops.LAUNCHES["flash_attention"] != cfg.n_layers:
-                raise AssertionError(f"{arch} smoke: flash not launched")
+            if d.type == "cuda" and ops.LAUNCHES["flash_attention"] != (
+                    cfg.n_layers if flash else 0):
+                raise AssertionError(f"{arch} smoke: flash launched "
+                                     f"{ops.LAUNCHES['flash_attention']} "
+                                     f"times, flash {flash}")
+            with torch.no_grad():
+                loss = tr.lm_loss(p, tok[:, :65].to(d), dataclasses.replace(
+                    cfg, use_flash=False))
             eng = ServeEngine(tr, p, cfg, max_batch=launch.SLOTS,
                               max_seq=launch.MAX_SEQ, device=d)
             log = []
@@ -3242,8 +3312,8 @@ def check_lm_cuda_vs_cpu(ops, tr, dev) -> list:
             for r in launch.launcher_requests(cfg, 2):
                 eng.submit(r)
             eng.run()
-            runs.append([logits.cpu(), cache["k"].cpu(), cache["v"].cpu()]
-                        + log)
+            runs.append([logits.cpu(), cache["k"].cpu(), cache["v"].cpu(),
+                         loss.cpu()] + log)
         if len(runs[0]) != len(runs[1]):
             raise AssertionError(f"{arch} smoke: {len(runs[0])} results on "
                                  f"the card, {len(runs[1])} on the CPU")
@@ -3251,8 +3321,10 @@ def check_lm_cuda_vs_cpu(ops, tr, dev) -> list:
         for g, w in zip(*runs):
             torch.testing.assert_close(g, w, rtol=SMOKE_TOL, atol=SMOKE_TOL)
         out.append(dict(arch=arch, compared=len(runs[0]),
+                        attention="flash kernel" if flash else "plain",
                         max_abs_err=err, tolerance=SMOKE_TOL))
-        print("lm smoke " + json.dumps(out[-1]), flush=True)
+        print(f"{'lm' if family == 'lm' else 'moe'} smoke "
+              + json.dumps(out[-1]), flush=True)
     return out
 
 
@@ -3260,6 +3332,668 @@ def _logged(step, log, *args):
     logits, cache = step(*args)
     log.append(logits.cpu())
     return logits, cache
+
+
+# ----------------------------------------------------------- the MoE LM ---
+@contextlib.contextmanager
+def routing(moe, log: list, replay: bool = False):
+    """Record the experts `moe.route` picks, one (T, k) tensor a call in
+    call order (a layer a call), into `log`; or, with `replay`, make each
+    call pick the experts `log` holds for it instead of its own top-k, each
+    weighted by its own router probability renormalised over them (the
+    same weights when the choices agree). A replayed pass routes as the
+    recorded one did, so what still differs between the two is numerics."""
+    route = moe.route
+    it = iter(log)
+
+    def wrapped(lp, x, cfg):
+        probs, top_p, top_e = route(lp, x, cfg)
+        if not replay:
+            log.append(top_e)
+            return probs, top_p, top_e
+        top_e = next(it).to(x.device)
+        top_p = probs.gather(-1, top_e)
+        return probs, top_p / top_p.sum(-1, keepdim=True), top_e
+    moe.route = wrapped
+    try:
+        yield log
+    finally:
+        moe.route = route
+
+
+def dropped_pairs(top_e: torch.Tensor, cfg) -> int:
+    """Token-expert pairs past their expert's capacity in one routing."""
+    from repro_torch.models import moe
+    counts = torch.bincount(top_e.reshape(-1), minlength=cfg.n_experts_padded)
+    cap = moe.capacity(top_e.shape[0], cfg)
+    return int((counts - cap).clamp(min=0).sum())
+
+
+def routing_agreement(a: list, b: list) -> list:
+    """Per layer, the share of (token, choice) slots whose expert is the
+    same in two routings of the same tokens (each token's k sorted)."""
+    return [float((x.sort(-1).values == y.sort(-1).values).float().mean())
+            for x, y in zip(a, b)]
+
+
+def moe_prefill_bound(params, cfg, seq: int, kept_pairs: int
+                      ) -> tuple[float, str]:
+    """The weights read once, and the products this run's routing needs:
+    2 operations a weight a token for attention, router and shared experts,
+    2 a weight for each kept token-expert pair, causal attention, the head
+    for the last token, at the bf16 rate."""
+    from repro_torch import pytree
+    lay = params["layers"]
+    dense = sum(lay[n][0].numel() for n in ("wq", "wk", "wv", "wo", "router",
+                                            "ws_gate", "ws_up", "ws_down")
+                if n in lay)
+    expert = 3 * cfg.d_model * cfg.d_ff_expert
+    head = cfg.vocab * cfg.d_model
+    n_ops = (2 * seq * dense * cfg.n_layers + 2 * kept_pairs * expert
+             + cfg.n_layers * 4 * cfg.n_heads * seq * seq * cfg.head_dim / 2
+             + 2 * head)
+    n_bytes = sum(x.numel() * x.element_size()
+                  for x in pytree.leaves(params))
+    return bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+
+
+def check_moe_prefill(ops, ref, moe, cfg, params, dev,
+                      seq: int = 4096) -> dict:
+    """A MoE arch's prefill at full width, B=1 x S=4096: `forward_with_cache`
+    through the flash kernel against the plain path (attn_chunk=2048),
+    within LM_REL_TOL on the last-token logits and on every layer's K/V,
+    with the SDPA control that must pass that check on both and the fp8
+    control that must fail it (check_lm_prefill's reasons). The fp8
+    control is held to fail on the caches: on qwen3-moe its last-token
+    logits stay under the tolerance (0.038) while its caches
+    do not (0.064), so there the logits alone do not tell fp8 attention
+    from the kernel, and only the caches do (NVIDIA H100 80GB HBM3,
+    700.00 W). The router's top-k is discrete: a logit that moves by the
+    attention's rounding can swap an expert, and the swap changes that
+    token's FFN output by far more than the rounding did, then every later
+    layer's input. So the plain path and the controls
+    run with the flash pass's routing replayed (`routing`), which holds the
+    kernel's numerics to the tolerance; the plain path with its own routing
+    is run too and reported beside it, with the per-layer share of routing
+    choices equal between the two and the pairs dropped at capacity. Layer
+    0's caches precede any attention and must be bit-identical."""
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, seq))).to(dev)
+    plain_cfg = dataclasses.replace(cfg, use_flash=False, attn_chunk=2048)
+    ops.reset_launch_counts()
+    with routing(moe, []) as flash_route:
+        logits_f, cache_f = moe.forward_with_cache(params, tok, cfg)
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["flash_attention"]
+    if launches != cfg.n_layers:
+        raise AssertionError(f"{cfg.name} prefill launched flash_attention "
+                             f"{launches} times, not {cfg.n_layers}")
+    with routing(moe, []) as plain_route:
+        logits_pf, cache_pf = moe.forward_with_cache(params, tok, plain_cfg)
+    with routing(moe, flash_route, replay=True):
+        logits_p, cache_p = moe.forward_with_cache(params, tok, plain_cfg)
+    with routing(moe, flash_route, replay=True):
+        hidden, _ = moe.forward(params, tok, cfg)
+    logits_fw = moe.transformer.logits_fn(params, hidden[:, -1], cfg)
+    del hidden
+
+    def cache_err(c, want):
+        return max(rel_err(c[n][i], want[n][i]) for n in ("k", "v")
+                   for i in range(cfg.n_layers))
+    errs = dict(
+        logits_vs_plain=rel_err(logits_f, logits_p),
+        logits_vs_forward=rel_err(logits_f, logits_fw),
+        cache_vs_plain=cache_err(cache_f, cache_p),
+        free_routing_logits_vs_plain=rel_err(logits_f, logits_pf),
+        free_routing_cache_vs_plain=cache_err(cache_f, cache_pf),
+        free_routing_cache_by_layer=[max(
+            rel_err(cache_f[n][i], cache_pf[n][i]) for n in ("k", "v"))
+            for i in range(cfg.n_layers)])
+    layer0_equal = all(torch.equal(cache_f[n][0], cache_p[n][0])
+                       for n in ("k", "v"))
+    del cache_pf
+
+    def fp8_attention(q, k, v, causal=True):
+        r8 = [x.to(torch.float8_e4m3fn).to(x.dtype) for x in (q, k, v)]
+        return ref.flash_attention_ref(*r8, causal)
+
+    def library_attention(q, k, v, causal=True):
+        import torch.nn.functional as F
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                              enable_gqa=True)
+    flash = ops.flash_attention
+    for name, attention in (("fp8", fp8_attention),
+                            ("sdpa", library_attention)):
+        ops.flash_attention = attention
+        try:
+            with routing(moe, flash_route, replay=True):
+                logits_c, cache_c = moe.forward_with_cache(params, tok, cfg)
+        finally:
+            ops.flash_attention = flash
+        errs[f"control_{name}_logits"] = rel_err(logits_c, logits_p)
+        errs[f"control_{name}_cache"] = cache_err(cache_c, cache_p)
+        del cache_c
+    del cache_f, cache_p
+
+    def prefill(c):
+        def run():
+            t0 = time.perf_counter()
+            moe.forward_with_cache(params, tok, c)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+        return run
+    runs: dict = {"flash": [], "plain": []}
+    for path in ("flash", "plain", "flash", "plain", "flash"):   # in turns
+        runs[path].append(prefill(cfg if path == "flash" else plain_cfg)())
+    trace = traced(prefill(cfg))
+    agreement = routing_agreement(flash_route, plain_route)
+    drops = dict(flash=[dropped_pairs(e, cfg) for e in flash_route],
+                 plain=[dropped_pairs(e, cfg) for e in plain_route])
+    kept = seq * cfg.top_k * cfg.n_layers - sum(drops["flash"])
+    bnd, by = moe_prefill_bound(params, cfg, seq, kept)
+    report = dict(
+        arch=cfg.name, layers=cfg.n_layers, tokens=seq,
+        capacity=moe.capacity(seq, cfg), flash_launches_per_call=launches,
+        flash_ms=runs["flash"], plain_ms=runs["plain"], bound_ms=bnd,
+        bound_by=by, trace=trace, errors=errs,
+        layer0_cache_equal=layer0_equal, tolerance_rel=LM_REL_TOL,
+        routing_agreement_by_layer=agreement,
+        routing_agreement_min=min(agreement), dropped_pairs_by_layer=drops,
+        pairs_per_layer=seq * cfg.top_k)
+    print("moe prefill " + json.dumps(report), flush=True)
+    for key in ("logits_vs_plain", "logits_vs_forward", "cache_vs_plain"):
+        if not errs[key] <= LM_REL_TOL:
+            raise AssertionError(f"moe prefill {cfg.name} {key}: "
+                                 f"{errs[key]} > {LM_REL_TOL}")
+    if not layer0_equal:
+        raise AssertionError(f"moe prefill {cfg.name}: layer 0 caches differ")
+    # the controls: PyTorch's bf16 attention must pass the check on logits
+    # and caches; fp8 attention must fail it on the caches, the part of
+    # the check that separates it on every MoE arch (see the docstring)
+    if not errs["control_fp8_cache"] > LM_REL_TOL:
+        raise AssertionError("moe prefill: the fp8-attention control's "
+                             "caches pass the tolerance, which is then too "
+                             "loose")
+    if not max(errs["control_sdpa_logits"],
+               errs["control_sdpa_cache"]) <= LM_REL_TOL:
+        raise AssertionError("moe prefill: PyTorch's bf16 attention fails "
+                             "the tolerance, which is then too tight")
+    return report
+
+
+def moe_depth_that_fits(moe, cfg, headroom: float = 12e9) -> int:
+    """All of cfg's layers if their weights and `headroom` bytes of
+    activations fit in the card's free memory, else as many as do."""
+    from repro_torch import pytree
+    shapes = moe.param_shapes(cfg)
+    size = torch.tensor([], dtype=cfg.torch_dtype).element_size()
+    per_layer = size * sum(math.prod(s[1:]) for s in pytree.leaves(
+        shapes["layers"]))
+    base = size * sum(math.prod(shapes[k]) for k in ("embed", "lm_head")
+                      if k in shapes)
+    free, _ = torch.cuda.mem_get_info()
+    return int(min(cfg.n_layers, (free - headroom - base) // per_layer))
+
+
+def init_moe(moe, cfg, full_layers: int, dev, kind: str) -> dict:
+    """Random weights from seed 0 on the card, with a line giving their
+    count, bytes and time, and the depth built of the published one."""
+    from repro_torch import pytree
+    t0 = time.perf_counter()
+    params = moe.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    leaves = pytree.leaves(params)
+    print(f"{cfg.name}: {sum(x.numel() for x in leaves)} parameters "
+          f"({cfg.n_experts_padded} experts, {cfg.n_layers} of "
+          f"{full_layers} layers built), "
+          f"{sum(x.numel() * x.element_size() for x in leaves)} bytes on "
+          f"{kind}, made in {time.perf_counter() - t0:.1f} s", flush=True)
+    return params
+
+
+@contextlib.contextmanager
+def planted_moe_ffn(moe, fault):
+    """`moe.moe_ffn` with a planted fault ((old, new), `with_planted_fault`)
+    while the block runs; nothing when `fault` is None. Compiled on entry,
+    so it calls the `route` in place then (`routing`'s, inside it)."""
+    if fault is None:
+        yield
+        return
+    fn = moe.moe_ffn
+    moe.moe_ffn = with_planted_fault(moe, "moe_ffn", *fault)
+    try:
+        yield
+    finally:
+        moe.moe_ffn = fn
+
+
+def plain_moe_decode_ffn(moe, top_es: list):
+    """A decode step's feed-forward half (`transformer.decode`'s `ffn`) done
+    the plain way, with the routing `top_es` replayed (a (B, k) tensor a
+    layer, in layer order): one token-expert pair at a time in (token,
+    choice) order, an expert's pairs past its capacity dropped, each kept
+    pair's expert output weighted by its router probability renormalised
+    over the replayed experts and summed in f32, then the shared experts.
+    No sort, no slot table, no scatter: a check of `moe_ffn`'s dispatch
+    and combine for every slot of the pool."""
+    from repro_torch.models.layers import activation
+    it = iter(top_es)
+
+    def ffn(lp, h2, cfg):
+        b, s, d = h2.shape
+        x = h2.reshape(b * s, d)
+        top_e = next(it)
+        logits = (x @ lp["router"]).float()
+        logits[:, cfg.n_experts:] = -1e30                # padding experts
+        probs = torch.softmax(logits, dim=-1)
+        top_p = probs.gather(-1, top_e)
+        top_p = top_p / top_p.sum(-1, keepdim=True)
+        cap = moe.capacity(b * s, cfg)
+        seen: collections.Counter = collections.Counter()
+        y = torch.zeros(b * s, d, dtype=torch.float32, device=x.device)
+        for t, experts in enumerate(top_e.tolist()):
+            for j, e in enumerate(experts):
+                seen[e] += 1
+                if seen[e] > cap:                 # past the expert's capacity
+                    continue
+                h = activation(x[t] @ lp["we_gate"][e], cfg.act) \
+                    * (x[t] @ lp["we_up"][e])
+                y[t] += top_p[t, j] * (h @ lp["we_down"][e]).float()
+        y = y.to(x.dtype).reshape(b, s, d)
+        if cfg.n_shared:
+            y = y + (activation(h2 @ lp["ws_gate"], cfg.act)
+                     * (h2 @ lp["ws_up"])) @ lp["ws_down"]
+        return y
+    return ffn
+
+
+def pool_step_errors(moe, cfg, params, inputs: list, log: list) -> list:
+    """Each recorded engine step (`serve_decode_errors`'s `inputs`) run
+    again on its copy of the cache through `transformer.decode` with
+    `plain_moe_decode_ffn` and the step's routing from `log`: per step, the
+    relative error of each slot's logits. Consumes the copies."""
+    L = cfg.n_layers
+    out = []
+    for i, x in enumerate(inputs):
+        cache = dict(k=x.pop("k"), v=x.pop("v"))
+        logits, _ = moe.transformer.decode(
+            params, cache, x["tokens"], x["pos"], cfg,
+            plain_moe_decode_ffn(moe, log[i * L:(i + 1) * L]))
+        out.append([rel_err(x["logits"][s], logits[s].float())
+                    for s in range(logits.shape[0])])
+        del cache
+    return out
+
+
+def moe_decode_step_bound(params, cfg, pos: torch.Tensor, top_es: list
+                          ) -> tuple[float, str]:
+    """The least time of one pool-wide decode step: the bytes it must move
+    (attention, router, norm and shared-expert weights of every layer, the
+    head, its tokens' embedding rows, the weights of the experts it routes
+    to in each layer: at capacity >= 1 every chosen expert keeps a pair;
+    each slot's cache read up to its position and its new row written; the
+    logits written), or its operations (2 a weight a token, 2 an expert
+    weight a kept pair, causal attention over each slot's prefix) at the
+    bf16 rate."""
+    from repro_torch import pytree
+    lay = params["layers"]
+    elt = lay["wq"].element_size()
+    b = pos.numel()
+    dense = sum(x[0].numel() for n in lay if not n.startswith("we_")
+                for x in pytree.leaves(lay[n]))
+    expert = 3 * cfg.d_model * cfg.d_ff_expert
+    head = params.get("lm_head", params["embed"]).numel()
+    final = sum(x.numel() for x in pytree.leaves(params["final_norm"]))
+    experts = sum(int(torch.unique(e).numel()) for e in top_es)
+    kept = sum(e.numel() - dropped_pairs(e, cfg) for e in top_es)
+    ctx = int((pos.long() + 1).sum())              # cache rows attended
+    row = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim
+    n_bytes = elt * (cfg.n_layers * dense + experts * expert + head + final
+                     + b * cfg.d_model + row * (ctx + b) + b * cfg.vocab)
+    n_ops = (2 * b * (cfg.n_layers * dense + head) + 2 * kept * expert
+             + cfg.n_layers * 4 * cfg.n_heads * cfg.head_dim * ctx)
+    return bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+
+
+# a dispatch fault that hands slots 1-3's expert outputs to one another
+# (1 -> 2 -> 3 -> 1 at 4 tokens) and leaves slot 0's alone
+SLOT_SWAP_FAULT = ("torch.where(keep, st, t)",
+                   "torch.where(keep, torch.where(st > 0, 1 + st % (t - 1), "
+                   "st), t)")
+
+
+def check_moe_serve(moe, cfg, params, dev) -> dict:
+    """`ServeEngine` on a MoE arch with the launcher's requests (4 slots; the
+    published configs give them capacity 1, so slots collide and later
+    slots' pairs are dropped). Two checks, each within LM_REL_TOL:
+
+    - Request 0 against prefill. Slot 0 comes first in every expert's
+      order, so its pairs are never dropped: each of its decode logits is
+      held to `forward_with_cache` over its prefix at a capacity that drops
+      nothing, with its own routing replayed (what decode routed for each
+      of its tokens, layer by layer; see check_moe_prefill). Reported
+      beside them: the prefill over the prefix with its own routing, at
+      that capacity and at the published one.
+    - Every slot against a plain MoE. Each engine step, all four slots'
+      logits, run again on a copy of the cache it was given with its
+      routing replayed through `plain_moe_decode_ffn`: slots 1-3's drops
+      at capacity 1 are checked at full width.
+
+    Faults planted in the code must fail them: check_lm_serve's two cache
+    faults the first, `SLOT_SWAP_FAULT` in `moe_ffn` (which the first
+    cannot see) the second. The step's bound (`moe_decode_step_bound`)
+    counts the experts each step routes to; reading every expert's
+    weights, as the batched products over all experts do, is reported as
+    `all_weights_read_ms`."""
+    from repro_torch import pytree
+    from repro_torch.launch import serve as launch
+    dropless = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    L = cfg.n_layers
+
+    def run(decode_step=None, inputs=None, ffn_fault=None):
+        with routing(moe, []) as log, planted_moe_ffn(moe, ffn_fault):
+            r = serve_decode_errors(moe, cfg, params, dev, decode_step,
+                                    compare=False, inputs=inputs)
+        return r, log
+
+    def slot0_errors(r, log, free_too: bool):
+        steps, seq = r["steps"], r["requests"][0].prompt + \
+            r["requests"][0].out
+        # slot 0's routing row in each layer, by position
+        rows = [[log[i * L + l][0] for l in range(L)] for i in SLOT0_STEPS]
+        errs, free = [], []
+        for n, i in enumerate(SLOT0_STEPS, start=1):
+            prefix = torch.tensor([seq[:n]], device=dev)
+            replay = [torch.stack([rows[p][l] for p in range(n)])
+                      for l in range(L)]
+            with routing(moe, replay, replay=True):
+                want = moe.forward_with_cache(params, prefix, dropless)[0]
+            errs.append(rel_err(steps[i]["logits0"], want[0].float().cpu()))
+            if free_too:                 # the prefill's own routing
+                free.append([rel_err(steps[i]["logits0"],
+                                     moe.forward_with_cache(
+                                         params, prefix, c)[0][0].float()
+                                     .cpu()) for c in (dropless, cfg)])
+        return errs, free
+
+    inputs: list = []
+    r, log = run(inputs=inputs)
+    errs, free = slot0_errors(r, log, True)
+    reqs, steps, wall_s = r["requests"], r["steps"], r["wall_s"]
+    drops = [sum(dropped_pairs(log[i * L + l], cfg) for l in range(L))
+             for i in range(len(steps))]
+    bounds = [moe_decode_step_bound(params, cfg, x["pos"],
+                                    log[i * L:(i + 1) * L])
+              for i, x in enumerate(inputs)]
+    all_slots = pool_step_errors(moe, cfg, params, inputs, log)
+    del inputs
+    n_tok = sum(len(q.out) for q in reqs)
+    pool_ms = [s["ms"] for s in steps[12:]]
+    n_bytes = sum(x.numel() * x.element_size()
+                  for x in pytree.leaves(params))
+    cache = r["engine"].cache
+    tokens = torch.zeros(launch.SLOTS, dtype=torch.int32, device=dev)
+    pos = torch.full((launch.SLOTS,), 11, dtype=torch.int32, device=dev)
+    trace = traced(lambda: moe.decode_step(params, cache, tokens, pos, cfg))
+    del r, cache
+    planted = {
+        "write_at_pos_minus_1": ("rows = pos.long()",
+                                 "rows = (pos.long() - 1).clamp(min=0)"),
+        "write_lost_in_one_layer": (
+            'k_cache, v_cache = cache["k"][i], cache["v"][i]',
+            'k_cache, v_cache = (cache["k"][i], cache["v"][i]) '
+            'if i != cfg.n_layers // 2 else '
+            '(cache["k"][i].clone(), cache["v"][i].clone())')}
+    faults = {}
+    for fault, (old, new) in planted.items():
+        bad = slot0_errors(*run(planted_decode(moe.transformer,
+                                               moe._decode_ffn, old, new)),
+                           False)[0]
+        faults[fault] = dict(decode_vs_forward_rel_err=bad,
+                             max_rel_err=max(bad))
+    bad_inputs: list = []
+    bad_r, bad_log = run(inputs=bad_inputs, ffn_fault=SLOT_SWAP_FAULT)
+    bad_slot0 = slot0_errors(bad_r, bad_log, False)[0]
+    bad_all = pool_step_errors(moe, cfg, params, bad_inputs, bad_log)
+    del bad_r, bad_inputs
+    faults["expert_outputs_swapped_among_slots_1_3"] = dict(
+        slot0_max_rel_err=max(bad_slot0),
+        all_slots_max_rel_err=max(map(max, bad_all)),
+        max_rel_err=max(map(max, bad_all)))
+    report = dict(arch=cfg.name, requests=len(reqs), tokens=n_tok,
+                  wall_s=wall_s, tokens_per_s=n_tok / wall_s,
+                  steps=len(steps), step_ms=[s["ms"] for s in steps],
+                  pool_step_ms_mean=float(np.mean(pool_ms)),
+                  capacity_at_4_slots=moe.capacity(launch.SLOTS, cfg),
+                  dropped_pairs_by_step=drops, weight_bytes=n_bytes,
+                  step_bound_ms=[b[0] for b in bounds],
+                  step_bound_by=sorted({b[1] for b in bounds}),
+                  pool_step_bound_ms_mean=float(np.mean(
+                      [b[0] for b in bounds[12:]])),
+                  all_weights_read_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+                  decode_vs_forward_rel_err=errs,
+                  all_slots_vs_plain_moe_rel_err=all_slots,
+                  all_slots_max_rel_err=max(map(max, all_slots)),
+                  free_routing_dropless_rel_err=[f[0] for f in free],
+                  free_routing_published_capacity_rel_err=[f[1] for f in free],
+                  decode_trace=trace, planted_faults=faults,
+                  tolerance_rel=LM_REL_TOL)
+    print("moe serve " + json.dumps(report), flush=True)
+    if not max(errs) <= LM_REL_TOL:
+        raise AssertionError(f"moe serve: decode logits differ from the "
+                             f"prefix prefill by {max(errs)} > {LM_REL_TOL}")
+    if not report["all_slots_max_rel_err"] <= LM_REL_TOL:
+        raise AssertionError(f"moe serve: a slot's logits differ from the "
+                             f"plain MoE's by "
+                             f"{report['all_slots_max_rel_err']} > "
+                             f"{LM_REL_TOL}")
+    for fault, f in faults.items():
+        if not f["max_rel_err"] > LM_REL_TOL:
+            raise AssertionError(f"moe serve: the planted fault {fault} "
+                                 f"passes the tolerance ({f['max_rel_err']})")
+    return report
+
+
+# ------------------------------------------------------------- training ---
+TRAIN_REL_TOL = 1e-4     # losses, card against CPU (f32 configs)
+
+
+def make_trainer(cfg, params, dev, ckpt_dir, seq: int, batch: int, **tcfg):
+    """A `Trainer` on `dev` over a copy of `params` (the caller's stay
+    as they are), and its batches from `TokenStream(vocab, seq, batch, 0)`:
+    the training launcher's settings (AdamW, 5 warmup steps)."""
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.train import loop, optim
+    model = registry.model_module(cfg)
+    stream = TokenStream(cfg.vocab, seq, batch, seed=0)
+    tr = loop.Trainer(lambda p, b: model.lm_loss(p, b, cfg),
+                      tree_to(params, dev, copy=True),
+                      loop.TrainerConfig(ckpt_dir=str(ckpt_dir),
+                                         **{"log_every": 10 ** 9,
+                                            "ckpt_every": 10 ** 9, **tcfg}),
+                      optim.AdamWConfig(warmup_steps=5, total_steps=50))
+    return tr, lambda s: (torch.from_numpy(stream.batch(s)).to(dev),)
+
+
+def train_configs() -> dict:
+    """The `tiny` preset (8 x 64 tokens) and the MoE smokes (the training
+    launcher's 8 x 64)."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import train_lm
+    tiny = train_lm.PRESETS["tiny"]
+    out = {"tiny": (tiny["cfg"], tiny["seq"], tiny["batch"])}
+    for arch in ("qwen2-moe-a2.7b", "qwen3-moe-30b-a3b"):
+        out[arch + " smoke"] = (registry.get(arch).smoke, 64, 8)
+    return out
+
+
+def check_train_cuda_vs_cpu(dev, tmp) -> list:
+    """Six `Trainer` steps on the card and on the CPU from the same weights
+    (drawn on the CPU) and `TokenStream` batches: every loss within
+    TRAIN_REL_TOL = 1e-4 relative (f32 products summed in other orders,
+    carried through six updates)."""
+    from repro_torch.configs import registry
+    out = []
+    for name, (cfg, seq, batch) in train_configs().items():
+        params = registry.model_module(cfg).init_params(cfg, 0, "cpu")
+        hist = []                       # the card's, then the CPU's
+        for i, d in enumerate((dev, torch.device("cpu"))):
+            tr, batches = make_trainer(cfg, params, d, tmp / f"{name}-{i}",
+                                       seq, batch)
+            hist.append(tr.fit(batches, n_steps=6))
+        err = max(abs(a - b) / abs(b) for a, b in zip(*hist))
+        out.append(dict(config=name, losses_cuda=hist[0],
+                        losses_cpu=hist[1], max_rel_err=err,
+                        tolerance_rel=TRAIN_REL_TOL))
+        print("train cuda vs cpu " + json.dumps(out[-1]), flush=True)
+        if not err <= TRAIN_REL_TOL:
+            raise AssertionError(f"train {name}: card and CPU losses differ "
+                                 f"by {err} > {TRAIN_REL_TOL}")
+    return out
+
+
+@contextlib.contextmanager
+def deterministic(warned: list):
+    """torch.use_deterministic_algorithms(True) with warn_only: each op that
+    has no deterministic CUDA implementation warns instead of raising, and
+    its warning lands in `warned`. cuBLAS is told its deterministic
+    workspace setting; it is deterministic on one stream either way."""
+    import os
+    import warnings
+    had = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = had or ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield warned
+        warned.extend(sorted({str(w.message).split("\n")[0] for w in caught
+                              if "determinis" in str(w.message)}))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if had is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+
+
+def check_train_full_width(dev, tmp, seq: int = 4096) -> list:
+    """gemma-7b (4 of 28 layers) and qwen2-moe-a2.7b (2 of 24) at full
+    width, bf16 weights and gradients, f32 moments (12 bytes a parameter:
+    all of gemma-7b would take ~102 GB, all of qwen2-moe ~181 GB), B=1 x
+    4096 tokens (train_4k's sequence), remat, 16 loss chunks, 4 steps. The
+    first step's loss must equal `lm_loss` computed outside the trainer on
+    the same weights and batch bit for bit (both under deterministic
+    algorithms; within 1e-6 where an op without a deterministic CUDA path
+    is named), every loss and gradient norm be finite and every norm
+    above 0."""
+    from repro_torch import pytree
+    from repro_torch.configs import registry
+    out = []
+    for arch, depth in (("gemma-7b", 4), ("qwen2-moe-a2.7b", 2)):
+        cfg = dataclasses.replace(registry.get(arch).config, n_layers=depth)
+        model = registry.model_module(cfg)
+        t0 = time.perf_counter()
+        params = model.init_params(cfg, seed=0, device=dev)
+        tr, batches = make_trainer(cfg, params, dev, tmp / arch, seq, 1)
+        del params
+        torch.cuda.synchronize()
+        made_s = time.perf_counter() - t0
+        n_params = sum(x.numel() for x in pytree.leaves(tr.params))
+        torch.cuda.reset_peak_memory_stats()
+        warned: list = []
+        batch = batches(0)
+        with deterministic(warned):
+            with torch.no_grad():
+                want = model.lm_loss(tr.params, batch[0], cfg)
+            first = tr.train_step(batch)
+        losses, norms, step_ms = [float(first)], [
+            float(tr.metrics["grad_norm"])], []
+        for s in range(1, 4):
+            batch = batches(s)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss = tr.train_step(batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(float(loss))
+            norms.append(float(tr.metrics["grad_norm"]))
+        # bit for bit, or within 1e-6 where an op named in `warned` has no
+        # deterministic CUDA path
+        tol = 0.0 if not warned else 1e-6
+        report = dict(
+            arch=arch, layers=f"{depth} of {registry.get(arch).config.n_layers}",
+            parameters=n_params, tokens_per_step=seq, made_s=made_s,
+            first_loss=float(first), lm_loss_outside=float(want),
+            first_loss_bit_equal=bool(torch.equal(first, want)),
+            first_loss_rel_err=rel_err(first, want), tolerance_rel=tol,
+            nondeterministic_ops=warned, losses=losses, grad_norms=norms,
+            step_ms=step_ms, tokens_per_s=seq / (np.mean(step_ms) / 1e3),
+            max_memory_allocated=torch.cuda.max_memory_allocated())
+        out.append(report)
+        print("train full width " + json.dumps(report), flush=True)
+        del tr, batch
+        torch.cuda.empty_cache()
+        if not report["first_loss_rel_err"] <= tol:
+            raise AssertionError(f"train {arch}: the first step's loss "
+                                 f"{float(first)!r} is not lm_loss's "
+                                 f"{float(want)!r} (ops without a "
+                                 f"deterministic path: {warned})")
+        if not (np.isfinite(losses).all() and np.isfinite(norms).all()
+                and min(norms) > 0):
+            raise AssertionError(f"train {arch}: losses {losses}, grad "
+                                 f"norms {norms}")
+    return out
+
+
+def check_train_resume(dev, tmp) -> dict:
+    """The `tiny` preset on the card under deterministic algorithms: six
+    steps uninterrupted; three steps, saved, restored into a new `Trainer`
+    and continued to six; and six steps with a `FailureInjector` failure at
+    step 4, recovered from the step-3 checkpoint (step 3 runs twice). The
+    losses must be the uninterrupted run's bit for bit, or, where an op
+    has no deterministic CUDA path (named in the report), within 1e-6
+    relative."""
+    from repro_torch.models import transformer
+    from repro_torch.train import fault
+    cfg, seq, batch = train_configs()["tiny"]
+    params = transformer.init_params(cfg, seed=0, device="cpu")
+    warned: list = []
+    with deterministic(warned):
+        full, batches = make_trainer(cfg, params, dev, tmp / "full", seq,
+                                     batch)
+        want = full.fit(batches, n_steps=6)
+        part, batches = make_trainer(cfg, params, dev, tmp / "part", seq,
+                                     batch)
+        part.fit(batches, n_steps=3)
+        resumed, batches = make_trainer(cfg, params, dev, tmp / "part", seq,
+                                        batch)
+        if not resumed.maybe_restore():
+            raise AssertionError("train resume: no checkpoint to restore")
+        restored_at = resumed.step
+        got = resumed.fit(batches, n_steps=6)
+        inj, batches = make_trainer(cfg, params, dev, tmp / "inj", seq,
+                                    batch, ckpt_every=3)
+        injected = inj.fit(batches, n_steps=6, injector=fault.FailureInjector(
+            fail_at_steps=(4,)))
+    recovered = want[:4] + want[3:]         # step 3 again after the restore
+    tol = 0.0 if not warned else 1e-6
+    errs = [abs(a - b) / abs(b) for a, b in
+            zip(got + injected, want[3:] + recovered)]
+    report = dict(preset="tiny", deterministic=not warned,
+                  nondeterministic_ops=warned, uninterrupted=want,
+                  restored_at=restored_at, resumed=got, injected=injected,
+                  injected_step=inj.step, tolerance_rel=tol,
+                  max_rel_err=max(errs))
+    print("train resume " + json.dumps(report), flush=True)
+    if restored_at != 3 or len(got) != 3 or len(injected) != 7 \
+            or inj.step != 6:
+        raise AssertionError(f"train resume: restored at {restored_at}, "
+                             f"{len(got)} resumed losses, {len(injected)} "
+                             f"with the failure, ended at {inj.step}")
+    if not max(errs) <= tol:
+        raise AssertionError(f"train resume: losses differ from the "
+                             f"uninterrupted run by {max(errs)} > {tol}")
+    return report
 
 
 
@@ -3275,6 +4009,7 @@ def main() -> None:
         sys.exit("chip_smoke: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False      # f32 means f32
     import repro_torch as rt
+    from repro_torch import pytree
     from repro_torch.core import fault, spatial_join
     from repro_torch.data import synth_rdf
     from repro_torch.kernels import _build, ops, ref
@@ -3572,7 +4307,7 @@ def main() -> None:
                               use_flash=True)
     params = tr.init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
-    leaves = tree_leaves(params)
+    leaves = pytree.leaves(params)
     print(f"gemma-7b: {sum(x.numel() for x in leaves)} parameters, "
           f"{sum(x.numel() * x.element_size() for x in leaves)} bytes on "
           f"{kind}, made in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3585,8 +4320,46 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("lm serve", t0)
     t0 = time.perf_counter()
-    smoke_lms = check_lm_cuda_vs_cpu(ops, tr, dev)
+    smoke_lms = check_lm_cuda_vs_cpu(ops, dev)
     phase_done("lm cuda vs cpu", t0)
+
+    # ---- the MoE family at full width: prefill, serve, smokes ------------
+    from repro_torch.models import moe
+    t0 = time.perf_counter()
+    moe_prefills = []
+    for arch in ("qwen2-moe-a2.7b", "qwen3-moe-30b-a3b"):
+        full = dataclasses.replace(registry.get(arch).config, use_flash=True)
+        depth = moe_depth_that_fits(moe, full)
+        if depth < full.n_layers:
+            print(f"{arch}: depth cut to {depth} of {full.n_layers} layers "
+                  "to fit the card's free memory", flush=True)
+        cfg = dataclasses.replace(full, n_layers=depth)
+        params = init_moe(moe, cfg, full.n_layers, dev, kind)
+        moe_prefills.append(check_moe_prefill(ops, ref, moe, cfg, params,
+                                              dev))
+        del params
+        torch.cuda.empty_cache()
+    phase_done("moe prefill", t0)
+    t0 = time.perf_counter()
+    cfg = registry.get("qwen2-moe-a2.7b").config
+    params = init_moe(moe, cfg, cfg.n_layers, dev, kind)
+    moe_serve = check_moe_serve(moe, cfg, params, dev)
+    del params
+    torch.cuda.empty_cache()
+    phase_done("moe serve", t0)
+    t0 = time.perf_counter()
+    moe_smokes = check_lm_cuda_vs_cpu(ops, dev, "moe")
+    phase_done("moe cuda vs cpu", t0)
+
+    # ---- LM training: card against CPU, full width, resume ---------------
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        training = dict(cuda_vs_cpu=check_train_cuda_vs_cpu(dev, tmp),
+                        full_width=check_train_full_width(dev, tmp),
+                        resume=check_train_resume(dev, tmp))
+    phase_done("train", t0)
 
     # ---- where the time goes ---------------------------------------------
     t0 = time.perf_counter()
@@ -3615,7 +4388,10 @@ def main() -> None:
     path_launches = {**{n: launches[n] for n in STREAK_KERNELS},
                      **{n: ops_launches[n] for n in OPS_KERNELS},
                      "flash_attention": prefill["flash_launches_per_call"]}
+    moe_flash = sum(r["flash_launches_per_call"] for r in moe_prefills)
     kernels = [dict(entries[n], launches=path_launches[n], match=True,
+                    moe_prefill_launches=moe_flash
+                    if n == "flash_attention" else 0,
                     serve_launches=serve["launches"].get(n, 0),
                     sharded_launches=sharded["launches"].get(n, 0),
                     baselines_launches=baselines["launches"].get(n, 0),
@@ -3638,7 +4414,9 @@ def main() -> None:
             baselines=baselines, ingest=ingested, fuzz=fuzz,
             analytics=analytics_run,
             serve_turns=serve_times, lm_prefill=prefill, lm_serve=lm_serve,
-            lm_smoke_cuda_vs_cpu=smoke_lms, phase_seconds=phase_s),
+            lm_smoke_cuda_vs_cpu=smoke_lms, moe_prefill=moe_prefills,
+            moe_serve=moe_serve, moe_smoke_cuda_vs_cpu=moe_smokes,
+            training=training, phase_seconds=phase_s),
             indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

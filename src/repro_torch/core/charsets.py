@@ -36,6 +36,10 @@ def _mix(x: np.ndarray, seed: int) -> np.ndarray:
     return x
 
 
+def hash_u64(x: np.ndarray, seed: int = 0) -> np.ndarray:
+    return _mix(np.asarray(x, dtype=np.int64).view(np.uint64), seed)
+
+
 # 32-bit murmur3-finalizer family. Bloom probes use THIS family so that the
 # numpy path and a 32-bit device probe kernel produce identical bit
 # positions.
@@ -57,6 +61,18 @@ def hash32(keys: np.ndarray, seed: int = 0) -> np.ndarray:
     lo = (u & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     hi = (u >> np.uint64(32)).astype(np.uint32)
     return mix32(lo ^ mix32(hi, seed + 7), seed)
+
+
+def cs_id_of_predicate_sets(pred_lists: list[np.ndarray]) -> np.ndarray:
+    """Map each entity's sorted predicate set to a stable 63-bit CS id."""
+    out = np.empty(len(pred_lists), dtype=np.int64)
+    for i, preds in enumerate(pred_lists):
+        preds = np.unique(np.asarray(preds, dtype=np.int64))
+        h = np.uint64(0x243F6A8885A308D3)
+        for p in preds:
+            h = _mix(np.uint64(h) ^ np.uint64(p), 17)
+        out[i] = np.int64(h & np.uint64(0x7FFFFFFFFFFFFFFF))
+    return out
 
 
 def _cs_ids_segmented(p: np.ndarray, starts: np.ndarray) -> np.ndarray:

@@ -17,6 +17,8 @@ but parameterize for tests.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 L_MAX = 10
@@ -32,6 +34,16 @@ S_MASK = np.int64(1) << np.int64(S_SHIFT)
 Z_MASK = ((np.int64(1) << np.int64(Z_BITS)) - 1) << np.int64(Z_SHIFT)
 L_MASK = ((np.int64(1) << np.int64(L_BITS)) - 1) << np.int64(L_SHIFT)
 I_MASK = (np.int64(1) << np.int64(I_BITS)) - 1
+
+MAX_LOCAL = (1 << I_BITS) - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class SpatialId:
+    spatial: bool
+    zpath: int   # morton path at the object's own level (2*level bits)
+    level: int
+    local: int
 
 
 def encode(zpath: np.ndarray, level: np.ndarray, local: np.ndarray) -> np.ndarray:
@@ -57,6 +69,10 @@ def decode(ids: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndar
     zpath = z_aligned >> (2 * (L_MAX - level))
     local = ids & I_MASK
     return spatial, zpath, level, local
+
+
+def is_spatial(ids: np.ndarray) -> np.ndarray:
+    return (np.asarray(ids, dtype=np.int64) & S_MASK) != 0
 
 
 def subtree_interval(zpath: np.ndarray, level: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -89,3 +105,8 @@ def node_own_interval(zpath: np.ndarray, level: np.ndarray) -> tuple[np.ndarray,
     z_aligned = zpath << (2 * (L_MAX - level))
     base = S_MASK | (z_aligned << np.int64(Z_SHIFT)) | (level << np.int64(L_SHIFT))
     return base, base | I_MASK
+
+
+def nonspatial_ids(n: int, start: int = 1) -> np.ndarray:
+    """Plain entity ids (S bit clear). 0 is reserved as NULL."""
+    return np.arange(start, start + n, dtype=np.int64)

@@ -78,3 +78,8 @@ def common_level(z_lo: np.ndarray, z_hi: np.ndarray, level: int) -> np.ndarray:
         v >>= np.uint64(1)
     # ceil(nbits / 2) quad-levels are lost to the differing suffix
     return level - ((nbits + 1) // 2)
+
+
+def zpath_at(z: np.ndarray, from_level: int, to_level: int) -> np.ndarray:
+    """Truncate a Morton code from `from_level` to its `to_level` prefix."""
+    return np.asarray(z) >> np.int64(2 * (from_level - to_level))

@@ -83,3 +83,8 @@ class BackendPolicy:
                 "descend", squadtree.resolve_descend_backend(self.descend)),
             kcap=self.kcap,
         )
+
+    @property
+    def resolved(self) -> bool:
+        return "auto" not in (self.join, self.impl, self.rank,
+                              self.probe, self.descend)

@@ -30,6 +30,10 @@ class TriplePattern:
     def vars(self) -> list[Var]:
         return [t for t in (self.g, self.s, self.p, self.o) if isinstance(t, Var)]
 
+    def n_bound(self) -> int:
+        return sum(1 for t in (self.g, self.s, self.p, self.o)
+                   if t is not None and not isinstance(t, Var))
+
 
 @dataclasses.dataclass(frozen=True)
 class SpatialFilter:
@@ -95,3 +99,12 @@ class Query:
         if s == "topk" and self.ranking is None:
             return "join"
         return s
+
+    def all_vars(self) -> list[Var]:
+        seen, out = set(), []
+        for tp in self.patterns:
+            for v in tp.vars():
+                if v.name not in seen:
+                    seen.add(v.name)
+                    out.append(v)
+        return out

@@ -58,6 +58,13 @@ class TopK:
         order = np.argsort(-self._key(self.scores), kind="stable")
         return self.scores[order], self.rows.take(order)
 
+    def can_improve(self, upper_bound: float) -> bool:
+        """Could a candidate with this score bound still enter the top-k?"""
+        return (not self.full) or (self._keyf(upper_bound) > self.theta)
+
+    def _keyf(self, s: float) -> float:
+        return s if self.descending else -s
+
 
 # ----------------------------------------------------- per-row partial merge --
 def _merge2(a: tuple[np.ndarray, np.ndarray],

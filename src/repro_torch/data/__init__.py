@@ -1,1 +1,2 @@
-"""Synthetic RDF datasets and their benchmark queries."""
+"""Synthetic datasets: RDF graphs and their benchmark queries, GTFS ingest,
+the query fuzzer and the LM token stream."""

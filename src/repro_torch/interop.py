@@ -159,14 +159,16 @@ def _tensor_from_array(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def transformer_params_from_state(params: dict, cfg, device) -> dict:
-    """The port's transformer parameters from the reference's parameter
-    pytree as nested dicts of numpy arrays (stacked (L, ...) layer weights),
-    on `device`. Every leaf keeps its dtype; the layout is the same, so
-    `models.transformer` reads them as they are. Raises if a leaf's shape
-    differs from what `cfg` gives."""
-    from .models import transformer
-    want = transformer.param_shapes(cfg)
+def params_from_state(params: dict, cfg, device) -> dict:
+    """A model's parameters from the reference's parameter pytree as nested
+    dicts of numpy arrays, on `device`: the dense transformer's (stacked
+    (L, ...) layer weights) or, for a MoE config, the MoE's (padded expert
+    stacks (L, E, ...), router, shared experts). Every leaf keeps its dtype;
+    the layout is the reference's, so the model module reads them as they
+    are. Raises on a key or a leaf shape that the config's `param_shapes`
+    does not give."""
+    from .configs import registry
+    want = registry.model_module(cfg).param_shapes(cfg)
     out = {}
 
     def walk(src, ref_tree, dst, path):
@@ -186,3 +188,4 @@ def transformer_params_from_state(params: dict, cfg, device) -> dict:
 
     walk(params, want, out, "")
     return out
+

@@ -1,1 +1,2 @@
-"""Command-line entry points of the port (`serve`)."""
+"""Command-line entry points of the port (`serve`, `train`, `train_lm`,
+`analytics`)."""

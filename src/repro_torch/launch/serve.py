@@ -3,9 +3,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-7b \
         [--smoke] [--requests N] [--device cpu]
 
-The reference launcher's LM settings: 4 slots, max_seq 64, prompts of 4
-tokens drawn from numpy's default_rng(0), 8 new tokens a request, random
-weights from seed 0. Runs on CUDA unless --device says otherwise.
+The reference launcher's LM settings, for the dense and the MoE families
+(`models.transformer` or `models.moe`, by the arch's family): 4 slots,
+max_seq 64, prompts of 4 tokens drawn from numpy's default_rng(0), 8 new
+tokens a request, random weights from seed 0. Runs on CUDA unless --device
+says otherwise.
 """
 from __future__ import annotations
 
@@ -17,7 +19,6 @@ import torch
 
 from ..configs import registry
 from ..device import resolve_device
-from ..models import transformer
 from ..serve.engine import Request, ServeEngine
 
 SLOTS, MAX_SEQ, PROMPT_LEN, MAX_NEW = 4, 64, 4, 8
@@ -34,8 +35,9 @@ def launcher_requests(cfg, n_requests: int) -> list:
 def serve_lm(cfg, n_requests: int, device=None) -> dict:
     """Serve the launcher's requests; returns the run's counts and times."""
     device = resolve_device(device, "serve_lm")
-    params = transformer.init_params(cfg, seed=0, device=device)
-    eng = ServeEngine(transformer, params, cfg, max_batch=SLOTS,
+    model = registry.model_module(cfg)
+    params = model.init_params(cfg, seed=0, device=device)
+    eng = ServeEngine(model, params, cfg, max_batch=SLOTS,
                       max_seq=MAX_SEQ, device=device)
     reqs = launcher_requests(cfg, n_requests)
     t0 = time.perf_counter()

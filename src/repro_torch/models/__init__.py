@@ -1,2 +1,2 @@
-"""Models of the port: the dense decoder-only LM (`transformer`) and its
-building blocks (`layers`)."""
+"""Models of the port: the dense decoder-only LM (`transformer`), the
+mixture-of-experts LM (`moe`) and their building blocks (`layers`)."""

@@ -1,7 +1,7 @@
 """Dense decoder-only transformer with GQA, RoPE and pluggable FFN.
 
-The port of the reference's `models/transformer.py` (forward, prefill and
-decode; the training loss comes with the training slice). Covers
+The port of the reference's `models/transformer.py`: forward, the LM loss,
+prefill and decode. Covers
 nemotron-4-15b (squared-ReLU), codeqwen1.5-7b (SwiGLU) and gemma-7b (GeGLU,
 head_dim 256). Parameters are a plain dict in the reference's layout, layer
 weights STACKED with a leading `n_layers` axis; the forward passes loop over
@@ -9,16 +9,22 @@ the layers in Python where the reference scans.
 
 Attention with `use_flash` and a square (S == T, S % 128 == 0) problem runs
 the flash-attention kernel (`kernels/ops.flash_attention`, CUDA on the card,
-its plain version on the CPU), as in the reference; every other branch is
-plain torch. The matrix products are `torch.matmul` in the config's dtype,
-with TF32 switched off so that f32 means f32.
+its plain version on the CPU), as in the reference; on the card a head dim
+the kernel does not take (`kops.FLASH_HEAD_DIMS`) raises there, so a caller
+with such a config leaves `use_flash` off. Every other branch is
+plain torch. The kernel is forward-only, as the reference's is: gradients
+are taken through the plain attention (`use_flash=False`), and asking for
+them through the kernel raises. The matrix products are `torch.matmul` in
+the config's dtype, with TF32 switched off so that f32 means f32.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from .. import pytree
 from ..device import resolve_device
 from ..kernels import ops as kops
 from . import layers
@@ -29,10 +35,12 @@ from .layers import activation, apply_norm, dense_init, init_norm, rope
 class TransformerConfig:
     """The reference's `TransformerConfig`, field for field.
 
-    `remat`, `loss_chunks` and `scatter_cache_update` select nothing in the
-    port (no training here; both cache-update modes are one in-place write)
-    and `batch_axes`/`seq_axes` raise when set; they are kept only so that
-    the registry's configs equal the reference's.
+    `remat` recomputes each layer in the backward pass (activation
+    checkpointing) and `loss_chunks` splits the LM loss's vocab projection
+    over the sequence; both act only when gradients are taken.
+    `scatter_cache_update` selects nothing (both cache-update modes are one
+    in-place write) and `batch_axes`/`seq_axes` raise when set; they are
+    kept so that the registry's configs equal the reference's.
     """
     name: str = "transformer"
     n_layers: int = 4
@@ -49,7 +57,7 @@ class TransformerConfig:
     tie_embeddings: bool = False
     window: int | None = None  # sliding-window attention (serve-time bound)
     dtype: str = "bfloat16"
-    remat: bool = True         # training-time setting; no effect here
+    remat: bool = True         # per-layer activation checkpointing
     loss_chunks: int = 8       # vocab-projection chunking for the LM loss
     use_flash: bool = False    # route square attention through the kernel
     attn_chunk: int | None = None  # query-chunked attention (long prefill):
@@ -143,6 +151,10 @@ def _attention(q, k, v, cfg: TransformerConfig, causal: bool,
     hk = k.shape[2]
     g = h // hk
     if cfg.use_flash and s == t and s % 128 == 0:
+        if torch.is_grad_enabled() and q.requires_grad:
+            raise RuntimeError(
+                "flash_attention is forward-only, as in the reference: take "
+                "gradients with use_flash=False")
         # the kernel takes (B, H, S, D) and never copies: lay it out here
         out = kops.flash_attention(
             q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
@@ -195,8 +207,9 @@ def _ffn(lp, x, cfg: TransformerConfig):
     return up @ lp["w_down"]
 
 
-def _block(lp, x, cfg: TransformerConfig, positions):
-    """One layer over (B, S, D); returns (x, k, v) with k, v (B,S,Hk,Dh)."""
+def _attend(lp, x, cfg: TransformerConfig, positions):
+    """A layer's attention half over (B, S, D): x plus the attention's
+    output, and k, v (B,S,Hk,Dh) for the cache."""
     b, s, _ = x.shape
     h = apply_norm(x, lp["ln1"], cfg.norm)
     q = (h @ lp["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
@@ -206,9 +219,29 @@ def _block(lp, x, cfg: TransformerConfig, positions):
     k = rope(k, positions, cfg.rope_theta)
     attn = _attention(q, k, v, cfg, causal=True,
                       q_positions=positions, kv_positions=positions)
-    x = x + attn.reshape(b, s, -1) @ lp["wo"]
+    return x + attn.reshape(b, s, -1) @ lp["wo"], k, v
+
+
+def _block(lp, x, cfg: TransformerConfig, positions):
+    """One layer over (B, S, D); returns (x, k, v) with k, v (B,S,Hk,Dh)."""
+    x, k, v = _attend(lp, x, cfg, positions)
     x = x + _ffn(lp, apply_norm(x, lp["ln2"], cfg.norm), cfg)
     return x, k, v
+
+
+def _needs_grad(*tensors) -> bool:
+    """Is autograd recording, and does any of `tensors` (or a tensor in a
+    dict of them) take part?"""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for x in tensors
+        for t in (pytree.leaves(x) if isinstance(x, dict) else [x]))
+
+
+def _remat(cfg: TransformerConfig, lp, x) -> bool:
+    """Recompute a layer in the backward pass: `remat` set and a gradient
+    being taken through it (the reference's jax.checkpoint around the layer
+    scan)."""
+    return cfg.remat and _needs_grad(x, lp)
 
 
 def _embed(params, tokens, cfg: TransformerConfig):
@@ -223,7 +256,12 @@ def forward(params, tokens: torch.Tensor, cfg: TransformerConfig):
     positions = torch.arange(tokens.shape[1],
                              device=tokens.device).expand(tokens.shape)
     for i in range(cfg.n_layers):
-        x, _, _ = _block(_layer_params(params, i), x, cfg, positions)
+        lp = _layer_params(params, i)
+        if _remat(cfg, lp, x):
+            x, _, _ = checkpoint(_block, lp, x, cfg, positions,
+                                 use_reentrant=False)
+        else:
+            x, _, _ = _block(lp, x, cfg, positions)
     return apply_norm(x, params["final_norm"], cfg.norm)
 
 
@@ -233,17 +271,60 @@ def logits_fn(params, hidden, cfg: TransformerConfig):
     return hidden @ head
 
 
+def _chunk_nll(h, targets, head):
+    """Summed next-token NLL of one sequence chunk: logits in f32."""
+    logits = (h @ head).float()                         # (B, sc, V)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return torch.sum(torch.logsumexp(logits, dim=-1) - gold)
+
+
+def lm_nll(params, hidden, targets, cfg: TransformerConfig):
+    """Mean NLL with the vocab projection chunked over the SEQUENCE axis
+    (`loss_chunks` chunks when they divide S, else one), each chunk
+    recomputed in the backward pass, so neither pass holds more than one
+    (B, S / chunks, V) logit chunk. The chunks' sums add up in order, as
+    the reference's scan does."""
+    b, s, _ = hidden.shape
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    nc = cfg.loss_chunks if cfg.loss_chunks > 1 and s % cfg.loss_chunks == 0 \
+        else 1
+    sc = s // nc
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s, sc):
+        h, t = hidden[:, i:i + sc], targets[:, i:i + sc]
+        if _needs_grad(h, head):
+            total = total + checkpoint(_chunk_nll, h, t, head,
+                                       use_reentrant=False)
+        else:
+            total = total + _chunk_nll(h, t, head)
+    return total / (b * s)
+
+
+def lm_loss(params, tokens: torch.Tensor, cfg: TransformerConfig):
+    """Causal LM loss of tokens (B, S + 1): the mean NLL of tokens[:, 1:]
+    given the prefix, through `lm_nll`."""
+    hidden = forward(params, tokens[:, :-1], cfg)
+    return lm_nll(params, hidden, tokens[:, 1:], cfg)
+
+
 def forward_with_cache(params, tokens: torch.Tensor, cfg: TransformerConfig):
     """Prefill: returns (last-token logits (B, V), kv cache dict).
 
     Cache layout matches decode_step: (L, B, S, Hkv, Dh)."""
+    return prefill(params, tokens, cfg, _block)
+
+
+def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig, block):
+    """`forward_with_cache` with each layer run by `block(lp, x, cfg,
+    positions) -> (x, k, v)`: the dense layer here, the MoE one in
+    `models.moe`."""
     _full_f32_matmuls()
     b, s = tokens.shape
     x = _embed(params, tokens, cfg)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, k, v = _block(_layer_params(params, i), x, cfg, positions)
+        x, k, v = block(_layer_params(params, i), x, cfg, positions)
         ks.append(k)
         vs.append(v)
     x = apply_norm(x, params["final_norm"], cfg.norm)
@@ -270,6 +351,14 @@ def decode_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
     update modes (one-hot multiply-add and per-slot scatter) do; so
     `scatter_cache_update` selects nothing here.
     """
+    return decode(params, cache, tokens, pos, cfg, _ffn)
+
+
+def decode(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
+           cfg: TransformerConfig, ffn):
+    """`decode_step` with each layer's feed-forward half `ffn(lp, h, cfg)`
+    over the normed (B, 1, D) stream: the dense FFN here, the MoE one in
+    `models.moe`."""
     _full_f32_matmuls()
     b = tokens.shape[0]
     x = _embed(params, tokens, cfg)[:, None, :]                 # (B,1,D)
@@ -292,7 +381,7 @@ def decode_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
         attn = _attention(q, k_cache, v_cache, cfg, causal=True,
                           q_positions=positions, kv_positions=kv_pos)
         x = x + attn.reshape(b, 1, -1) @ lp["wo"]
-        x = x + _ffn(lp, apply_norm(x, lp["ln2"], cfg.norm), cfg)
+        x = x + ffn(lp, apply_norm(x, lp["ln2"], cfg.norm), cfg)
     x = apply_norm(x, params["final_norm"], cfg.norm)
     logits = logits_fn(params, x[:, 0, :], cfg)
     return logits, cache

@@ -994,3 +994,87 @@ def test_lm_prefill_and_decode_on_cuda_equal_cpu(dev):
         runs.append([o.cpu() for o in out] + [cache["k"].cpu()])
     for got, want in zip(*runs):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch,flash", [("qwen2-moe-a2.7b", True),
+                                        ("qwen3-moe-30b-a3b", False)])
+def test_moe_prefill_decode_and_loss_on_cuda_equal_cpu(dev, arch, flash):
+    """The MoE smokes (f32): prefill at S = 128 (qwen2's head dim 32 takes
+    the flash kernel, qwen3's 16 the plain attention), three decode steps
+    and `lm_loss`, on the card and on the CPU, within 1e-4."""
+    from repro_torch.configs import registry
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(registry.get(arch).smoke, use_flash=flash)
+    params = moe.init_params(cfg, seed=3, device="cpu")
+    rng = np.random.default_rng(1)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 128)))
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 2)))
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        ops.reset_launch_counts()
+        p = _to(params, d)
+        logits, pre = moe.forward_with_cache(p, tok.to(d), cfg)
+        if d.type == "cuda":
+            assert ops.LAUNCHES["flash_attention"] == (
+                cfg.n_layers if flash else 0)
+        cache = moe.init_cache(cfg, 2, 160, device=d)
+        for n in ("k", "v"):
+            cache[n][:, :, :128] = pre[n]
+        out = [logits]
+        for i in range(3):
+            pos = torch.full((2,), 128 + i, dtype=torch.int32, device=d)
+            step_logits, cache = moe.decode_step(p, cache, nxt[i].to(d), pos,
+                                                 cfg)
+            out.append(step_logits)
+        plain = dataclasses.replace(cfg, use_flash=False)
+        out.append(moe.lm_loss(p, tok[:, :65].to(d), plain))
+        runs.append([o.detach().cpu() for o in out] + [cache["k"].cpu()])
+    for got, want in zip(*runs):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_trainer_on_cuda_equals_cpu_and_resumes_bit_for_bit(dev, tmp_path):
+    """The tiny preset: three steps on the card and on the CPU from the same
+    weights (drawn on the CPU) and batches (losses within 1e-4), then on the
+    card, under deterministic algorithms, a run saved at step 2 and resumed
+    in a new trainer gives the uninterrupted run's losses bit for bit."""
+    import os
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch import train_lm
+    from repro_torch.models import transformer
+    from repro_torch.train import loop, optim
+    preset = train_lm.PRESETS["tiny"]
+    cfg = preset["cfg"]
+    params = transformer.init_params(cfg, seed=0, device="cpu")
+    stream = TokenStream(cfg.vocab, preset["seq"], preset["batch"], seed=0)
+
+    def copy(tree, d):         # the trainer updates its weights in place
+        return {k: copy(v, d) if isinstance(v, dict) else v.to(d, copy=True)
+                for k, v in tree.items()}
+
+    def trainer(d, ckpt_dir):
+        tr = loop.Trainer(lambda p, b: transformer.lm_loss(p, b, cfg),
+                          copy(params, d),
+                          loop.TrainerConfig(ckpt_dir=str(tmp_path / ckpt_dir),
+                                             log_every=1000),
+                          optim.AdamWConfig(warmup_steps=5, total_steps=50))
+        return tr, lambda s: (torch.from_numpy(stream.batch(s)).to(d),)
+
+    hist = []
+    for d in (dev, torch.device("cpu")):
+        tr, batches = trainer(d, f"run-{d.type}")
+        hist.append(tr.fit(batches, n_steps=3))
+    np.testing.assert_allclose(hist[0], hist[1], rtol=1e-4, atol=1e-4)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        full, batches = trainer(dev, "full")
+        want = full.fit(batches, n_steps=4)
+        part, batches = trainer(dev, "part")
+        part.fit(batches, n_steps=2)
+        resumed, batches = trainer(dev, "part")
+        assert resumed.maybe_restore() and resumed.step == 2
+        got = resumed.fit(batches, n_steps=4)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert got == want[2:]

@@ -5,6 +5,7 @@ package; the engine runs on CUDA unless the caller asks for the CPU and
 raises when CUDA is missing; backends the port does not have (the
 reference's interpret and jitted-CPU routes) are refused by name.
 """
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -31,6 +32,10 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import repro_torch.serve.spatial, repro_torch.core.baselines\n"
         "import repro_torch.core.rtree, repro_torch.data.ingest\n"
         "import repro_torch.launch.analytics, repro_torch.data.fuzz_queries\n"
+        "import repro_torch.models.moe, repro_torch.data.tokens\n"
+        "import repro_torch.dist.grad_compression, repro_torch.train.loop\n"
+        "import repro_torch.train.checkpoint, repro_torch.launch.train\n"
+        "import repro_torch.launch.train_lm, repro_torch.pytree\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")
@@ -213,3 +218,141 @@ def test_public_surface_is_a_subset_of_the_reference():
     for name in repro_torch.__all__:
         assert getattr(repro_torch, name).__name__ == \
             getattr(repro, name).__name__
+
+
+def test_training_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch, tmp_path):
+    from repro_torch.configs import registry
+    from repro_torch.launch import train, train_lm
+    from repro_torch.models import moe
+    cfg = registry.get("qwen2-moe-a2.7b").smoke
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: moe.init_params(cfg),
+                 lambda: moe.init_cache(cfg, 2, 8),
+                 lambda: train.main(["--arch", "qwen2-moe-a2.7b", "--smoke",
+                                     "--ckpt-dir", str(tmp_path / "a")]),
+                 lambda: train_lm.main(["--ckpt-dir", str(tmp_path / "b")])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert moe.init_cache(cfg, 2, 8, device="cpu")["k"].device == \
+        torch.device("cpu")
+    assert not (tmp_path / "a_qwen2-moe-a2.7b").exists()
+
+
+def test_train_launcher_refuses_to_start_without_cuda(tmp_path):
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "gemma-7b", "--smoke", "--ckpt-dir", str(tmp_path / "ck")],
+        capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin",
+             "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0 and "CUDA" in out.stderr
+    assert "loss" not in out.stdout
+
+
+# ------------------------------------------------------------------------
+# public members of ported modules, each against the reference's
+def _member_policy():
+    import repro.core.policy as ref
+    import repro_torch.core.policy as port
+    for kw in ({}, dict(join="fused", impl="merge", rank="numpy",
+                        probe="numpy", descend="numpy"),
+               dict(join="fused"), dict(descend="auto", join="kernel",
+                                        impl="merge", rank="kernel",
+                                        probe="kernel")):
+        assert port.BackendPolicy(**kw).resolved == \
+            ref.BackendPolicy(**kw).resolved
+    assert not port.BackendPolicy().resolved
+    assert port.BackendPolicy().resolve().resolved
+
+
+def _member_topk():
+    import repro.core.join as ref_join
+    import repro.core.topk as ref
+    import repro_torch.core.join as port_join
+    import repro_torch.core.topk as port
+    rng = np.random.default_rng(0)
+    for descending in (True, False):
+        a = port.TopK(k=5, descending=descending)
+        b = ref.TopK(k=5, descending=descending)
+        for n in (3, 4, 6):
+            s = rng.normal(size=n)
+            ids = np.arange(n)
+            a.push(s, port_join.Relation({"x": ids}))
+            b.push(s, ref_join.Relation({"x": ids}))
+            for bound in (-3.0, -0.5, 0.0, 0.5, 3.0, float(a.theta),
+                          -float(a.theta)):
+                assert a.can_improve(bound) == b.can_improve(bound)
+
+
+def _member_query():
+    import repro.core.query as ref
+    import repro_torch.core.query as port
+    for m in (port, ref):
+        x, y, z = m.Var("x"), m.Var("y"), m.Var("z")
+        pats = (m.TriplePattern(x, 3, y), m.TriplePattern(y, 4, 7, g=z),
+                m.TriplePattern(z, x, y), m.TriplePattern(1, 2, 3, g=4))
+        q = m.Query(select=(x,), patterns=pats, spatial=None, ranking=None)
+        yield [tp.n_bound() for tp in pats], [v.name for v in q.all_vars()]
+
+
+def _member_ids():
+    import repro.core.ids as ref
+    import repro_torch.core.ids as port
+    rng = np.random.default_rng(1)
+    level = rng.integers(0, 11, 50)
+    zpath = rng.integers(0, 1 << 20, 50) >> (2 * (10 - level))
+    local = rng.integers(0, 1 << 30, 50)
+    ids = np.concatenate([port.encode(zpath, level, local),
+                          port.nonspatial_ids(20, start=5)])
+    np.testing.assert_array_equal(port.is_spatial(ids), ref.is_spatial(ids))
+    assert port.is_spatial(ids).sum() == 50
+    np.testing.assert_array_equal(port.nonspatial_ids(7),
+                                  ref.nonspatial_ids(7))
+    np.testing.assert_array_equal(port.nonspatial_ids(3, start=9),
+                                  ref.nonspatial_ids(3, start=9))
+    sid = port.SpatialId(True, 5, 2, 9)
+    assert dataclasses.asdict(sid) == dataclasses.asdict(
+        ref.SpatialId(True, 5, 2, 9))
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        sid.level = 3
+    assert port.MAX_LOCAL == ref.MAX_LOCAL
+
+
+def _member_charsets():
+    import repro.core.charsets as ref
+    import repro_torch.core.charsets as port
+    rng = np.random.default_rng(2)
+    x = rng.integers(-(1 << 62), 1 << 62, 200)
+    for seed in (0, 1, 17):
+        np.testing.assert_array_equal(port.hash_u64(x, seed),
+                                      ref.hash_u64(x, seed))
+    sets = [rng.integers(0, 50, rng.integers(0, 8)) for _ in range(40)]
+    sets.append(np.array([3, 3, 1]))
+    np.testing.assert_array_equal(port.cs_id_of_predicate_sets(sets),
+                                  ref.cs_id_of_predicate_sets(sets))
+
+
+def _member_morton():
+    import repro.core.morton as ref
+    import repro_torch.core.morton as port
+    z = np.random.default_rng(3).integers(0, 1 << 20, 100)
+    for to in (0, 3, 10):
+        np.testing.assert_array_equal(port.zpath_at(z, 10, to),
+                                      ref.zpath_at(z, 10, to))
+
+
+MEMBERS = {"BackendPolicy.resolved": _member_policy,
+           "TopK.can_improve": _member_topk,
+           "TriplePattern.n_bound+Query.all_vars": _member_query,
+           "ids.SpatialId+is_spatial+nonspatial_ids": _member_ids,
+           "charsets.hash_u64+cs_id_of_predicate_sets": _member_charsets,
+           "morton.zpath_at": _member_morton}
+
+
+@pytest.mark.parametrize("member", sorted(MEMBERS))
+def test_public_member_matches_the_reference(member):
+    out = MEMBERS[member]()
+    if out is not None:              # (port, reference) results to compare
+        port, ref = list(out)
+        assert port == ref

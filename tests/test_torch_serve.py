@@ -2,8 +2,13 @@
 
 Both engines serve the reference launcher's requests (4 slots, max_seq 64,
 4-token prompts from default_rng(0), 8 new tokens each; `launch/serve.py`)
-on a dense `SMOKE` config (f32) with the same weights
-(`interop.transformer_params_from_state`). Every pool-wide decode step's
+on a dense or MoE `SMOKE` config (f32) with the same weights
+(`interop.params_from_state`). The
+reference's MoE runs with `scatter_cache_update=True`: its default one-hot
+update adds a rewritten cache row to the old one (tests/test_torch_moe.py
+pins that difference), its scatter mode overwrites, as the port does. One
+MoE case lowers the capacity factor so that 4 slots get capacity 1, as
+the published MoE configs do in decode, and slots collide. Every pool-wide decode step's
 logits (all slots, idle ones too) must agree within 1e-4 absolute and
 relative (f32 products summed in other orders, see
 tests/test_torch_transformer.py). The greedy tokens must be equal wherever
@@ -11,6 +16,7 @@ the top-2 logit gap exceeds that tolerance; a flip inside it is reported
 as a warning naming the step and slot, and the streams are compared up to
 that step only, since from there on they are fed different tokens.
 """
+import dataclasses
 import warnings
 
 import jax
@@ -18,12 +24,14 @@ import numpy as np
 import pytest
 
 from repro.configs import registry as ref_registry
+from repro.models import moe as rmoe
 from repro.models import transformer as rtr
 from repro.serve.engine import Request as RefRequest
 from repro.serve.engine import ServeEngine as RefEngine
 from repro_torch.configs import registry
-from repro_torch.interop import transformer_params_from_state
+from repro_torch.interop import params_from_state
 from repro_torch.launch import serve as launch
+from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttr
 from repro_torch.serve.engine import ServeEngine
 
@@ -49,14 +57,38 @@ def _serve(engine, reqs, to_numpy):
     return log
 
 
+# the MoE smoke configs, and qwen2-moe's at a capacity factor that gives
+# 4 slots capacity 1 (4 x 4 / 6 x 0.3 = 0.8 rounds to 1)
+MOE_CASES = {"qwen2-moe-a2.7b": {}, "qwen3-moe-30b-a3b": {},
+             "qwen2-moe-a2.7b-cap1": dict(capacity_factor=0.3)}
+
+
+def _models(arch):
+    """(ref module, ref cfg, ref params, port module, port cfg, params)."""
+    if arch in ("gemma-7b", "codeqwen1.5-7b", "nemotron-4-15b"):
+        ref_cfg = ref_registry.get(arch).SMOKE
+        cfg = registry.get(arch).smoke
+        ref_params = rtr.init_params(jax.random.PRNGKey(0), ref_cfg)
+        return (rtr, ref_cfg, ref_params, ttr, cfg,
+                params_from_state(
+                    jax.tree.map(np.asarray, ref_params), cfg, "cpu"))
+    name = arch.removesuffix("-cap1")
+    over = MOE_CASES[arch]
+    ref_cfg = dataclasses.replace(ref_registry.get(name).SMOKE,
+                                  scatter_cache_update=True, **over)
+    cfg = dataclasses.replace(registry.get(name).smoke, **over)
+    ref_params = rmoe.init_params(jax.random.PRNGKey(0), ref_cfg)
+    return (rmoe, ref_cfg, ref_params, tmoe, cfg,
+            params_from_state(jax.tree.map(np.asarray, ref_params), cfg,
+                              "cpu"))
+
+
 @pytest.mark.parametrize("arch", ["gemma-7b", "codeqwen1.5-7b",
-                                  "nemotron-4-15b"])
+                                  "nemotron-4-15b"] + list(MOE_CASES))
 def test_serve_engine_matches_reference(arch):
-    ref_cfg = ref_registry.get(arch).SMOKE
-    cfg = registry.get(arch).smoke
-    ref_params = rtr.init_params(jax.random.PRNGKey(0), ref_cfg)
-    params = transformer_params_from_state(
-        jax.tree.map(np.asarray, ref_params), cfg, "cpu")
+    ref_mod, ref_cfg, ref_params, mod, cfg, params = _models(arch)
+    if arch.endswith("-cap1"):
+        assert tmoe.capacity(launch.SLOTS, cfg) == 1
 
     reqs = launch.launcher_requests(cfg, 4)
     rng = np.random.default_rng(0)      # the reference launcher's requests
@@ -65,9 +97,9 @@ def test_serve_engine_matches_reference(arch):
                            max_new=8) for i in range(4)]
     assert [r.prompt for r in reqs] == [r.prompt for r in ref_reqs]
 
-    ref_eng = RefEngine(rtr, ref_params, ref_cfg, max_batch=launch.SLOTS,
-                        max_seq=launch.MAX_SEQ)
-    eng = ServeEngine(ttr, params, cfg, max_batch=launch.SLOTS,
+    ref_eng = RefEngine(ref_mod, ref_params, ref_cfg,
+                        max_batch=launch.SLOTS, max_seq=launch.MAX_SEQ)
+    eng = ServeEngine(mod, params, cfg, max_batch=launch.SLOTS,
                       max_seq=launch.MAX_SEQ, device="cpu")
     want = _serve(ref_eng, ref_reqs, np.asarray)
     got = _serve(eng, reqs, lambda t: t.numpy())
@@ -98,5 +130,13 @@ def test_serve_engine_matches_reference(arch):
 
 def test_launcher_serves_on_the_cpu_when_asked():
     r = launch.serve_lm(registry.get("gemma-7b").smoke, 2, device="cpu")
+    assert r["tokens"] == 16 and r["device"] == "cpu"
+    assert all(len(o) == 8 for o in r["outputs"])
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen3-moe-30b-a3b"])
+def test_launcher_serves_moe_on_the_cpu(arch):
+    """The launcher picks `models.moe` for the MoE family."""
+    r = launch.serve_lm(registry.get(arch).smoke, 2, device="cpu")
     assert r["tokens"] == 16 and r["device"] == "cpu"
     assert all(len(o) == 8 for o in r["outputs"])

@@ -2,7 +2,7 @@
 
 The three dense `SMOKE` configs (f32) of the reference, their weights drawn
 by the reference's `init_params` and carried over by
-`interop.transformer_params_from_state`, the same numpy tokens through both
+`interop.params_from_state`, the same numpy tokens through both
 packages: `forward` + `logits_fn`, `forward_with_cache` (flash at S=128,
 plain, query-chunked), and `decode_step` under both cache-update modes and
 with a sliding window.
@@ -25,7 +25,7 @@ import torch
 from repro.configs import registry as ref_registry
 from repro.models import transformer as rtr
 from repro_torch.configs import registry
-from repro_torch.interop import transformer_params_from_state
+from repro_torch.interop import params_from_state
 from repro_torch.models import transformer as ttr
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -43,8 +43,7 @@ def model(request):
     ref_cfg, cfg = _cfgs(request.param)
     ref_params = rtr.init_params(jax.random.PRNGKey(0), ref_cfg)
     state = jax.tree.map(np.asarray, ref_params)
-    return request.param, ref_params, transformer_params_from_state(
-        state, cfg, "cpu")
+    return request.param, ref_params, params_from_state(state, cfg, "cpu")
 
 
 def _tokens(cfg, b, s, seed=0):
@@ -83,14 +82,14 @@ def test_bf16_state_crosses_as_bit_patterns():
     ref_cfg, cfg = _cfgs("gemma-7b", dtype="bfloat16")
     state = jax.tree.map(np.asarray,
                          rtr.init_params(jax.random.PRNGKey(1), ref_cfg))
-    params = transformer_params_from_state(state, cfg, "cpu")
+    params = params_from_state(state, cfg, "cpu")
     assert params["embed"].dtype == torch.bfloat16
     np.testing.assert_array_equal(
         params["layers"]["wq"].view(torch.int16).numpy(),
         state["layers"]["wq"].view(np.int16))
     state["layers"]["wq"] = state["layers"]["wq"][:, :-1]
     with pytest.raises(ValueError, match="wq"):
-        transformer_params_from_state(state, cfg, "cpu")
+        params_from_state(state, cfg, "cpu")
 
 
 def test_forward_and_logits_match(model):
