@@ -147,12 +147,39 @@ In order it:
    memory; and a `tiny` run saved, restored and continued, and one
    recovered from an injected failure, bit-identical to the uninterrupted
    run under deterministic algorithms;
-12. traces one more pass of each query set on the card: host ms per
+12. the recsys and GNN families, each phase with its checks and, beside
+   every time, its bound (bytes / 3.35 TB/s or operations / 67 TFLOP/s
+   f32, 989 bf16, the larger): "retrieval" (the full sasrec catalog, 10^6
+   items x 50 f32, popularity-skewed as `launch.serve` makes it;
+   `streak_topk` and `blocked_topk` at retrieval_cand (B=1, k=100),
+   serve_p99 (B=512, k=100) and the launcher's 8 users (k=10), each against
+   a dense `torch.topk` of the full score matrix and the two against each
+   other, with the blocks read below the block count; serve_bulk
+   (B=262,144, k=100) through `blocked_topk` in blocks of 4,096, 256
+   sampled rows against the dense top-k; a 50,000-item catalog on the card
+   and on the CPU: ids and blocks read equal; `launch.serve --arch sasrec`
+   and `launch.serve_topk` on the card); "recsys train" (full-width SASRec
+   through the `Trainer`: three steps card against CPU at B=64, six
+   steps against three + restore + three, bit-identical under
+   `torch.use_deterministic_algorithms(True)` without warn_only, and
+   train_batch (65,536 x 50) steps timed); "gnn" (gcn-cora at full width
+   on a Cora-sized synthetic graph, 2,708 nodes and 10,556 edges, and
+   graphsage-reddit at full width on 232,965 nodes with 1,024-seed
+   `NeighborSampler` blocks at (25, 10): a forward and three steps, card
+   against CPU); "graphcast" (the full config, 16 layers, 512 wide, 227
+   variables, bf16, on the 0.25-degree grid and a 40,962-node mesh, edges
+   from the STREAK radius join: the bf16 forward within 5e-2 relative RMS
+   of an f32 run of the same weights, a dropped processor residual failing
+   that, one training step with each block recomputed); "nequip" (the full
+   config on 128 molecules x 30 atoms through `forward_batched`: energies
+   invariant under rotation and translation and under an atom permutation,
+   card against CPU);
+13. traces one more pass of each query set on the card: host ms per
    executor layer, device busy ms (by kind: each kernel, memcpy) and the
    device's idle share; then the LGD and 1M-quad sets (fused join) with
    the rank pass alone on numpy and on its kernel, in turns ("rank turn");
    then the Bloom bank uploads over the run and each pass's memcpy ms;
-13. prints the kernels line (JSON; `moe_prefill_launches`,
+14. prints the kernels line (JSON; `moe_prefill_launches`,
    `serve_launches`, `sharded_launches`,
    `baselines_launches`, `ingest_launches`, `fuzz_launches` and
    `analytics_launches` beside `launches`, tree_descend's `sharded`
@@ -3854,16 +3881,17 @@ def check_train_cuda_vs_cpu(dev, tmp) -> list:
 
 
 @contextlib.contextmanager
-def deterministic(warned: list):
-    """torch.use_deterministic_algorithms(True) with warn_only: each op that
-    has no deterministic CUDA implementation warns instead of raising, and
-    its warning lands in `warned`. cuBLAS is told its deterministic
-    workspace setting; it is deterministic on one stream either way."""
+def deterministic(warned: list, warn_only: bool = True):
+    """torch.use_deterministic_algorithms(True), with warn_only: each op
+    that has no deterministic CUDA implementation warns instead of raising,
+    and its warning lands in `warned`; without, such an op raises. cuBLAS
+    is told its deterministic workspace setting; it is deterministic on one
+    stream either way."""
     import os
     import warnings
     had = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = had or ":4096:8"
-    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.use_deterministic_algorithms(True, warn_only=warn_only)
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -3993,6 +4021,760 @@ def check_train_resume(dev, tmp) -> dict:
     if not max(errs) <= tol:
         raise AssertionError(f"train resume: losses differ from the "
                              f"uninterrupted run by {max(errs)} > {tol}")
+    return report
+
+
+# --------------------------------------------- recsys retrieval and training --
+# Scores are f32 dot products of 50 terms. A top-k held against another
+# computed with other products (another GEMM shape or device) may round a
+# score otherwise by a few ulps; so scores agree within TOPK_RTOL, and ids
+# agree at every rank but where the two ids' scores are themselves within
+# TOPK_RTOL (a near-tie that rounding may order either way). How many
+# ranks differ, and whether all agree bit for bit, is printed.
+TOPK_RTOL, TOPK_ATOL = 1e-5, 1e-6
+BULK_BLOCK = 4096          # serve_bulk's block: (262,144 x 4,196) f32 scores
+BULK_SAMPLED_ROWS = 256
+CATALOG_CPU_ITEMS = 50_000
+RECSYS_CPU_BATCH = 64      # card against CPU: InteractionStream batches
+RECSYS_TRAIN_STEPS = 4
+
+
+def wall_ms(fn, reps: int = 3) -> list:
+    """Host wall ms of `reps` calls of `fn`, each ending in a synchronise,
+    after one untimed call."""
+    fn()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def topk_agreement(label: str, got_s, got_i, want_s, want_i, dense) -> dict:
+    """(got_s, got_i) against (want_s, want_i), (B, k) each, with `dense`
+    the rows' full scores (B, N): see TOPK_RTOL. Raises on a disagreement;
+    returns whether they agree bit for bit and how many ranks differ."""
+    got_s, want_s = got_s.float(), want_s.float()
+    err = (got_s - want_s).abs()
+    if not bool((err <= TOPK_RTOL * want_s.abs() + TOPK_ATOL).all()):
+        raise AssertionError(f"{label}: scores differ by up to "
+                             f"{float(err.max())}")
+    differ = got_i.long() != want_i.long()
+    if bool(differ.any()):
+        a = dense.gather(1, got_i.long())[differ]
+        b = dense.gather(1, want_i.long())[differ]
+        if not bool(((a - b).abs() <= TOPK_RTOL * b.abs() + TOPK_ATOL).all()):
+            raise AssertionError(f"{label}: {int(differ.sum())} ranks name "
+                                 "other items, not all of them near-ties")
+    return dict(exact=bool(torch.equal(got_s, want_s)
+                           and not bool(differ.any())),
+                ranks_differ=int(differ.sum()),
+                max_abs_score_err=float(err.max()))
+
+
+def retrieval_bound(b: int, d: int, k: int, scored: int) -> tuple:
+    """Bytes: the scored item rows, the states and the (B, k) scores and
+    ids once; operations: 2 B D a scored item (f32)."""
+    return bound_ms(4 * (scored * d + b * d + 2 * b * k), 2 * b * d * scored)
+
+
+def check_retrieval(dev) -> dict:
+    """STREAK retrieval over the full sasrec catalog (10^6 x 50, f32) on
+    the launcher's popularity-skewed weights: `streak_topk` and
+    `blocked_topk` at retrieval_cand (B=1, k=100), serve_p99 (B=512,
+    k=100) and the launcher's 8 users (k=10) against a dense `torch.topk`
+    of the full score matrix and against each other; serve_bulk (B=262,144,
+    k=100) through `blocked_topk` in blocks of BULK_BLOCK, 256 sampled rows
+    against the dense top-k; the CPU and the card on a 50,000-item catalog
+    (ids and blocks read equal); then `launch.serve`'s recsys branch and
+    `launch.serve_topk` on the card."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import serve_topk
+    from repro_torch.models import sasrec
+    from repro_torch.serve import retrieval
+    if torch.backends.cuda.matmul.allow_tf32 \
+            or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("retrieval: f32 products must not run in TF32")
+    cfg = registry.get("sasrec").config
+    shapes = registry.RECSYS_SHAPES
+    d, n = cfg.embed_dim, cfg.n_items
+    block = max(64, n // 16)                     # the launcher's block
+    rng = np.random.default_rng(1)
+    out: dict = dict(items=n, dim=d, block=block, rows=[])
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        params, seq8 = launch_serve.popularity_catalog(cfg, dev)
+        items = params["item_embed"]
+        items_s, order = retrieval.sort_items_by_norm(items, block)
+        bounds = retrieval.block_bounds(items_s, block)
+        nb = int(bounds.shape[0])
+
+        def states(b: int) -> torch.Tensor:
+            seq = torch.from_numpy(rng.integers(1, n, (b, cfg.seq_len))
+                                   .astype(np.int32)).to(dev)
+            return torch.cat([sasrec.user_state(params, s, cfg)
+                              for s in seq.split(32768)])
+        cases = [("retrieval_cand", 100, states(
+                     shapes["retrieval_cand"]["batch"])),
+                 ("serve_p99", 100, states(shapes["serve_p99"]["batch"])),
+                 ("launcher", 10, sasrec.user_state(params, seq8, cfg))]
+        bulk_states = states(shapes["serve_bulk"]["batch"])
+        torch.cuda.synchronize()
+        out["made_s"] = time.perf_counter() - t0
+        print(f"retrieval catalog: {n} x {d} f32 "
+              f"({items.numel() * 4} bytes), {nb} blocks of {block}, made "
+              f"in {out['made_s']:.1f} s", flush=True)
+        for name, k, st in cases:
+            b = st.shape[0]
+            dense = st @ items.T
+            want = torch.topk(dense, k)
+            bs, bi = retrieval.blocked_topk(st, items, k, block)
+            ss, si, read = retrieval.streak_topk(st, items_s, order, bounds,
+                                                 k, block)
+            row = dict(case=name, users=b, k=k, blocks_read=read,
+                       n_blocks=nb,
+                       blocked_vs_dense=topk_agreement(
+                           f"{name} blocked", bs, bi, want.values,
+                           want.indices, dense),
+                       streak_vs_blocked=topk_agreement(
+                           f"{name} streak", ss, si, bs, bi, dense))
+            del dense
+            if not 0 < read < nb:
+                raise AssertionError(f"retrieval {name}: read {read} of {nb}"
+                                     " blocks: no early termination")
+            row["streak_ms"] = wall_ms(lambda: retrieval.streak_topk(
+                st, items_s, order, bounds, k, block), 5)
+            row["blocked_ms"] = wall_ms(lambda: retrieval.blocked_topk(
+                st, items, k, block), 3)
+            row["dense_topk_ms"] = wall_ms(lambda: torch.topk(st @ items.T,
+                                                              k), 3)
+            row["streak_bound_ms"], row["bound_by"] = retrieval_bound(
+                b, d, k, min(read * block, n))
+            row["blocked_bound_ms"], _ = retrieval_bound(b, d, k, n)
+            out["rows"].append(row)
+            print("retrieval " + json.dumps(row), flush=True)
+        # serve_bulk: the full scan in BULK_BLOCK blocks, rows sampled
+        b, k = bulk_states.shape[0], 100
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bs, bi = retrieval.blocked_topk(bulk_states, items, k, BULK_BLOCK)
+        torch.cuda.synchronize()
+        bulk_ms = (time.perf_counter() - t1) * 1e3
+        rows = torch.from_numpy(np.sort(rng.choice(
+            b, BULK_SAMPLED_ROWS, replace=False))).to(dev)
+        dense = bulk_states[rows] @ items.T
+        want = torch.topk(dense, k)
+        bulk = dict(case="serve_bulk", users=b, k=k, block=BULK_BLOCK,
+                    blocked_ms=bulk_ms, sampled_rows=BULK_SAMPLED_ROWS,
+                    blocked_vs_dense=topk_agreement(
+                        "serve_bulk", bs[rows], bi[rows], want.values,
+                        want.indices, dense),
+                    max_memory_allocated=torch.cuda.max_memory_allocated(),
+                    items_per_s=b * n / (bulk_ms / 1e3))
+        bulk["bound_ms"], bulk["bound_by"] = retrieval_bound(b, d, k, n)
+        del dense, bulk_states, bs, bi
+        out["bulk"] = bulk
+        print("retrieval " + json.dumps(bulk), flush=True)
+        out["cuda_vs_cpu"] = catalog_cuda_vs_cpu(dev)
+    del params, items, items_s, order
+    torch.cuda.empty_cache()
+    # the launchers' recsys paths on the card
+    r = launch_serve.serve_retrieval(cfg, dev)
+    with torch.no_grad():
+        dense = sasrec.score_all(launch_serve.popularity_catalog(cfg, dev)[0],
+                                 r["state"])
+    want = torch.topk(dense, r["k"])
+    out["launcher"] = dict(
+        blocks_read=r["blocks_read"], n_blocks=r["n_blocks"],
+        block=r["block"], seconds=r["seconds"], device=r["device"],
+        vs_dense=topk_agreement("launch.serve", r["scores"], r["ids"],
+                                want.values, want.indices, dense))
+    del dense, r
+    print("retrieval launch.serve " + json.dumps(out["launcher"]), flush=True)
+    if not 0 < out["launcher"]["blocks_read"] < out["launcher"]["n_blocks"]:
+        raise AssertionError("launch.serve: no early termination")
+    t1 = time.perf_counter()
+    r = serve_topk.main(["--device", str(dev)])
+    out["serve_topk"] = dict(blocks_read=r["blocks_read"],
+                             n_blocks=r["n_blocks"], steps=len(r["losses"]),
+                             first_last_loss=r["losses"][::len(r["losses"])
+                                                         - 1],
+                             seconds=time.perf_counter() - t1)
+    print("retrieval launch.serve_topk " + json.dumps(out["serve_topk"]),
+          flush=True)
+    if not 0 < r["blocks_read"] < r["n_blocks"]:
+        raise AssertionError("launch.serve_topk: no early termination")
+    torch.cuda.empty_cache()
+    return out
+
+
+def catalog_cuda_vs_cpu(dev) -> list:
+    """The launcher's pipeline on a 50,000-item catalog (weights and states
+    drawn on the CPU), each device sorting, bounding and scanning: ids and
+    blocks read equal (ids up to near-ties, TOPK_RTOL), at k 10 and 100."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import sasrec
+    from repro_torch.serve import retrieval
+    cfg = dataclasses.replace(registry.get("sasrec").config,
+                              n_items=CATALOG_CPU_ITEMS)
+    block = max(64, cfg.n_items // 16)
+    params, seq = launch_serve.popularity_catalog(cfg, "cpu")
+    state = sasrec.user_state(params, seq, cfg)
+    dense = sasrec.score_all(params, state)
+    out = []
+    for k in (10, 100):
+        runs = []
+        for d in (torch.device("cpu"), dev):
+            items_s, order = retrieval.sort_items_by_norm(
+                params["item_embed"].to(d), block)
+            bounds = retrieval.block_bounds(items_s, block)
+            s, i, read = retrieval.streak_topk(state.to(d), items_s, order,
+                                               bounds, k, block)
+            runs.append((s.cpu(), i.cpu(), read, order.cpu()))
+        (cs, ci, cr, co), (gs, gi, gr, go) = runs
+        row = dict(items=cfg.n_items, users=state.shape[0], k=k,
+                   block=block, blocks_read_cpu=cr, blocks_read_cuda=gr,
+                   order_equal=bool(torch.equal(co, go)),
+                   agreement=topk_agreement(f"catalog k={k} card vs cpu",
+                                            gs, gi, cs, ci, dense))
+        out.append(row)
+        print("retrieval cuda vs cpu " + json.dumps(row), flush=True)
+        if cr != gr or not cr < -(-cfg.n_items // block):
+            raise AssertionError(f"catalog k={k}: blocks read {gr} on the "
+                                 f"card, {cr} on the CPU")
+    return out
+
+
+def recsys_trainer(cfg, params, dev, ckpt_dir, batches_list):
+    """A `Trainer` on `dev` over a copy of `params`, BPR loss, the training
+    launcher's AdamW (5 warmup steps), fed `batches_list[step]` (numpy
+    (seq, pos, neg) triples) moved to `dev`."""
+    from repro_torch.models import sasrec
+    from repro_torch.train import loop, optim
+    tr = loop.Trainer(lambda p, *b: sasrec.bpr_loss(p, *b, cfg),
+                      tree_to(params, dev, copy=True),
+                      loop.TrainerConfig(ckpt_dir=str(ckpt_dir),
+                                         log_every=10 ** 9,
+                                         ckpt_every=10 ** 9),
+                      optim.AdamWConfig(warmup_steps=5, total_steps=50))
+    return tr, lambda s: tuple(torch.from_numpy(x).to(dev)
+                               for x in batches_list[s])
+
+
+def check_recsys_train(dev, tmp) -> dict:
+    """SASRec at full width (10^6 items x 50, f32) through the `Trainer`:
+    three steps on the card and on the CPU from the same weights and
+    `InteractionStream` batches (B=64) within TRAIN_REL_TOL; train_batch
+    (65,536 sequences of 50) steps timed on seeded uniform item ids (the
+    stream's host-side user x catalog affinity matrix would be 262 GB at
+    that batch); and, under torch.use_deterministic_algorithms(True)
+    without warn_only, six steps uninterrupted against three, saved,
+    restored into a new `Trainer` and continued: bit-identical."""
+    from repro_torch import pytree
+    from repro_torch.configs import registry
+    from repro_torch.data.recsys import InteractionStream
+    from repro_torch.models import sasrec
+    cfg = registry.get("sasrec").config
+    out: dict = {}
+    t0 = time.perf_counter()
+    params = sasrec.init_params(cfg, seed=0, device="cpu")
+    stream = InteractionStream(cfg.n_items, cfg.seq_len, RECSYS_CPU_BATCH,
+                               seed=0)
+    batches = [stream.batch(s) for s in range(6)]
+    out["made_s"] = time.perf_counter() - t0
+    hist = []
+    for i, d in enumerate((dev, torch.device("cpu"))):
+        tr, b = recsys_trainer(cfg, params, d, tmp / f"rs-{i}", batches)
+        hist.append(tr.fit(b, n_steps=3))
+        del tr
+    err = max(abs(a - b) / abs(b) for a, b in zip(*hist))
+    out["cuda_vs_cpu"] = dict(batch=RECSYS_CPU_BATCH, losses_cuda=hist[0],
+                              losses_cpu=hist[1], max_rel_err=err,
+                              tolerance_rel=TRAIN_REL_TOL)
+    print("recsys train cuda vs cpu " + json.dumps(out["cuda_vs_cpu"]),
+          flush=True)
+    if not err <= TRAIN_REL_TOL:
+        raise AssertionError(f"recsys train: card and CPU losses differ by "
+                             f"{err} > {TRAIN_REL_TOL}")
+    # resume, strictly deterministic
+    warned: list = []
+    with deterministic(warned, warn_only=False):
+        full, b = recsys_trainer(cfg, params, dev, tmp / "rs-full", batches)
+        want = full.fit(b, n_steps=6)
+        part, b = recsys_trainer(cfg, params, dev, tmp / "rs-part", batches)
+        part.fit(b, n_steps=3)
+        resumed, b = recsys_trainer(cfg, params, dev, tmp / "rs-part",
+                                    batches)
+        if not resumed.maybe_restore() or resumed.step != 3:
+            raise AssertionError("recsys train: no step-3 checkpoint")
+        got = resumed.fit(b, n_steps=6)
+        same_params = all(torch.equal(x, y) for x, y in zip(
+            pytree.leaves(full.params), pytree.leaves(resumed.params)))
+    out["resume"] = dict(uninterrupted=want, resumed=got,
+                         bit_identical=got == want[3:] and same_params)
+    print("recsys train resume " + json.dumps(out["resume"]), flush=True)
+    del full, part, resumed
+    if not out["resume"]["bit_identical"]:
+        raise AssertionError("recsys train: the resumed run is not the "
+                             "uninterrupted one bit for bit")
+    # full width at train_batch
+    batch = registry.RECSYS_SHAPES["train_batch"]["batch"]
+    rng = np.random.default_rng(2)
+    big = [tuple(rng.integers(1, cfg.n_items, (batch, cfg.seq_len))
+                 .astype(np.int32) for _ in range(3))
+           for _ in range(RECSYS_TRAIN_STEPS)]
+    tr, b = recsys_trainer(cfg, sasrec.init_params(cfg, 0, dev), dev,
+                           tmp / "rs-big", big)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for s in range(RECSYS_TRAIN_STEPS):
+        x = b(s)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(float(tr.train_step(x)))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    tokens = batch * cfg.seq_len
+    # forward and backward: ~3x the forward's products (q/k/v/o, FFN,
+    # attention, the pos/neg scores), f32
+    per_token = cfg.n_blocks * (2 * (4 * cfg.embed_dim ** 2 + 2 *
+                                     cfg.embed_dim * cfg.d_ff)
+                                + 4 * cfg.seq_len * cfg.embed_dim) \
+        + 4 * cfg.embed_dim
+    n_par = cfg.n_params()
+    bound = bound_ms(4 * n_par * 6 + 12 * tokens, 3 * per_token * tokens)
+    norm = float(tr.metrics["grad_norm"])
+    out["full_width"] = dict(
+        batch=batch, seq_len=cfg.seq_len, parameters=n_par, losses=losses,
+        grad_norm=norm,
+        step_ms=step_ms, sequences_per_s=batch / (np.median(step_ms) / 1e3),
+        tokens_per_s=tokens / (np.median(step_ms) / 1e3),
+        bound_ms=bound[0], bound_by=bound[1],
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    print("recsys train full width " + json.dumps(out["full_width"]),
+          flush=True)
+    del tr, x
+    torch.cuda.empty_cache()
+    if not (np.isfinite(losses).all() and np.isfinite(norm) and norm > 0):
+        raise AssertionError(f"recsys train: losses {losses}, grad norm "
+                             f"{norm}")
+    return out
+
+
+# ------------------------------------------------------------------ GNNs ---
+GNN_FWD_RMS = 1e-5     # f32 logits, card against CPU (segment sums in
+#   another order: atomics on the card)
+REDDIT_AVG_DEGREE = 24
+GNN_STEPS = 3
+
+
+# a training step's bound: 3x the forward's operations (the backward
+# takes two products a forward product), and the forward's bytes plus the
+# optimizer's a parameter (f32 AdamW: the weight, its gradient and two
+# moments read, the weight and moments written: 28 bytes)
+STEP_OPS, STEP_PARAM_BYTES = 3, 28
+
+
+def gnn_bounds(cfg, n_nodes: int, n_edges: int, d_in: int) -> dict:
+    """A forward's bound (features and weights read, logits written;
+    operations: the products, GCN one a layer, SAGE two, and the edge sums)
+    and a training step's."""
+    dims = cfg.dims()
+    mult = 2 if cfg.arch == "sage" else 1
+    ops = sum(2 * mult * n_nodes * a * b + n_edges * a
+              for a, b in zip(dims[:-1], dims[1:]))
+    n_bytes = 4 * (n_nodes * d_in + cfg.n_params() + n_nodes * cfg.d_out) \
+        + 8 * n_edges
+    fwd, by = bound_ms(n_bytes, ops)
+    step, step_by = bound_ms(n_bytes + STEP_PARAM_BYTES * cfg.n_params(),
+                             STEP_OPS * ops)
+    return dict(forward_bound_ms=fwd, bound_by=by, step_bound_ms=step,
+                step_bound_by=step_by)
+
+
+def gnn_cuda_vs_cpu(label, cfg, dev, graph_cpu, batches_list, loss_fn,
+                    tmp) -> dict:
+    """One forward and GNN_STEPS Trainer steps of `cfg` on the card and on
+    the CPU from the CPU's seed-0 weights: logits within GNN_FWD_RMS,
+    losses within TRAIN_REL_TOL; the card's forward and step timed."""
+    from repro_torch.models import gnn
+    from repro_torch.train import loop, optim
+    params = gnn.init_params(cfg, seed=0, device="cpu")
+    logits, hist, times = [], [], {}
+    for i, d in enumerate((dev, torch.device("cpu"))):
+        graph = tuple(t.to(d) for t in graph_cpu)
+        p = tree_to(params, d, copy=True)
+        with torch.no_grad():
+            logits.append(gnn.forward(p, graph[0], graph[1], cfg).cpu())
+            if i == 0:
+                times["forward_ms"] = time_ms(
+                    lambda: gnn.forward(p, graph[0], graph[1], cfg), 5)
+        tr = loop.Trainer(loss_fn, p, loop.TrainerConfig(
+            ckpt_dir=str(tmp / f"{label}-{i}"), log_every=10 ** 9,
+            ckpt_every=10 ** 9), optim.AdamWConfig(warmup_steps=5,
+                                                   total_steps=50))
+        losses, step_ms = [], []
+        for s in range(GNN_STEPS):
+            x = tuple(t.to(d) for t in batches_list[s])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            losses.append(float(tr.train_step(x)))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        hist.append(losses)
+        if i == 0:
+            times["step_ms"] = step_ms
+        del tr, p, graph
+    fwd = rel_err(logits[0], logits[1])
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(*hist))
+    report = dict(config=label, logits_rel_rms=fwd,
+                  tolerance_rel_rms=GNN_FWD_RMS, losses_cuda=hist[0],
+                  losses_cpu=hist[1], max_loss_rel_err=loss_err,
+                  tolerance_rel=TRAIN_REL_TOL, **times)
+    if not (fwd <= GNN_FWD_RMS and loss_err <= TRAIN_REL_TOL
+            and np.isfinite(hist[0]).all()):
+        raise AssertionError(f"gnn {label}: card against CPU: logits "
+                             f"{fwd}, losses {loss_err}")
+    return report
+
+
+def check_gnn(dev, tmp) -> dict:
+    """gcn-cora at full width on a Cora-sized synthetic graph (2,708 nodes,
+    10,556 edges: `random_power_law_graph(2708, 1, seed=0)`'s edges thinned
+    by default_rng(1); 1,433 features, 7 classes) through the training
+    launcher's `gnn_graph` and the launcher's loss and optimizer;
+    graphsage-reddit at full width (602 features,
+    128 hidden, 41 classes) on 232,965 nodes with `NeighborSampler` blocks
+    of 1,024 seeds at the config's sample sizes (25, 10). Each: a forward
+    and GNN_STEPS Trainer steps, card against CPU."""
+    from repro_torch.configs import registry
+    from repro_torch.data import graphs
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import gnn
+    out: dict = {}
+    # gcn-cora, the full graph
+    cfg = registry.get("gcn-cora").config
+    shape = registry.GNN_SHAPES["full_graph_sm"]
+    n = shape["n_nodes"]
+    full = graphs.random_power_law_graph(n, 1, seed=0)
+    keep = np.sort(np.random.default_rng(1).choice(
+        full.shape[1], shape["n_edges"], replace=False))
+    edges = full[:, keep]
+    graph = launch_train.gnn_graph(cfg, "cpu", n, edges)
+
+    def gcn_loss(p, x, e, labels, mask):
+        return gnn.nll_loss(p, x, e, labels, mask, cfg)
+    rep = gnn_cuda_vs_cpu("gcn-cora", cfg, dev, graph,
+                          [graph] * GNN_STEPS, gcn_loss, tmp)
+    rep.update(nodes=n, edges=int(edges.shape[1]), features=cfg.d_in,
+               nodes_per_s=n / (np.median(rep["step_ms"]) / 1e3),
+               **gnn_bounds(cfg, n, edges.shape[1], cfg.d_in))
+    out["gcn-cora"] = rep
+    print("gnn " + json.dumps(rep), flush=True)
+    # graphsage-reddit, sampled blocks
+    cfg = registry.get("graphsage-reddit").config
+    shape = registry.GNN_SHAPES["minibatch_lg"]
+    n, seeds = shape["n_nodes"], shape["batch_nodes"]
+    t0 = time.perf_counter()
+    edges = graphs.random_power_law_graph(n, REDDIT_AVG_DEGREE, seed=0)
+    rng = np.random.default_rng(0)
+    feats = rng.standard_normal((n, cfg.d_in), dtype=np.float32)
+    labels = rng.integers(0, cfg.d_out, n).astype(np.int32)
+    sampler = graphs.NeighborSampler(edges, n, feats, labels,
+                                     cfg.sample_sizes, seed=0)
+    build_s = time.perf_counter() - t0
+    n_edges = int(edges.shape[1])
+    del edges
+    t0 = time.perf_counter()
+    blocks = [sampler.sample(np.sort(rng.choice(n, seeds, replace=False)))
+              for _ in range(GNN_STEPS)]
+    sample_s = (time.perf_counter() - t0) / GNN_STEPS
+    del sampler, feats
+    as_tensors = [tuple(torch.from_numpy(a) for a in
+                        (blk.feats, blk.edges, blk.labels, blk.mask))
+                  for blk in blocks]
+
+    def sage_loss(p, x, e, labels_, mask):
+        return gnn.nll_loss(p, x, e, labels_, mask, cfg)
+    rep = gnn_cuda_vs_cpu("graphsage-reddit", cfg, dev, as_tensors[0],
+                          as_tensors, sage_loss, tmp)
+    blk = blocks[0]
+    n_pad, e_pad = blk.feats.shape[0], blk.edges.shape[1]
+    rep.update(nodes=n, edges=n_edges, reddit_edges=shape["n_edges"],
+               graph_build_s=build_s, sample_s=sample_s, seeds=seeds,
+               fanouts=list(cfg.sample_sizes), block_nodes=int(n_pad),
+               block_real_nodes=int((blk.nodes >= 0).sum()),
+               block_edges=int(e_pad),
+               seeds_per_s=seeds / (np.median(rep["step_ms"]) / 1e3),
+               **gnn_bounds(cfg, n_pad, e_pad, cfg.d_in))
+    out["graphsage-reddit"] = rep
+    print("gnn " + json.dumps(rep), flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------- GraphCast --
+GRAPHCAST_REL_TOL = 5e-2   # bf16 forward against f32, relative RMS
+GRID_DEG = 0.25            # the 0.25-degree 721 x 1,440 grid
+MESH_NODES = 40_962        # a refinement-6 icosahedral mesh's node count
+MESH_RADIUS, G2M_RADIUS = 1.5, 1.0   # degrees of lon/lat
+
+
+def graphcast_graph(grid_deg: float = GRID_DEG,
+                    n_mesh: int = MESH_NODES) -> dict:
+    """Grid and mesh nodes as (lon, lat) degrees: the grid every
+    `grid_deg`, the mesh a Fibonacci lattice of `n_mesh` points on the
+    sphere (near-uniform, as an icosahedral mesh is); mesh edges by
+    `graphs.spatial_graph` within MESH_RADIUS, grid->mesh by
+    `graphs.grid_mesh_edges` within G2M_RADIUS, mesh->grid the same pairs
+    reversed: the STREAK radius join builds all three."""
+    from repro_torch.data import graphs
+    i = np.arange(n_mesh) + 0.5
+    mesh = np.stack([(i * 137.50776405003785) % 360.0,
+                     np.degrees(np.arcsin(1 - 2 * i / n_mesh))], 1)
+    lat = np.linspace(-90.0, 90.0, int(round(180 / grid_deg)) + 1)
+    lon = np.arange(int(round(360 / grid_deg))) * grid_deg
+    grid = np.stack(np.meshgrid(lon, lat), -1).reshape(-1, 2)
+    g2m = graphs.grid_mesh_edges(grid, mesh, G2M_RADIUS)
+    return dict(n_grid=len(grid), n_mesh=n_mesh, grid_shape=(len(lat),
+                                                             len(lon)),
+                g2m=g2m, mesh_edges=graphs.spatial_graph(mesh, MESH_RADIUS),
+                m2g=np.ascontiguousarray(g2m[::-1]))
+
+
+def graphcast_flops(cfg, g: dict) -> float:
+    """The forward's product operations from the shapes (2 per MAC)."""
+    h, v = cfg.d_hidden, cfg.n_vars
+    mlp2, mlp3 = 2 * (2 * h * h + h * h), 2 * (3 * h * h + h * h)
+    e1, em, e2 = (g["g2m"].shape[1], g["mesh_edges"].shape[1],
+                  g["m2g"].shape[1])
+    return (2 * g["n_grid"] * v * h * 2 + e1 * mlp2 + g["n_mesh"] * mlp2
+            + cfg.n_layers * (em * mlp3 + g["n_mesh"] * mlp2)
+            + e2 * mlp2 + g["n_grid"] * mlp2)
+
+
+def dropped_residual_process(graphcast):
+    """A processor block with its node residual dropped (m = MLP(...)
+    instead of m + MLP(...)): the planted fault the bf16 check must catch."""
+    F = torch.nn.functional
+
+    def process(m, e, src, dst, n_mesh, ew1, ew2, nw1, nw2):
+        e = e + F.silu(torch.cat([e, m[src], m[dst]], -1) @ ew1) @ ew2
+        agg = graphcast.segment_sum(e, dst, n_mesh)
+        return F.silu(torch.cat([m, agg], -1) @ nw1) @ nw2, e
+    return process
+
+
+def check_graphcast(dev, tmp) -> dict:
+    """The full graphcast config (16 layers, d_hidden 512, 227 variables,
+    bf16, remat) on the 0.25-degree grid (1,038,240 nodes) and a
+    40,962-node mesh: the bf16 forward against an f32 forward of the same
+    weights within GRAPHCAST_REL_TOL relative RMS, a dropped processor
+    residual failing that check, and one training step (AdamW) with the
+    processor blocks recomputed in the backward pass (each block run twice
+    a step)."""
+    from repro_torch import pytree
+    from repro_torch.configs import registry
+    from repro_torch.models import graphcast
+    from repro_torch.train import loop, optim
+    cfg = registry.get("graphcast").config
+    t0 = time.perf_counter()
+    g = graphcast_graph()
+    build_s = time.perf_counter() - t0
+    edges = {k: torch.from_numpy(g[k]).to(dev)
+             for k in ("g2m", "mesh_edges", "m2g")}
+    rng = np.random.default_rng(0)
+    grid_x = torch.from_numpy(rng.standard_normal(
+        (g["n_grid"], cfg.n_vars), dtype=np.float32)).to(dev)
+    params = graphcast.init_params(cfg, seed=0, device=dev)
+    args = (edges["g2m"], edges["mesh_edges"], edges["m2g"], g["n_mesh"])
+    with torch.no_grad():
+        want = graphcast.forward(
+            pytree.tree_map(lambda x: x.float(), params), grid_x, *args,
+            dataclasses.replace(cfg, dtype="float32"))
+        got = graphcast.forward(params, grid_x, *args, cfg)
+        err = rel_err(got, want)
+        del got
+        torch.cuda.synchronize()
+        fwd_ms = wall_ms(lambda: graphcast.forward(params, grid_x, *args,
+                                                   cfg), 3)
+        clean = graphcast._process
+        graphcast._process = dropped_residual_process(graphcast)
+        try:
+            planted = rel_err(graphcast.forward(params, grid_x, *args, cfg),
+                              want)
+        finally:
+            graphcast._process = clean
+    del want
+    torch.cuda.empty_cache()
+    n_ops = graphcast_flops(cfg, g)
+    n_bytes = 4 * grid_x.numel() * 2 + 2 * cfg.n_params()
+    bound = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+    # the step: also the target read, and AdamW on bf16 weights with f32
+    # moments (weight and gradient 2 bytes, moments 4, read and written)
+    step_bound = bound_ms(n_bytes + 4 * grid_x.numel() + 22 * cfg.n_params(),
+                          STEP_OPS * n_ops, BF16_OPS_PER_S)
+    # one training step, the processor recomputed in the backward pass
+    calls = [0]
+
+    def counted(*a):
+        calls[0] += 1
+        return clean(*a)
+    target = torch.from_numpy(rng.standard_normal(
+        (g["n_grid"], cfg.n_vars), dtype=np.float32)).to(dev)
+    tr = loop.Trainer(
+        lambda p, x, y: graphcast.mse_loss(p, x, y, *args, cfg), params,
+        loop.TrainerConfig(ckpt_dir=str(tmp / "graphcast"), log_every=10 ** 9,
+                           ckpt_every=10 ** 9),
+        optim.AdamWConfig(warmup_steps=5, total_steps=50))
+    torch.cuda.reset_peak_memory_stats()
+    graphcast._process = counted
+    try:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = float(tr.train_step((grid_x, target)))
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        graphcast._process = clean
+    report = dict(
+        layers=cfg.n_layers, d_hidden=cfg.d_hidden, n_vars=cfg.n_vars,
+        dtype=cfg.dtype, grid=list(g["grid_shape"]), grid_nodes=g["n_grid"],
+        mesh_nodes=g["n_mesh"], g2m_edges=int(g["g2m"].shape[1]),
+        mesh_edges=int(g["mesh_edges"].shape[1]),
+        m2g_edges=int(g["m2g"].shape[1]), graph_build_s=build_s,
+        parameters=cfg.n_params(), bf16_vs_f32_rel_rms=err,
+        planted_dropped_residual_rel_rms=planted,
+        tolerance_rel_rms=GRAPHCAST_REL_TOL, forward_ms=fwd_ms,
+        forward_bound_ms=bound[0], bound_by=bound[1], forward_tflop=n_ops
+        / 1e12, train_step_ms=step_ms, step_bound_ms=step_bound[0],
+        step_bound_by=step_bound[1], train_loss=loss,
+        grad_norm=float(tr.metrics["grad_norm"]),
+        processor_calls_in_the_step=calls[0],
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    print("graphcast " + json.dumps(report), flush=True)
+    del tr, params, grid_x, target, edges
+    torch.cuda.empty_cache()
+    if not err <= GRAPHCAST_REL_TOL:
+        raise AssertionError(f"graphcast: bf16 forward {err} from f32")
+    if not planted > GRAPHCAST_REL_TOL:
+        raise AssertionError(f"graphcast: the dropped residual passes "
+                             f"({planted} <= {GRAPHCAST_REL_TOL})")
+    if calls[0] != 2 * cfg.n_layers or not (
+            np.isfinite(loss) and np.isfinite(report["grad_norm"])
+            and report["grad_norm"] > 0):
+        raise AssertionError(f"graphcast: training step: {calls[0]} block "
+                             f"calls, loss {loss}, grad norm "
+                             f"{report['grad_norm']}")
+    return report
+
+
+# ------------------------------------------------------------------ NequIP --
+NEQUIP_RTOL = 1e-4        # invariances, the reference's rtol
+NEQUIP_CPU_RMS = 1e-5     # energies, card against CPU (f32 sums reordered)
+MOLECULE_BOX = 17.0       # Angstrom: ~64 directed edges at cutoff 5
+
+
+def molecule_batch(cfg, shape: dict, seed: int = 0) -> dict:
+    """`shape`'s batch of molecules (128 x 30 atoms): positions uniform in
+    a MOLECULE_BOX cube, species from default_rng(seed), cutoff graphs from
+    `graphs.spatial_graph` (the STREAK radius join, refined in 3-d), as
+    one block-diagonal batch."""
+    from repro_torch.data import graphs
+    rng = np.random.default_rng(seed)
+    n, b = shape["n_nodes"], shape["batch"]
+    pos = rng.uniform(0, MOLECULE_BOX, (b, n, 3))
+    species = rng.integers(0, cfg.n_species, (b, n)).astype(np.int32)
+    edges = np.concatenate([graphs.spatial_graph(pos[i], cfg.cutoff) + i * n
+                            for i in range(b)], axis=1)
+    return dict(species=species.reshape(-1),
+                positions=pos.reshape(-1, 3).astype(np.float32),
+                edges=edges.astype(np.int32),
+                graph_ids=np.repeat(np.arange(b), n).astype(np.int32),
+                n_graphs=b)
+
+
+def check_nequip(dev) -> dict:
+    """The full nequip config on the molecule shape through
+    `forward_batched`: the batch's energies invariant under a random
+    rotation and translation and under an atom permutation (NEQUIP_RTOL,
+    relative over the batch's energy vector), and the card equal to the
+    CPU within NEQUIP_CPU_RMS relative RMS."""
+    from repro_torch.configs import registry
+    from repro_torch.models import equivariant
+    cfg = registry.get("nequip").config
+    mb = molecule_batch(cfg, registry.GNN_SHAPES["molecule"])
+    params = equivariant.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(1)
+
+    def energies(d, species, positions, edges, graph_ids):
+        with torch.no_grad():
+            return equivariant.forward_batched(
+                tree_to(params, d), torch.from_numpy(species).to(d),
+                torch.from_numpy(positions).to(d),
+                torch.from_numpy(edges).to(d),
+                torch.from_numpy(graph_ids).to(d), mb["n_graphs"], cfg)
+    base = (mb["species"], mb["positions"], mb["edges"], mb["graph_ids"])
+    e = energies(dev, *base)
+    e_cpu = energies(torch.device("cpu"), *base)
+    q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    q = q if np.linalg.det(q) > 0 else -q
+    moved = (mb["positions"] @ q.T + rng.normal(size=(1, 3))).astype(
+        np.float32)
+    e_rot = energies(dev, mb["species"], moved, mb["edges"], mb["graph_ids"])
+    perm = rng.permutation(len(mb["species"]))
+    inv = np.argsort(perm)
+    e_perm = energies(dev, mb["species"][perm], mb["positions"][perm],
+                      inv[mb["edges"]].astype(np.int32),
+                      mb["graph_ids"][perm])
+    p_dev = tree_to(params, dev)
+    inputs = [torch.from_numpy(a).to(dev) for a in base]
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: equivariant.forward_batched(
+            p_dev, *inputs, mb["n_graphs"], cfg), 5)
+    n_edges, n_atoms, c = mb["edges"].shape[1], len(mb["species"]), \
+        cfg.n_channels
+    paths = equivariant.allowed_paths(cfg.l_max)
+    # a layer: the radial MLP per edge, each path's coupling per edge and
+    # channel, the mix per atom (2 ops per MAC)
+    per_layer = n_edges * 2 * (cfg.n_rbf * cfg.radial_hidden
+                               + cfg.radial_hidden * len(paths) * c) \
+        + sum(n_edges * c * 2 * (2 * l1 + 1) * (2 * l2 + 1) * (2 * l3 + 1)
+              for l1, l2, l3 in paths) \
+        + n_atoms * 2 * c * c * sum(2 * l + 1 for l in range(cfg.l_max + 1))
+    bound = bound_ms(4 * (n_atoms * 4 + n_edges * 2 + cfg.n_params()),
+                     cfg.n_layers * per_layer)
+    # over the batch: |E' - E| / |E| as vectors (a molecule whose energy
+    # sums to near 0 has a per-molecule ratio far above its rounding)
+    rot_err, perm_err = rel_err(e_rot, e), rel_err(e_perm, e)
+    report = dict(layers=cfg.n_layers, channels=c, l_max=cfg.l_max,
+                  n_rbf=cfg.n_rbf, cutoff=cfg.cutoff,
+                  molecules=mb["n_graphs"], atoms=n_atoms, edges=n_edges,
+                  edges_per_molecule=n_edges / mb["n_graphs"],
+                  energies_finite=bool(torch.isfinite(e).all()),
+                  energy_abs_min=float(e.abs().min()),
+                  energy_abs_mean=float(e.abs().mean()),
+                  rotation_rel_err=rot_err, permutation_rel_err=perm_err,
+                  rotation_max_rel_err_a_molecule=float(
+                      ((e_rot - e).abs() / e.abs()).max()),
+                  permutation_max_rel_err_a_molecule=float(
+                      ((e_perm - e).abs() / e.abs()).max()),
+                  tolerance_rel=NEQUIP_RTOL,
+                  cuda_vs_cpu_rel_rms=rel_err(e.cpu(), e_cpu),
+                  tolerance_rel_rms=NEQUIP_CPU_RMS, forward_ms=fwd_ms,
+                  forward_bound_ms=bound[0], bound_by=bound[1])
+    print("nequip " + json.dumps(report), flush=True)
+    if not (report["energies_finite"] and rot_err <= NEQUIP_RTOL
+            and perm_err <= NEQUIP_RTOL
+            and report["cuda_vs_cpu_rel_rms"] <= NEQUIP_CPU_RMS):
+        raise AssertionError(f"nequip: {report}")
     return report
 
 
@@ -4361,6 +5143,28 @@ def main() -> None:
                         resume=check_train_resume(dev, tmp))
     phase_done("train", t0)
 
+    # ---- recsys: STREAK retrieval and SASRec training at full width -------
+    t0 = time.perf_counter()
+    retrieval_run = check_retrieval(dev)
+    phase_done("retrieval", t0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        recsys_train = check_recsys_train(dev, pathlib.Path(tmp))
+    phase_done("recsys train", t0)
+
+    # ---- the GNN family: GCN, GraphSAGE, GraphCast, NequIP ----------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        gnn_run = check_gnn(dev, pathlib.Path(tmp))
+    phase_done("gnn", t0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        graphcast_run = check_graphcast(dev, pathlib.Path(tmp))
+    phase_done("graphcast", t0)
+    t0 = time.perf_counter()
+    nequip_run = check_nequip(dev)
+    phase_done("nequip", t0)
+
     # ---- where the time goes ---------------------------------------------
     t0 = time.perf_counter()
     traces = [trace_queries(rt, name, ds, n_q, join)
@@ -4416,7 +5220,9 @@ def main() -> None:
             serve_turns=serve_times, lm_prefill=prefill, lm_serve=lm_serve,
             lm_smoke_cuda_vs_cpu=smoke_lms, moe_prefill=moe_prefills,
             moe_serve=moe_serve, moe_smoke_cuda_vs_cpu=moe_smokes,
-            training=training, phase_seconds=phase_s),
+            training=training, retrieval=retrieval_run,
+            recsys_train=recsys_train, gnn=gnn_run, graphcast=graphcast_run,
+            nequip=nequip_run, phase_seconds=phase_s),
             indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,23 @@
-"""Architecture registry: the LM architectures the port runs.
+"""Architecture registry: the reference's ten architectures on the port.
 
 Each entry carries the published config (`config`, source in `source`) and
 a reduced `smoke` config for the CPU tests, copied from the reference's
 `configs/gemma_7b.py`, `codeqwen1_5_7b.py`, `nemotron_4_15b.py` (family
-"lm") and `qwen2_moe_a2_7b.py`, `qwen3_moe_30b_a3b.py` (family "moe").
-The reference's GNN and recsys architectures are not ported yet: they are
-named in `NOT_PORTED` with their family.
+"lm"), `qwen2_moe_a2_7b.py`, `qwen3_moe_30b_a3b.py` ("moe"),
+`gcn_cora.py`, `graphsage_reddit.py` ("gnn"), `graphcast_cfg.py`
+("graphcast"), `nequip_cfg.py` ("nequip") and `sasrec_cfg.py` ("recsys").
+`GNN_SHAPES` and `RECSYS_SHAPES` are the reference's shape sets for those
+families.
 """
 from __future__ import annotations
 
 import dataclasses
 
+from ..models.equivariant import NequIPConfig
+from ..models.gnn import GNNConfig
+from ..models.graphcast import GraphCastConfig
 from ..models.moe import MoEConfig
+from ..models.sasrec import SASRecConfig
 from ..models.transformer import TransformerConfig
 
 
@@ -19,8 +25,8 @@ from ..models.transformer import TransformerConfig
 class Arch:
     family: str
     source: str
-    config: TransformerConfig
-    smoke: TransformerConfig
+    config: object
+    smoke: object
 
 
 ARCHS = {
@@ -97,21 +103,86 @@ ARCHS = {
             n_kv_heads=2, head_dim=16, vocab=256, n_experts=8,
             n_experts_padded=8, top_k=8, d_ff_expert=32, n_shared=0,
             act="silu", norm="rms", dtype="float32", remat=False)),
+    "gcn-cora": Arch(
+        family="gnn",
+        source="arXiv:1609.02907 (paper): 2L d_hidden=16 mean/sym-norm agg",
+        config=GNNConfig(name="gcn-cora", arch="gcn", n_layers=2, d_in=1433,
+                         d_hidden=16, d_out=7, aggregator="mean"),
+        smoke=GNNConfig(name="gcn-cora-smoke", arch="gcn", n_layers=2,
+                        d_in=32, d_hidden=8, d_out=4, aggregator="mean")),
+    "graphcast": Arch(
+        family="graphcast",
+        source="arXiv:2212.12794 (unverified): 16L d_hidden=512 "
+               "mesh_refinement=6 sum agg, n_vars=227 "
+               "(encoder-processor-decoder)",
+        config=GraphCastConfig(name="graphcast", n_layers=16, d_hidden=512,
+                               n_vars=227, mesh_refinement=6,
+                               aggregator="sum"),
+        smoke=GraphCastConfig(name="graphcast-smoke", n_layers=2,
+                              d_hidden=32, n_vars=11, mesh_refinement=2,
+                              aggregator="sum", dtype="float32",
+                              remat=False)),
+    "graphsage-reddit": Arch(
+        family="gnn",
+        source="arXiv:1706.02216 (paper): 2L d_hidden=128 mean agg, "
+               "neighbor sampling 25-10",
+        config=GNNConfig(name="graphsage-reddit", arch="sage", n_layers=2,
+                         d_in=602, d_hidden=128, d_out=41,
+                         aggregator="mean", sample_sizes=(25, 10)),
+        smoke=GNNConfig(name="graphsage-smoke", arch="sage", n_layers=2,
+                        d_in=32, d_hidden=16, d_out=4, aggregator="mean",
+                        sample_sizes=(5, 3))),
+    "nequip": Arch(
+        family="nequip",
+        source="arXiv:2101.03164 (paper): 5L channels=32 l_max=2 n_rbf=8 "
+               "cutoff=5, E(3) tensor-product message passing",
+        config=NequIPConfig(name="nequip", n_layers=5, n_channels=32,
+                            l_max=2, n_rbf=8, cutoff=5.0),
+        smoke=NequIPConfig(name="nequip-smoke", n_layers=2, n_channels=8,
+                           l_max=2, n_rbf=4, cutoff=5.0)),
+    "sasrec": Arch(
+        family="recsys",
+        source="arXiv:1808.09781 (paper): embed_dim=50 2 blocks 1 head seq "
+               "50; catalog 10^6 items (retrieval_cand scores 1M "
+               "candidates)",
+        config=SASRecConfig(name="sasrec", n_items=1_000_000, embed_dim=50,
+                            n_blocks=2, n_heads=1, seq_len=50, d_ff=50),
+        smoke=SASRecConfig(name="sasrec-smoke", n_items=1000, embed_dim=16,
+                           n_blocks=2, n_heads=1, seq_len=10, d_ff=16)),
 }
 
-# the reference's architectures the port does not run yet, by family
-# (ROADMAP queue 1)
-NOT_PORTED = {"gcn-cora": "gnn", "graphcast": "graphcast",
-              "graphsage-reddit": "gnn", "nequip": "nequip",
-              "sasrec": "recsys"}
+# the reference's shape sets of the GNN and recsys families
+GNN_SHAPES = {
+    "full_graph_sm": dict(kind="full", n_nodes=2708, n_edges=10556,
+                          d_feat=1433, n_classes=7),
+    "minibatch_lg": dict(kind="sampled", n_nodes=232965, n_edges=114615892,
+                         batch_nodes=1024, fanout=(15, 10), d_feat=602,
+                         n_classes=41),
+    "ogb_products": dict(kind="full", n_nodes=2449029, n_edges=61859140,
+                         d_feat=100, n_classes=47),
+    "molecule": dict(kind="batched", n_nodes=30, n_edges=64, batch=128,
+                     d_feat=32, n_classes=1),
+}
+
+RECSYS_SHAPES = {
+    "train_batch": dict(kind="train", batch=65536),
+    "serve_p99": dict(kind="serve", batch=512),
+    "serve_bulk": dict(kind="bulk", batch=262144),
+    "retrieval_cand": dict(kind="retrieval", batch=1, n_candidates=1_000_000),
+}
 
 
 def get(arch_id: str) -> Arch:
     return ARCHS[arch_id]
 
 
-def model_module(cfg: TransformerConfig):
-    """The model module that runs `cfg`: `models.moe` for the MoE family,
-    `models.transformer` for the dense one."""
-    from ..models import moe, transformer
-    return moe if isinstance(cfg, MoEConfig) else transformer
+def model_module(cfg):
+    """The model module that runs `cfg`, by the config's type:
+    `models.transformer`, `moe`, `sasrec`, `gnn`, `graphcast` or
+    `equivariant`."""
+    from ..models import (equivariant, gnn, graphcast, moe, sasrec,
+                          transformer)
+    modules = {TransformerConfig: transformer, MoEConfig: moe,
+               SASRecConfig: sasrec, GNNConfig: gnn,
+               GraphCastConfig: graphcast, NequIPConfig: equivariant}
+    return modules[type(cfg)]

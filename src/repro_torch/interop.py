@@ -161,31 +161,35 @@ def _tensor_from_array(a, device) -> torch.Tensor:
 
 def params_from_state(params: dict, cfg, device) -> dict:
     """A model's parameters from the reference's parameter pytree as nested
-    dicts of numpy arrays, on `device`: the dense transformer's (stacked
-    (L, ...) layer weights) or, for a MoE config, the MoE's (padded expert
-    stacks (L, E, ...), router, shared experts). Every leaf keeps its dtype;
-    the layout is the reference's, so the model module reads them as they
-    are. Raises on a key or a leaf shape that the config's `param_shapes`
-    does not give."""
+    dicts and lists of numpy arrays, on `device`, for any config of
+    `configs.registry`: the dense transformer's (stacked (L, ...) layer
+    weights), the MoE's (padded expert stacks (L, E, ...), router, shared
+    experts), SASRec's (`blocks` a list), the GNNs' (`layers` a list),
+    GraphCast's (stacked processor weights) and NequIP's (`layers` a
+    list). Every leaf keeps its dtype; the layout is the reference's, so
+    the model module reads them as they are. Raises on a key, a list length
+    or a leaf shape that the config's `param_shapes` does not give."""
     from .configs import registry
     want = registry.model_module(cfg).param_shapes(cfg)
-    out = {}
 
-    def walk(src, ref_tree, dst, path):
-        if set(src) != set(ref_tree):
-            raise ValueError(f"parameter keys at {path or 'top'}: "
-                             f"{sorted(src)} != {sorted(ref_tree)}")
-        for k, v in src.items():
-            if isinstance(v, dict):
-                dst[k] = {}
-                walk(v, ref_tree[k], dst[k], f"{path}{k}.")
-                continue
-            t = _tensor_from_array(v, device)
-            if tuple(t.shape) != ref_tree[k]:
-                raise ValueError(f"{path}{k}: shape {tuple(t.shape)} != "
-                                 f"{ref_tree[k]}")
-            dst[k] = t
+    def walk(src, ref_tree, path):
+        if isinstance(ref_tree, dict):
+            if not isinstance(src, dict) or set(src) != set(ref_tree):
+                raise ValueError(f"parameter keys at {path or 'top'}: "
+                                 f"{sorted(src)} != {sorted(ref_tree)}")
+            return {k: walk(v, ref_tree[k], f"{path}{k}.")
+                    for k, v in src.items()}
+        if isinstance(ref_tree, list):
+            if not isinstance(src, (list, tuple)) \
+                    or len(src) != len(ref_tree):
+                raise ValueError(f"{path or 'top'}: {len(src)} items != "
+                                 f"{len(ref_tree)}")
+            return [walk(v, r, f"{path}{i}.")
+                    for i, (v, r) in enumerate(zip(src, ref_tree))]
+        t = _tensor_from_array(src, device)
+        if tuple(t.shape) != ref_tree:
+            raise ValueError(f"{path[:-1]}: shape {tuple(t.shape)} != "
+                             f"{ref_tree}")
+        return t
 
-    walk(params, want, out, "")
-    return out
-
+    return walk(params, want, "")

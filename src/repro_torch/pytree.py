@@ -1,9 +1,9 @@
-"""Nested dicts of tensors as trees, flattened in JAX's order.
+"""Nested dicts and lists of tensors as trees, flattened in JAX's order.
 
-`jax.tree_util.tree_flatten` visits a dict's keys sorted; `leaves` does the
-same, so a checkpoint's `leaf_i` and an optimizer's leaf order are the
-reference's. `None` is an empty subtree, as in JAX; anything else that is
-not a dict is a leaf.
+`jax.tree_util.tree_flatten` visits a dict's keys sorted and a list's
+items in order; `leaves` does the same, so a checkpoint's `leaf_i` and an
+optimizer's leaf order are the reference's. `None` is an empty subtree, as
+in JAX; anything else that is not a dict or a list is a leaf.
 """
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ def leaves(tree) -> list:
     """The leaves of `tree`, depth first, dict keys sorted."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for item in tree for x in leaves(item)]
     return [] if tree is None else [tree]
 
 
@@ -22,6 +24,8 @@ def unflatten(like, values) -> object:
     def build(node):
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, list):
+            return [build(item) for item in node]
         return None if node is None else next(it)
     out = build(like)
     if next(it, it) is not it:

@@ -45,6 +45,8 @@ def _to_host(leaf) -> np.ndarray:
 
 
 def _structure(tree) -> object:
+    if isinstance(tree, list):
+        return [_structure(item) for item in tree]
     return ({k: _structure(tree[k]) for k in sorted(tree)}
             if isinstance(tree, dict) else "*")
 

@@ -1078,3 +1078,145 @@ def test_trainer_on_cuda_equals_cpu_and_resumes_bit_for_bit(dev, tmp_path):
     finally:
         torch.use_deterministic_algorithms(False)
     assert got == want[2:]
+
+
+# ------------------------------------------- recsys and the GNN family ---
+def _popular_catalog(n, d, seed):
+    """Item rows with popularity-skewed norms, as the serve launcher's."""
+    rng = np.random.default_rng(seed)
+    items = rng.normal(size=(n, d)) / np.sqrt(d) \
+        * np.log1p(rng.zipf(1.4, n).clip(1, 1000))[:, None]
+    return torch.from_numpy(items.astype(np.float32))
+
+
+@pytest.mark.parametrize("b,k,block", [(1, 100, 1250), (64, 100, 937),
+                                       (8, 10, 64), (3, 100, 5000)])
+def test_retrieval_on_cuda_equals_cpu(dev, b, k, block):
+    """streak_topk and blocked_topk on the card against the CPU: blocks
+    read equal, ids equal, scores within 1e-5 relative (f32 dot products
+    of 16 terms summed in other orders)."""
+    from repro_torch.serve import retrieval
+    items = _popular_catalog(20_000, 16, b)
+    state = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(b, 16)).astype(np.float32))
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        items_s, order = retrieval.sort_items_by_norm(items.to(d), block)
+        bounds = retrieval.block_bounds(items_s, block)
+        s, i, read = retrieval.streak_topk(state.to(d), items_s, order,
+                                           bounds, k, block)
+        fs, fi = retrieval.blocked_topk(state.to(d), items.to(d), k, block)
+        runs.append((s.cpu(), i.cpu(), read, fs.cpu(), fi.cpu()))
+    (gs, gi, gr, gfs, gfi), (cs, ci, cr, cfs, cfi) = runs
+    assert gr == cr and gr < -(-20_000 // block)
+    assert torch.equal(gi, ci) and torch.equal(gfi, cfi)
+    assert torch.equal(gi, gfi)
+    for got, want in ((gs, cs), (gfs, cfs)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_sasrec_loss_and_grads_on_cuda_equal_cpu(dev):
+    from repro_torch import pytree
+    from repro_torch.configs import registry
+    from repro_torch.data.recsys import InteractionStream
+    from repro_torch.models import sasrec
+    cfg = registry.get("sasrec").smoke
+    params = sasrec.init_params(cfg, seed=0, device="cpu")
+    batch = InteractionStream(cfg.n_items, cfg.seq_len, 16, seed=0).batch(0)
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        leaves = [x.to(d).requires_grad_(True)
+                  for x in pytree.leaves(params)]
+        loss = sasrec.bpr_loss(pytree.unflatten(params, leaves),
+                               *(torch.from_numpy(x).to(d) for x in batch),
+                               cfg)
+        runs.append([loss.detach().cpu()] + [
+            g.cpu() for g in torch.autograd.grad(loss, leaves)])
+    for got, want in zip(*runs):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean", "max"])
+def test_embedding_bag_on_cuda_equals_cpu(dev, mode):
+    from repro_torch.data.recsys import embedding_bag
+    rng = np.random.default_rng(1)
+    table = torch.from_numpy(rng.normal(size=(20, 5)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 20, 11))
+    off = torch.tensor([0, 3, 3, 7, 11])            # bags 1 and 4 empty
+    w = torch.from_numpy(rng.normal(size=11).astype(np.float32))
+    got = embedding_bag(table.to(dev), idx.to(dev), off.to(dev), mode,
+                        w.to(dev)).cpu()
+    want = embedding_bag(table, idx, off, mode, w)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    if mode == "max":
+        assert torch.isneginf(got[[1, 4]]).all()
+
+
+@pytest.mark.parametrize("arch,agg", [("gcn", "mean"), ("sage", "mean"),
+                                      ("sage", "max")])
+def test_gnn_on_cuda_equals_cpu(dev, arch, agg):
+    """Logits and gradients on the card against the CPU (f32 segment sums
+    added by atomics in another order: 1e-5 relative); the max aggregate
+    of a node without in-edges is -inf on both."""
+    from repro_torch import pytree
+    from repro_torch.models import gnn
+    cfg = gnn.GNNConfig(arch=arch, n_layers=2, d_in=12, d_hidden=16,
+                        d_out=5, aggregator=agg)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(60, 12)).astype(np.float32))
+    e = torch.from_numpy(rng.integers(1, 60, (2, 300)).astype(np.int32))
+    labels = torch.from_numpy(rng.integers(0, 5, 60).astype(np.int32))
+    mask = torch.arange(60) > 0                     # node 0 has no in-edges
+    params = gnn.init_params(cfg, seed=0, device="cpu")
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        leaves = [p.to(d).requires_grad_(True) for p in pytree.leaves(params)]
+        p = pytree.unflatten(params, leaves)
+        out = gnn.forward(p, x.to(d), e.to(d), cfg)
+        loss = gnn.nll_loss(p, x.to(d), e.to(d), labels.to(d), mask.to(d),
+                            cfg)
+        runs.append([out.detach().cpu(), loss.detach().cpu()] + [
+            g.cpu() for g in torch.autograd.grad(loss, leaves)])
+    for got, want in zip(*runs):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
+                                   equal_nan=True)
+    if agg == "max":
+        assert not torch.isfinite(runs[0][0][0]).any()
+
+
+def test_graphcast_and_nequip_on_cuda_equal_cpu(dev):
+    """The f32 GraphCast smoke (remat on, gradients taken) and the NequIP
+    smoke: card against CPU within 1e-4 relative (f32 segment sums and
+    products in other orders through 2 layers)."""
+    from repro_torch import pytree
+    from repro_torch.configs import registry
+    from repro_torch.models import equivariant, graphcast
+    gcfg = dataclasses.replace(registry.get("graphcast").smoke, remat=True)
+    ncfg = registry.get("nequip").smoke
+    rng = np.random.default_rng(5)
+    gx = torch.from_numpy(rng.normal(size=(40, gcfg.n_vars))
+                          .astype(np.float32))
+    g2m = torch.from_numpy(np.stack([rng.integers(0, 40, 90),
+                                     rng.integers(0, 12, 90)]))
+    me = torch.from_numpy(rng.integers(0, 12, (2, 50)))
+    m2g = torch.from_numpy(np.stack([rng.integers(0, 12, 90),
+                                     rng.integers(0, 40, 90)]))
+    pos = torch.from_numpy(rng.normal(size=(10, 3)).astype(np.float32) * 2)
+    d2 = torch.cdist(pos, pos)
+    edges = torch.nonzero((d2 < ncfg.cutoff) & (d2 > 0)).T
+    species = torch.from_numpy(rng.integers(0, ncfg.n_species, 10))
+    gp = graphcast.init_params(gcfg, seed=0, device="cpu")
+    npar = equivariant.init_params(ncfg, seed=0, device="cpu")
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        leaves = [p.to(d).requires_grad_(True) for p in pytree.leaves(gp)]
+        loss = graphcast.mse_loss(pytree.unflatten(gp, leaves), gx.to(d),
+                                  gx.to(d), g2m.to(d), me.to(d), m2g.to(d),
+                                  12, gcfg)
+        energy = equivariant.forward(
+            pytree.tree_map(lambda t: t.to(d), npar), species.to(d),
+            pos.to(d), edges.to(d), ncfg)
+        runs.append([loss.detach().cpu(), energy.cpu()] + [
+            g.cpu() for g in torch.autograd.grad(loss, leaves)])
+    for got, want in zip(*runs):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)

@@ -36,6 +36,10 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import repro_torch.dist.grad_compression, repro_torch.train.loop\n"
         "import repro_torch.train.checkpoint, repro_torch.launch.train\n"
         "import repro_torch.launch.train_lm, repro_torch.pytree\n"
+        "import repro_torch.models.sasrec, repro_torch.serve.retrieval\n"
+        "import repro_torch.data.recsys, repro_torch.launch.serve_topk\n"
+        "import repro_torch.models.gnn, repro_torch.models.graphcast\n"
+        "import repro_torch.models.equivariant, repro_torch.data.graphs\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")

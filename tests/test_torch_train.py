@@ -467,11 +467,26 @@ def test_train_launcher_runs_the_moe_smoke_on_the_cpu(tmp_path):
         out.stdout
 
 
-def test_train_launcher_refuses_unported_families(capsys):
-    with pytest.raises(SystemExit, match="gnn family is not ported"):
-        launch_train.main(["--arch", "gcn-cora", "--smoke"])
-    with pytest.raises(SystemExit, match="recsys family is not ported"):
-        launch_train.main(["--arch", "sasrec", "--smoke"])
+@pytest.mark.parametrize("arch", ["gcn-cora", "sasrec"])
+def test_train_launcher_runs_the_gnn_and_recsys_smokes_on_the_cpu(
+        arch, tmp_path, capsys):
+    hist = launch_train.main(["--arch", arch, "--smoke", "--steps", "4",
+                              "--batch", "4", "--device", "cpu",
+                              "--ckpt-dir", str(tmp_path / "ck")])
+    assert len(hist) == 4 and np.isfinite(hist).all()
+    assert f"{arch}: loss" in capsys.readouterr().out
+    assert (tmp_path / f"ck_{arch}" / "LATEST").exists()
+
+
+@pytest.mark.parametrize("arch", ["graphcast", "nequip"])
+def test_train_launcher_exits_for_graphcast_and_nequip_as_the_reference(
+        arch, monkeypatch):
+    from repro.launch import train as rlaunch
+    monkeypatch.setattr(sys, "argv", ["train", "--arch", arch, "--smoke"])
+    with pytest.raises(SystemExit):
+        rlaunch.main()
+    with pytest.raises(SystemExit, match=f"no {arch} branch"):
+        launch_train.main(["--arch", arch, "--smoke", "--device", "cpu"])
 
 
 def test_train_launchers_resume_from_their_checkpoint(tmp_path, capsys):
