@@ -94,7 +94,19 @@ In order it:
    once; then the serving loop's hotq and mixed traffic on the lgd S = 4
    store, each request equal to serial execution; every recorded sharded
    descent replayed bit for bit against its plain version ("case" lines
-   with a "sharded" path: launches, event and trace ms, bound);
+   with a "sharded" path: launches, event and trace ms, bound); then the
+   multi-device layer ("mesh" lines, launch/mesh.py): both sharded
+   retrievals over sasrec's 10^6 x 50 catalog (16 blocks of 62,500) at
+   B = 1 and 512, k = 100, laid out P("model") over a 4-entry mesh on the
+   card (and over `make_host_mesh(1, n)` with n >= 2 cards), ids and
+   scores equal to the unsharded scans', blocks read and ms; lgd at S = 8
+   through `make_shard_mesh(8)` (every card) and through a 4-position mesh
+   on the card, counts set to 0 before and read after: one `tree_descend`
+   launch a mesh position a descent, masks equal to the plain version's
+   and, over several positions, to the single launch's, answers equal to
+   the unsharded run's, events ms; and
+   `device_put` -> `shrink_mesh` -> `reshard_tree` of a (12, 4) tensor
+   over a data-4 mesh, reassembled bit-equal;
 8. the failover layer ("failover" lines): lgd Q1 with each of the seven
    chained ops failed once and corrupted, answering as the clean run with
    the plain attempt counted; a delay past an armed watchdog; three
@@ -173,7 +185,19 @@ In order it:
    that, one training step with each block recomputed); "nequip" (the full
    config on 128 molecules x 30 atoms through `forward_batched`: energies
    invariant under rotation and translation and under an atom permutation,
-   card against CPU);
+   card against CPU); "ogb gcn" (gcn-cora's architecture at ogb_products'
+   counts, 2,449,029 nodes x 100 features and 61,859,140 edges drawn on
+   the card, 47 classes, no edge cut: a forward and three Trainer steps,
+   ms and peak memory; the logits and first loss within 1e-4 of a sparse
+   product's, half the edges failing that); then "roofline": the gemma-7b 4,096-token prefill,
+   the qwen2-moe prefill, the gemma-7b 4-layer training step, GraphCast's
+   forward and the ogb_products GCN forward and step counted on fake
+   tensors by `roofline/op_count.record` (dot FLOPs, HBM bytes,
+   collectives of the plain path: every eager op's operands and results),
+   their three terms on the H100 model (`roofline/analysis.analyze`) and
+   roofline fraction, each beside the wall ms of the same plain path from
+   this run and the counted time's share of it (the prefills' flash ms
+   beside, with no share); the records go to artifacts/roofline_torch/;
 13. traces one more pass of each query set on the card: host ms per
    executor layer, device busy ms (by kind: each kernel, memcpy) and the
    device's idle share; then the LGD and 1M-quad sets (fused join) with
@@ -182,9 +206,9 @@ In order it:
 14. prints the kernels line (JSON; `moe_prefill_launches`,
    `serve_launches`, `sharded_launches`,
    `baselines_launches`, `ingest_launches`, `fuzz_launches` and
-   `analytics_launches` beside `launches`, tree_descend's `sharded`
-   figures, bucketed_min_core's `fullscan_largest`), then the ok line
-   (JSON) last.
+   `analytics_launches` beside `launches`, tree_descend's `sharded` and
+   `mesh` figures, bucketed_min_core's `fullscan_largest`), then the ok
+   line (JSON) last.
 
 Any failed phase raises, so the script exits non-zero without the ok line.
 """
@@ -208,11 +232,17 @@ import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
-# H100 SXM peaks (NVIDIA data sheet): HBM rate and the scalar rate outside
-# the tensor cores (f32; the integer kernels are held to the same rate)
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12         # dense, tensor cores
+sys.path.insert(0, str(ROOT / "src"))
+try:
+    from repro_torch.roofline.analysis import H100_SXM
+except ImportError:
+    sys.exit("chip_smoke: src/repro_torch not found beside this script")
+# H100 SXM peaks (NVIDIA data sheet, roofline/analysis.py's hardware
+# model): HBM rate, the scalar rate outside the tensor cores (f32; the
+# integer kernels are held to the same rate) and the dense bf16 rate
+HBM_BYTES_PER_S = H100_SXM.hbm_bw
+F32_OPS_PER_S = H100_SXM.f32_flops
+BF16_OPS_PER_S = H100_SXM.bf16_flops
 # the reference's accelerator policy: every stage on its kernel
 SLICE_POLICY = dict(probe="kernel", rank="kernel", impl="merge",
                     kcap="fixed", descend="kernel")
@@ -3001,6 +3031,7 @@ def check_analytics(ops, ref, build, spatial_join, cases) -> dict:
 # and check_lm_serve for the two planted decode faults it must catch.
 LM_REL_TOL = 4e-2
 SMOKE_TOL = 1e-4        # f32 smoke configs, card against CPU
+PREFILL_PLAIN_CHUNK = 2048      # the prefills' plain path: query chunks
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -3074,7 +3105,8 @@ def check_lm_prefill(ops, ref, tr, cfg, params, dev,
             torch.cuda.synchronize()
             return (time.perf_counter() - t0) * 1e3
         return run
-    plain_cfg = dataclasses.replace(cfg, use_flash=False, attn_chunk=2048)
+    plain_cfg = dataclasses.replace(cfg, use_flash=False,
+                                    attn_chunk=PREFILL_PLAIN_CHUNK)
     runs: dict = {"flash": [], "plain": []}
     for path in ("flash", "plain", "flash", "plain", "flash"):   # in turns
         runs[path].append(prefill(cfg if path == "flash" else plain_cfg)())
@@ -3446,7 +3478,8 @@ def check_moe_prefill(ops, ref, moe, cfg, params, dev,
     0's caches precede any attention and must be bit-identical."""
     tok = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (1, seq))).to(dev)
-    plain_cfg = dataclasses.replace(cfg, use_flash=False, attn_chunk=2048)
+    plain_cfg = dataclasses.replace(cfg, use_flash=False,
+                                    attn_chunk=PREFILL_PLAIN_CHUNK)
     ops.reset_launch_counts()
     with routing(moe, []) as flash_route:
         logits_f, cache_f = moe.forward_with_cache(params, tok, cfg)
@@ -4649,7 +4682,9 @@ def check_graphcast(dev, tmp) -> dict:
         dtype=cfg.dtype, grid=list(g["grid_shape"]), grid_nodes=g["n_grid"],
         mesh_nodes=g["n_mesh"], g2m_edges=int(g["g2m"].shape[1]),
         mesh_edges=int(g["mesh_edges"].shape[1]),
-        m2g_edges=int(g["m2g"].shape[1]), graph_build_s=build_s,
+        m2g_edges=int(g["m2g"].shape[1]),
+        edge_dtype=str(edges["g2m"].dtype).removeprefix("torch."),
+        graph_build_s=build_s,
         parameters=cfg.n_params(), bf16_vs_f32_rel_rms=err,
         planted_dropped_residual_rel_rms=planted,
         tolerance_rel_rms=GRAPHCAST_REL_TOL, forward_ms=fwd_ms,
@@ -4780,13 +4815,472 @@ def check_nequip(dev) -> dict:
 
 
 
+# ------------------------------------------------- the multi-device layer --
+MESH_RETRIEVAL_CASES = (("retrieval_cand", 100), ("serve_p99", 100))
+MESH_SHARDS = 8                 # lgd's store, dealt over the shard mesh
+MESH_POSITIONS = 4              # the explicit mesh's positions on one card
+
+
+def dealt(items_s, order, bounds, block: int, n_shards: int, layout: str):
+    """The norm-sorted catalog as each shard's P("model") slice holds it:
+    "contiguous" (the reference's shard_map: blocks [i·nb/S, (i+1)·nb/S)),
+    or "round-robin" (block b to shard b mod S, each shard's blocks still
+    in falling bound order: the data prep the reference's
+    `streak_topk_sharded` docstring asks for)."""
+    nb = bounds.shape[0]
+    if layout == "contiguous":
+        return items_s, order, bounds
+    perm = torch.tensor([b for s in range(n_shards)
+                         for b in range(s, nb, n_shards)],
+                        device=bounds.device)
+    d = items_s.shape[1]
+    return (items_s.view(nb, block, d)[perm].reshape(-1, d),
+            order.view(nb, block)[perm].reshape(-1), bounds[perm])
+
+
+def mesh_retrieval(dev) -> list:
+    """Both sharded retrievals over sasrec's catalog (10^6 x 50 f32, 16
+    blocks of 62,500, the "retrieval" phase's states at retrieval_cand and
+    serve_p99, k = 100), laid out P("model") once over a 4-entry mesh on
+    the card and, with two or more cards, over `make_host_mesh(1, n)`: ids
+    and scores equal to the unsharded `streak_topk`/`blocked_topk`'s bit
+    for bit; blocks read (the largest of any shard, and each shard's) and
+    wall ms. The streak scan runs on the reference's contiguous slices and
+    on blocks dealt round-robin (`dealt`)."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh as pmesh
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import sasrec
+    from repro_torch.serve import retrieval
+    cfg = registry.get("sasrec").config
+    n = cfg.n_items
+    block = max(64, n // 16)
+    rng = np.random.default_rng(1)           # the retrieval phase's states
+    meshes = {"4 entries on one card": pmesh.make_host_mesh(
+        1, 4, devices=[dev] * 4)}
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2 and (n // block) % n_cards == 0 and n % n_cards == 0:
+        meshes[f"make_host_mesh(1, {n_cards})"] = pmesh.make_host_mesh(
+            1, n_cards)
+    rows = []
+    with torch.no_grad():
+        params, _ = launch_serve.popularity_catalog(cfg, dev)
+        items = params["item_embed"]
+        items_s, order = retrieval.sort_items_by_norm(items, block)
+        bounds = retrieval.block_bounds(items_s, block)
+        states = {}
+        for name, _ in MESH_RETRIEVAL_CASES:
+            b = registry.RECSYS_SHAPES[name]["batch"]
+            seq = torch.from_numpy(rng.integers(1, n, (b, cfg.seq_len))
+                                   .astype(np.int32)).to(dev)
+            states[name] = sasrec.user_state(params, seq, cfg)
+        for label, mesh in meshes.items():
+            spec = pmesh.NamedSharding(mesh, pmesh.PartitionSpec("model"))
+            n_shards = mesh.shape["model"]
+            put_items = pmesh.device_put(items, spec)
+            for layout in ("contiguous", "round-robin"):
+                put = [pmesh.device_put(x, spec) for x in dealt(
+                    items_s, order, bounds, block, n_shards, layout)]
+                for name, k in MESH_RETRIEVAL_CASES:
+                    rows.append(mesh_retrieval_row(
+                        retrieval, label, layout, mesh, put, put_items,
+                        (items, items_s, order, bounds), states[name], name,
+                        k, block))
+    del params, items, items_s, order, bounds, states
+    torch.cuda.empty_cache()
+    return rows
+
+
+def mesh_retrieval_row(retrieval, label, layout, mesh, put, put_items,
+                       catalog, st, name, k, block) -> dict:
+    """One (mesh, layout, batch) of `mesh_retrieval`: the sharded scans
+    against the unsharded ones, bit for bit, with blocks read and ms."""
+    items, items_s, order, bounds = catalog
+    ws, wi, read1 = retrieval.streak_topk(st, items_s, order, bounds, k,
+                                          block)
+
+    def streak():
+        return retrieval.streak_topk_sharded(st, *put, mesh, k=k,
+                                             block=block)
+
+    def blocked():
+        return retrieval.blocked_topk_sharded(st, put_items, mesh, k=k,
+                                              block=block)
+    ss, si, read = streak()
+    by_shard = [retrieval.streak_topk(st, *parts, k, block)[2]
+                for parts in zip(*(x.along("model") for x in put))]
+    row = dict(
+        mesh=label, layout=layout, positions=mesh.shape["model"], case=name,
+        users=int(st.shape[0]), k=k, blocks_read_sharded=read,
+        blocks_read_by_shard=by_shard, blocks_read_unsharded=read1,
+        blocks_per_shard=int(bounds.shape[0]) // mesh.shape["model"],
+        streak_equal=bool(torch.equal(ss, ws) and torch.equal(si, wi)),
+        streak_sharded_ms=wall_ms(streak, 5),
+        streak_unsharded_ms=wall_ms(lambda: retrieval.streak_topk(
+            st, items_s, order, bounds, k, block), 5))
+    if layout == "contiguous":
+        bs, bi = retrieval.blocked_topk(st, items, k, block)
+        gs, gi = blocked()
+        row.update(blocked_equal=bool(torch.equal(gs, bs)
+                                      and torch.equal(gi, bi)),
+                   blocked_sharded_ms=wall_ms(blocked, 3),
+                   blocked_unsharded_ms=wall_ms(
+                       lambda: retrieval.blocked_topk(st, items, k, block),
+                       3))
+    print("mesh retrieval " + json.dumps(row), flush=True)
+    if not (row["streak_equal"] and row.get("blocked_equal", True)
+            and max(by_shard) == read and 0 < read <= row["blocks_per_shard"]):
+        raise AssertionError(f"mesh retrieval {label} {layout} {name}: the "
+                             "sharded answer differs")
+    return row
+
+
+def mesh_descent(rt, ops, ref, lgd, unsharded, dev, entry) -> dict:
+    """lgd's store in MESH_SHARDS shards, its fused descent laid over
+    `make_shard_mesh(8)` (every card: one position on one card) and over an
+    explicit MESH_POSITIONS-position mesh on the card, Q1-Q8 under both
+    joins with the counts set to 0 before and read after: one
+    `tree_descend` launch a mesh position a sharded descent; answers equal
+    to the unsharded card run's; every recorded descent's masks equal to
+    the plain version's and, over more than one position, to the one
+    launch over all shards; events ms of the median descent laid out over
+    the mesh and as one launch. `entry` (tree_descend's) gains "mesh"."""
+    import types
+    from repro_torch.core import shard as shard_mod
+    from repro_torch.launch import mesh as pmesh
+    base = shard_mod.shard_store(lgd.store, MESH_SHARDS)
+    stores = {
+        f"make_shard_mesh({MESH_SHARDS})": base.on_mesh(
+            pmesh.make_shard_mesh(MESH_SHARDS)),
+        f"{MESH_POSITIONS} positions on one card": base.on_mesh(
+            pmesh.make_shard_mesh(MESH_SHARDS,
+                                  devices=[dev] * MESH_POSITIONS))}
+    out = {}
+    for label, store in stores.items():
+        positions = store.tree_shards.mesh.shape["shard"]
+        recorded = []
+        over_mesh = shard_mod.descend_over_mesh
+
+        def recording(placed, cs, box_keys):
+            res = over_mesh(placed, cs, box_keys)
+            recorded.append((placed, cs.clone(), box_keys.clone()))
+            return res
+        sds = types.SimpleNamespace(store=store, queries=lgd.queries)
+        shard_mod.descend_over_mesh = recording
+        try:
+            ops.reset_launch_counts()
+            runs = {join: run_queries(rt, {"lgd": (sds, 8)}, join, "cuda")
+                    for join in ("fused", "kernel")}
+            launches = dict(ops.LAUNCHES)
+        finally:
+            shard_mod.descend_over_mesh = over_mesh
+        if not recorded or launches["tree_descend"] != len(recorded) \
+                * positions:
+            raise AssertionError(
+                f"mesh descent {label}: {launches['tree_descend']} launches "
+                f"for {len(recorded)} descents over {positions} positions: "
+                "not one launch a position")
+        for join, got in runs.items():
+            for key, (res, _) in got.items():
+                require_same_rows_by_name(
+                    f"mesh descent {label} {join} Q{key[1] + 1} vs unsharded",
+                    res[0], res[1], unsharded[join][key][0])
+        whole = shard_mod.stacked_node_planes(store.tree_shards, dev)
+        for placed, cs, boxes in recorded:
+            got = over_mesh(placed, cs, boxes)
+            require_equal(f"mesh descent {label} vs plain", [got],
+                          [ref.tree_descend_sharded_ref(whole, cs, boxes)])
+            if positions > 1:
+                require_equal(f"mesh descent {label} vs one launch", [got],
+                              [ops.tree_descend_sharded(whole, cs, boxes)])
+        sizes = sorted(recorded, key=lambda r: r[2].shape[1])
+        placed, cs, boxes = sizes[len(sizes) // 2]
+        bound = sharded_bound(whole, cs, boxes)
+        row = dict(
+            mesh=label, positions=positions, shards=MESH_SHARDS,
+            shards_per_position=MESH_SHARDS // positions,
+            descents=len(recorded), launches=launches["tree_descend"],
+            launches_per_position_per_descent=launches["tree_descend"]
+            / (len(recorded) * positions),
+            median_shape=f"S={MESH_SHARDS} B={boxes.shape[0]} "
+            f"M={boxes.shape[1]} N_max={whole.shape[2]}",
+            event_ms=event_ms(lambda: over_mesh(placed, cs, boxes)),
+            one_launch_event_ms=event_ms(lambda: ops.tree_descend_sharded(
+                whole, cs, boxes)),
+            bound_ms=bound[0], bound_by=bound[1],
+            resident_plane_sets=len(store.tree_shards.planes))
+        out[label] = row
+        print("mesh descent " + json.dumps(row), flush=True)
+    entry["mesh"] = out
+    return out
+
+
+def mesh_reshard(dev) -> dict:
+    """`device_put` of a (12, 4) f32 tensor P("data", None) over a data-4
+    mesh on the card, `shrink_mesh` by one device (data 3), `reshard_tree`
+    onto it: three (4, 4) blocks, reassembled bit-equal."""
+    from repro_torch.dist import elastic
+    from repro_torch.launch import mesh as pmesh
+    mesh = pmesh.make_host_mesh(4, 1, devices=[dev] * 4)
+    x = torch.arange(48, dtype=torch.float32, device=dev).reshape(12, 4)
+    a = pmesh.device_put(x, pmesh.NamedSharding(
+        mesh, pmesh.PartitionSpec("data", None)))
+    new = elastic.shrink_mesh(mesh, 1)
+    y = elastic.reshard_tree({"x": a}, {"x": a.sharding}, new)["x"]
+    row = dict(mesh=dict(new.shape), blocks=[list(b.shape)
+                                             for b in y.blocks.flat],
+               equal=bool(torch.equal(y.gather(dev), x)))
+    print("mesh reshard " + json.dumps(row), flush=True)
+    if not (row["equal"] and row["blocks"] == [[4, 4]] * 3):
+        raise AssertionError(f"mesh reshard: {row}")
+    return row
+
+
+# ---------------------------------------- gcn-cora at ogb_products' size --
+OGB_TRAIN_SHARE = 0.08          # ogbn-products trains on ~8% of its nodes
+# logits (Frobenius) and first-step loss (relative) against the sparse
+# product: two f32 summation orders over ~25 in-edges a node
+OGB_REL_TOL = 1e-4
+
+
+def gcn_sparse_logits(params, x, edges, cfg) -> torch.Tensor:
+    """GCN's forward computed apart from `models/gnn.py`: degrees by
+    `bincount`, the normalised adjacency (edge j -> i weighs
+    1/sqrt(d_i d_j), d the in-degree + 1) one coalesced sparse matrix, each
+    layer's aggregation a `torch.sparse.mm`, plus the self loop h / d."""
+    src, dst = edges[0], edges[1]
+    n = x.shape[0]
+    deg = torch.bincount(dst, minlength=n).to(x.dtype) + 1.0
+    r = deg.rsqrt()
+    adj = torch.sparse_coo_tensor(torch.stack([dst, src]), r[dst] * r[src],
+                                  (n, n), check_invariants=False).coalesce()
+    h = x
+    for i, lp in enumerate(params["layers"]):
+        h = (torch.sparse.mm(adj, h) + h / deg[:, None]) @ lp["w"]
+        if i < len(params["layers"]) - 1:
+            h = torch.relu(h)
+    return h
+
+
+def masked_nll(logits, labels, mask) -> float:
+    """`gnn.nll_loss`'s mean NLL over the masked nodes, by `cross_entropy`."""
+    return float(torch.nn.functional.cross_entropy(
+        logits[mask].double(), labels[mask]))
+
+
+def ogb_graph(dev, shape: dict) -> tuple:
+    """ogb_products' counts drawn on the card from a seeded generator:
+    (features (N, 100) f32, edges (2, E) int64, labels (N,) in 47
+    classes, training mask (N,))."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    n, e = shape["n_nodes"], shape["n_edges"]
+    x = torch.randn((n, shape["d_feat"]), generator=gen, device=dev)
+    edges = torch.randint(0, n, (2, e), generator=gen, device=dev)
+    labels = torch.randint(0, shape["n_classes"], (n,), generator=gen,
+                           device=dev)
+    mask = torch.rand((n,), generator=gen, device=dev) < OGB_TRAIN_SHARE
+    return x, edges, labels, mask
+
+
+def check_ogb_gcn(dev, tmp) -> dict:
+    """gcn-cora's architecture (2 layers, 16 hidden, sym-norm sums) at
+    ogb_products' counts (2,449,029 nodes x 100 features, 61,859,140
+    edges, 47 classes; the first phase to drive that shape; no edge cut):
+    one forward and three `Trainer` steps (AdamW) on the card; wall ms and
+    peak memory. Layer 1 gathers E x 100 f32 (~24.7 GB, past 2^31
+    elements) and scales it (as much again) before its sums. The forward's
+    logits and the first step's loss are held within OGB_REL_TOL to
+    `gcn_sparse_logits` on the same inputs, and the forward over half the
+    edges (a planted dropped chunk) must fail that check."""
+    from repro_torch.configs import registry
+    from repro_torch.models import gnn
+    from repro_torch.train import loop, optim
+    shape = registry.GNN_SHAPES["ogb_products"]
+    cfg = dataclasses.replace(registry.get("gcn-cora").config,
+                              d_in=shape["d_feat"], d_out=shape["n_classes"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    graph = ogb_graph(dev, shape)
+    torch.cuda.synchronize()
+    made_s = time.perf_counter() - t0
+    params = gnn.init_params(cfg, seed=0, device=dev)
+    with torch.no_grad():
+        logits = gnn.forward(params, graph[0], graph[1], cfg)
+        finite = bool(torch.isfinite(logits).all())
+        fwd_peak = torch.cuda.max_memory_allocated()
+        want = gcn_sparse_logits(params, graph[0], graph[1], cfg)
+        logits_err = rel_err(logits, want)
+        del logits
+        dropped = gnn.forward(params, graph[0],
+                              graph[1][:, :shape["n_edges"] // 2], cfg)
+        dropped_err = rel_err(dropped, want)
+        del dropped
+        want_loss = masked_nll(want, graph[2], graph[3])
+        del want
+        fwd_ms = wall_ms(lambda: gnn.forward(params, graph[0], graph[1],
+                                             cfg), 3)
+    tr = loop.Trainer(
+        lambda p, x, e, y, m: gnn.nll_loss(p, x, e, y, m, cfg), params,
+        loop.TrainerConfig(ckpt_dir=str(tmp / "ogb"), log_every=10 ** 9,
+                           ckpt_every=10 ** 9),
+        optim.AdamWConfig(warmup_steps=5, total_steps=50))
+    losses, step_ms = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(float(tr.train_step(graph)))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    report = dict(
+        arch="gcn-cora", shape="ogb_products", nodes=shape["n_nodes"],
+        edges=shape["n_edges"], features=shape["d_feat"],
+        classes=shape["n_classes"], edges_cut=None,
+        train_nodes=int(graph[3].sum()), graph_made_s=made_s,
+        forward_ms=fwd_ms, forward_max_memory_allocated=fwd_peak,
+        logits_rel_err=logits_err, half_edges_rel_err=dropped_err,
+        first_loss_rel_err=abs(losses[0] - want_loss) / abs(want_loss),
+        rel_tol=OGB_REL_TOL, losses=losses, step_ms=step_ms,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        **gnn_bounds(cfg, shape["n_nodes"], shape["n_edges"], cfg.d_in))
+    print("ogb gcn " + json.dumps(report), flush=True)
+    del tr, params, graph
+    torch.cuda.empty_cache()
+    if not (finite and np.isfinite(losses).all()
+            and logits_err <= OGB_REL_TOL
+            and report["first_loss_rel_err"] <= OGB_REL_TOL
+            and dropped_err > OGB_REL_TOL):
+        raise AssertionError(
+            f"ogb gcn: forward finite {finite}, losses {losses}; against "
+            f"the sparse product: logits {logits_err:.3g}, first loss "
+            f"{report['first_loss_rel_err']:.3g} (tolerance "
+            f"{OGB_REL_TOL:g}), half the edges {dropped_err:.3g} (must "
+            "exceed it)")
+    return report
+
+
+# --------------------------------------------------- the counted roofline --
+def roofline_records(runs: dict, out_dir) -> list:
+    """The five workloads' counts (`roofline/op_count.record` on fake
+    tensors: no memory, every shape's data-independent) and `analyze`'s
+    three terms on the H100 model. What is counted is the plain path's
+    traffic, every eager op's operands and results (the prefills with
+    `use_flash=False` and query chunks of PREFILL_PLAIN_CHUNK, as their
+    phases time it), not a floor on what any implementation must move.
+    Each is paired with the wall ms of that same path measured earlier in
+    this run (`runs`: label -> ms), and `counted_share` is the counted
+    time over it; the prefills' flash ms stand beside (`runs["flash"]`)
+    with no share."""
+    import tempfile
+    from repro_torch.configs import registry
+    from repro_torch.models import gnn, graphcast, moe
+    from repro_torch.models import transformer as tr
+    from repro_torch.roofline import analysis, op_count
+    from repro_torch.train import loop, optim
+    seq = 4096
+    prefill = dict(kind="prefill", seq_len=seq, global_batch=1)
+    gemma = dataclasses.replace(registry.get("gemma-7b").config,
+                                use_flash=False,
+                                attn_chunk=PREFILL_PLAIN_CHUNK)
+    qwen = dataclasses.replace(registry.get("qwen2-moe-a2.7b").config,
+                               use_flash=False,
+                               attn_chunk=PREFILL_PLAIN_CHUNK,
+                               n_layers=runs["moe_layers"])
+    gemma4 = dataclasses.replace(registry.get("gemma-7b").config, n_layers=4)
+    gc = registry.get("graphcast").config
+    ogb = registry.GNN_SHAPES["ogb_products"]
+    gcn = dataclasses.replace(registry.get("gcn-cora").config,
+                              d_in=ogb["d_feat"], d_out=ogb["n_classes"])
+    g = runs["graphcast_graph"]
+    recs = []
+    tmp = tempfile.mkdtemp()
+
+    def trainer(loss, params):
+        return loop.Trainer(loss, params, loop.TrainerConfig(
+            ckpt_dir=tmp, log_every=10 ** 9, ckpt_every=10 ** 9),
+            optim.AdamWConfig(warmup_steps=5, total_steps=50))
+
+    def step_of(t):
+        return lambda state, *batch: t.train_step(batch)
+    with op_count.fake_mode():
+        tok = torch.zeros((1, seq), dtype=torch.long)
+        p = tr.init_params(gemma, device="cpu")
+        recs.append(("lm prefill", op_count.record(
+            "gemma-7b", "prefill_4k", tr.forward_with_cache, p, tok, gemma,
+            model_flops_per_device=analysis.model_flops(
+                "gemma-7b", prefill, 1))))
+        del p
+        p = moe.init_params(qwen, device="cpu")
+        recs.append(("moe prefill", op_count.record(
+            "qwen2-moe-a2.7b", "prefill_4k", moe.forward_with_cache, p, tok,
+            qwen, model_flops_per_device=2.0 * qwen.n_active_params() * seq)))
+        del p
+        t = trainer(lambda p_, b: tr.lm_loss(p_, b, gemma4),
+                    tr.init_params(gemma4, device="cpu"))
+        recs.append(("train full width", op_count.record(
+            "gemma-7b", "train_4k_4layers", step_of(t), t.state_tree(),
+            torch.zeros((1, seq + 1), dtype=torch.long), dtype="bfloat16",
+            model_flops_per_device=6.0 * gemma4.n_params() * seq)))
+        del t
+        p = graphcast.init_params(gc, device="cpu")
+        grid_x = torch.empty((g["grid_nodes"], gc.n_vars))
+        edges = [torch.empty((2, g[k]), dtype=getattr(torch,
+                                                      g["edge_dtype"]))
+                 for k in ("g2m_edges", "mesh_edges", "m2g_edges")]
+        recs.append(("graphcast", op_count.record(
+            "graphcast", "forward_0.25deg", graphcast.forward, p, grid_x,
+            *edges, g["mesh_nodes"], gc, dtype=gc.dtype,
+            model_flops_per_device=g["forward_tflop"] * 1e12)))
+        del p, grid_x, edges
+        x = torch.empty((ogb["n_nodes"], ogb["d_feat"]))
+        e = torch.empty((2, ogb["n_edges"]), dtype=torch.long)
+        p = gnn.init_params(gcn, device="cpu")
+        full = analysis.model_flops("gcn-cora", "ogb_products", 1)
+        recs.append(("ogb gcn forward", op_count.record(
+            "gcn-cora", "ogb_products_forward", gnn.forward, p, x, e, gcn,
+            model_flops_per_device=full / 3)))
+        y = torch.empty((ogb["n_nodes"],), dtype=torch.long)
+        m = torch.empty((ogb["n_nodes"],), dtype=torch.bool)
+        t = trainer(lambda p_, *b: gnn.nll_loss(p_, *b, gcn), p)
+        recs.append(("ogb gcn step", op_count.record(
+            "gcn-cora", "ogb_products_step", step_of(t), t.state_tree(),
+            x, e, y, m, model_flops_per_device=full)))
+    rows = []
+    for label, rec in recs:
+        rec = dict(rec, device=torch.cuda.get_device_name(0))
+        path = pathlib.Path(out_dir)
+        path.mkdir(parents=True, exist_ok=True)
+        (path / f"{rec['arch']}_{rec['shape']}.json").write_text(
+            json.dumps(rec, indent=1))
+        a = analysis.analyze(rec)
+        ms = runs[label]
+        counted_ms = max(a["t_compute_s"], a["t_memory_s"],
+                         a["t_collective_s"]) * 1e3
+        rows.append(dict(
+            workload=label, arch=rec["arch"], shape=rec["shape"],
+            dtype=rec["dtype"], dot_flops=rec["dot_flops_per_device"],
+            hbm_bytes=rec["hbm_bytes_per_device"],
+            collective_bytes=sum(v["bytes"] for v in
+                                 rec["collectives"].values()),
+            model_flops=a["model_flops_per_device"],
+            t_compute_ms=a["t_compute_s"] * 1e3,
+            t_memory_ms=a["t_memory_s"] * 1e3,
+            t_collective_ms=a["t_collective_s"] * 1e3,
+            dominant=a["dominant"], useful_ratio=a["useful_ratio"],
+            roofline_fraction=a["roofline_fraction"],
+            measured_path="plain" + (f", attn_chunk {PREFILL_PLAIN_CHUNK}"
+                                     if "prefill" in label else ""),
+            measured_ms=ms, counted_ms=counted_ms,
+            counted_share=counted_ms / ms,
+            flash_ms=runs["flash"].get(label)))
+    return rows
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="write the full report (JSON) here")
     args = parser.parse_args()
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        sys.exit("chip_smoke: src/repro_torch not found beside this script")
-    sys.path.insert(0, str(ROOT / "src"))
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False      # f32 means f32
@@ -5036,6 +5530,37 @@ def main() -> None:
                             dev, entries["tree_descend"], cases)
     phase_done("sharded", t0)
 
+    # ---- the multi-device layer: mesh, sharded retrieval and descent ----
+    t0 = time.perf_counter()
+    mesh_run = dict(retrieval=mesh_retrieval(dev),
+                    descent=mesh_descent(rt, ops, ref, lgd, cuda_runs, dev,
+                                         entries["tree_descend"]),
+                    reshard=mesh_reshard(dev))
+    for row in mesh_run["retrieval"]:
+        blocked = ("" if "blocked_sharded_ms" not in row else
+                   f"; blocked {np.median(row['blocked_sharded_ms']):.3f} "
+                   f"ms (unsharded "
+                   f"{np.median(row['blocked_unsharded_ms']):.3f})")
+        print(f"mesh {row['case']} over {row['mesh']}, {row['layout']}, on "
+              f"{smi}: ids and scores = unsharded; streak read "
+              f"{row['blocks_read_by_shard']} of {row['blocks_per_shard']} "
+              f"blocks a shard (unsharded {row['blocks_read_unsharded']} of "
+              f"16), {np.median(row['streak_sharded_ms']):.3f} ms "
+              f"(unsharded {np.median(row['streak_unsharded_ms']):.3f})"
+              + blocked, flush=True)
+    for label, row in mesh_run["descent"].items():
+        print(f"mesh descent over {label} on {smi}: "
+              f"{row['launches_per_position_per_descent']:.0f} launch a "
+              f"position a descent ({row['launches']} for "
+              f"{row['descents']} descents over {row['positions']} "
+              "positions), masks = plain"
+              + (" = one launch" if row["positions"] > 1 else "")
+              + ", answers = unsharded; "
+              f"{row['event_ms']:.5f} ms (events; one launch "
+              f"{row['one_launch_event_ms']:.5f}, bound "
+              f"{row['bound_ms']:.5f} {row['bound_by']})", flush=True)
+    phase_done("mesh", t0)
+
     # ---- the failover layer around every chained op -----------------------
     t0 = time.perf_counter()
     clean = {("fused", 1): cuda_runs["fused"]["lgd", 0][0],
@@ -5164,6 +5689,30 @@ def main() -> None:
     t0 = time.perf_counter()
     nequip_run = check_nequip(dev)
     phase_done("nequip", t0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ogb_run = check_ogb_gcn(dev, pathlib.Path(tmp))
+    phase_done("ogb gcn", t0)
+
+    # ---- the counted roofline, beside this run's measurements -------------
+    t0 = time.perf_counter()
+    roofline = roofline_records(dict(
+        moe_layers=moe_prefills[0]["layers"],
+        graphcast_graph=graphcast_run,
+        flash={"lm prefill": np.median(prefill["flash_ms"]),
+               "moe prefill": np.median(moe_prefills[0]["flash_ms"])},
+        **{"lm prefill": np.median(prefill["plain_ms"]),
+           "moe prefill": np.median(moe_prefills[0]["plain_ms"]),
+           "train full width": np.median(
+               training["full_width"][0]["step_ms"]),
+           "graphcast": np.median(graphcast_run["forward_ms"]),
+           "ogb gcn forward": np.median(ogb_run["forward_ms"]),
+           "ogb gcn step": np.median(ogb_run["step_ms"])}),
+        ROOT / "artifacts" / "roofline_torch")
+    for row in roofline:
+        print(f"roofline {row['workload']} on {smi}: " + json.dumps(row),
+              flush=True)
+    phase_done("roofline", t0)
 
     # ---- where the time goes ---------------------------------------------
     t0 = time.perf_counter()
@@ -5222,7 +5771,8 @@ def main() -> None:
             moe_serve=moe_serve, moe_smoke_cuda_vs_cpu=moe_smokes,
             training=training, retrieval=retrieval_run,
             recsys_train=recsys_train, gnn=gnn_run, graphcast=graphcast_run,
-            nequip=nequip_run, phase_seconds=phase_s),
+            nequip=nequip_run, mesh=mesh_run, ogb_gcn=ogb_run,
+            roofline=roofline, phase_seconds=phase_s),
             indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,10 @@ a reduced `smoke` config for the CPU tests, copied from the reference's
 "lm"), `qwen2_moe_a2_7b.py`, `qwen3_moe_30b_a3b.py` ("moe"),
 `gcn_cora.py`, `graphsage_reddit.py` ("gnn"), `graphcast_cfg.py`
 ("graphcast"), `nequip_cfg.py` ("nequip") and `sasrec_cfg.py` ("recsys").
-`GNN_SHAPES` and `RECSYS_SHAPES` are the reference's shape sets for those
-families.
+`LM_SHAPES`, `GNN_SHAPES` and `RECSYS_SHAPES` are the reference's shape
+sets; each arch's `shapes` is its family's set, as each reference config
+module binds `SHAPES`, and `all_cells()` lists the reference's 40 (arch,
+shape) cells in its order.
 """
 from __future__ import annotations
 
@@ -27,6 +29,11 @@ class Arch:
     source: str
     config: object
     smoke: object
+
+    @property
+    def shapes(self) -> dict:
+        """The family's shape set (each reference config's `SHAPES`)."""
+        return FAMILY_SHAPES[self.family]
 
 
 ARCHS = {
@@ -151,7 +158,14 @@ ARCHS = {
                            n_blocks=2, n_heads=1, seq_len=10, d_ff=16)),
 }
 
-# the reference's shape sets of the GNN and recsys families
+# the reference's shape sets, bound to each arch by its family
+LM_SHAPES = {
+    "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
+    "prefill_32k": dict(kind="prefill", seq_len=32768, global_batch=32),
+    "decode_32k": dict(kind="decode", seq_len=32768, global_batch=128),
+    "long_500k": dict(kind="decode", seq_len=524288, global_batch=1),
+}
+
 GNN_SHAPES = {
     "full_graph_sm": dict(kind="full", n_nodes=2708, n_edges=10556,
                           d_feat=1433, n_classes=7),
@@ -171,9 +185,19 @@ RECSYS_SHAPES = {
     "retrieval_cand": dict(kind="retrieval", batch=1, n_candidates=1_000_000),
 }
 
+FAMILY_SHAPES = {"lm": LM_SHAPES, "moe": LM_SHAPES, "gnn": GNN_SHAPES,
+                 "graphcast": GNN_SHAPES, "nequip": GNN_SHAPES,
+                 "recsys": RECSYS_SHAPES}
+
 
 def get(arch_id: str) -> Arch:
     return ARCHS[arch_id]
+
+
+def all_cells() -> list:
+    """All 40 (arch, shape) cells, in the reference's order."""
+    return [(arch_id, shape) for arch_id, arch in ARCHS.items()
+            for shape in arch.shapes]
 
 
 def model_module(cfg):

@@ -11,20 +11,28 @@ partition the result set exactly. The union over shards equals the
 unsharded engine's answer, and the global θ read between shard passes
 prunes later shards (the θ bound is exact).
 
-The fused descent stacks every shard's node planes into ONE
-`ops.tree_descend_sharded` call: on one CUDA device, one launch of the
-descent kernel over the S x N_max node columns (the reference lays the
-shard axis over a device mesh with `shard_map`; placing shards on several
-CUDA devices is not done here).
+The fused descent lays the shard axis over a shard mesh
+(`launch/mesh.make_shard_mesh`) as the reference's `shard_map` lays it:
+each of the mesh's d positions holds S/d contiguous shards' node planes,
+resident on its device for the life of the shard set, and makes one
+`ops.tree_descend_sharded` call (one launch of the descent kernel over its
+S/d x N_max node columns) on that device (`descend_over_mesh`); the masks
+come back to the engine's device. The mesh is the engine's device alone,
+so one call over all S x N_max columns, unless the shard set was given its
+own (`ShardedQuadStore.on_mesh`), e.g. `make_shard_mesh(S)` over every
+card.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
 import torch
 
 from ..kernels import ops
+from ..launch.mesh import (Mesh, NamedSharding, PartitionSpec, ShardedTensor,
+                           make_shard_mesh)
 from . import geometry, node_select, squadtree
 from .squadtree import SQuadTree, build as build_tree
 from .store import QuadStore, _entity_cs_csr, _sorted_lut, lut_get
@@ -60,12 +68,15 @@ class TreeShard:
 
 
 class ShardSet(tuple):
-    """A sharded store's fixed shards, with the stacked descent planes made
-    from them once per device (`planes`, filled by `stacked_node_planes`)."""
+    """A sharded store's fixed shards, the shard mesh its descent runs over
+    (`mesh`, None for `make_shard_mesh`'s default), and the stacked descent
+    planes made from them once per device and span of shards (`planes`,
+    filled by `stacked_node_planes`)."""
 
-    def __new__(cls, shards=()):
+    def __new__(cls, shards=(), mesh: Mesh | None = None):
         self = super().__new__(cls, shards)
         self.planes = {}
+        self.mesh = mesh
         return self
 
 
@@ -97,7 +108,14 @@ class ShardedQuadStore(QuadStore):
     tree_shards: ShardSet = dataclasses.field(default_factory=ShardSet)
 
     def __post_init__(self):
-        self.tree_shards = ShardSet(self.tree_shards)
+        if not isinstance(self.tree_shards, ShardSet):
+            self.tree_shards = ShardSet(self.tree_shards)
+
+    def on_mesh(self, mesh: Mesh) -> ShardedQuadStore:
+        """This store with its descent laid over the shard mesh `mesh`: the
+        same shard trees, the descent planes made anew for the mesh."""
+        return dataclasses.replace(
+            self, tree_shards=ShardSet(self.tree_shards, mesh))
 
     @property
     def n_shards(self) -> int:
@@ -157,25 +175,76 @@ def shard_store(store: QuadStore, n_shards: int,
 # Sharded Phases 1-2
 # ---------------------------------------------------------------------------
 
-def stacked_node_planes(shards: ShardSet, device: torch.device
-                        ) -> torch.Tensor:
-    """Every shard's node key planes stacked for `ops.tree_descend_sharded`:
-    (S, 4, N_max) int64 on `device`, pad columns `DESCEND_PAD_BOX`, as a
-    transposed view of one contiguous (4, S, N_max) tensor, so the kernel
-    reads them without a copy. The trees are immutable: built and uploaded
-    once per shard set and device, kept in `shards.planes`."""
+def stacked_node_planes(shards: ShardSet, device: torch.device,
+                        lo: int = 0, hi: int | None = None) -> torch.Tensor:
+    """Shards lo..hi-1's node key planes stacked for
+    `ops.tree_descend_sharded`: (hi - lo, 4, N_max) int64 on `device`, N_max
+    the largest tree of the whole set, pad columns `DESCEND_PAD_BOX`, as a
+    transposed view of one contiguous (4, hi - lo, N_max) tensor, so the
+    kernel reads them without a copy. The trees are immutable: built and
+    uploaded once per shard set, device and span, kept in
+    `shards.planes`."""
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    planes = shards.planes.get(device)
+    hi = len(shards) if hi is None else hi
+    planes = shards.planes.get((device, lo, hi))
     if planes is None:
         n_max = max(sh.tree.n_nodes for sh in shards)
-        host = np.empty((4, len(shards), n_max), dtype=np.int64)
+        host = np.empty((4, hi - lo, n_max), dtype=np.int64)
         host[:] = ops.DESCEND_PAD_BOX[:, None, None]
-        for si, sh in enumerate(shards):
+        for si, sh in enumerate(shards[lo:hi]):
             host[:, si, :sh.tree.n_nodes] = ops.f64_sort_keys(
                 np.ascontiguousarray(sh.tree.node_mbr.T))
-        planes = shards.planes[device] = torch.from_numpy(host).to(device)
+        planes = shards.planes[device, lo, hi] = \
+            torch.from_numpy(host).to(device)
     return planes.transpose(0, 1)
+
+
+def descent_mesh(shards: ShardSet, device: torch.device) -> Mesh:
+    """The shard mesh the fused descent runs over: the set's own, else the
+    engine's `device` alone (one position holding every shard)."""
+    if shards.mesh is not None:
+        return shards.mesh
+    return make_shard_mesh(len(shards), [device])
+
+
+def placed_node_planes(shards: ShardSet, mesh: Mesh) -> ShardedTensor:
+    """Every shard's stacked node planes laid out `P("shard")` over the
+    shard mesh `mesh`: position p holds its S/d contiguous shards' planes
+    (`stacked_node_planes`) on its device. A mesh whose size does not
+    divide S raises `ValueError`."""
+    n_max = max(sh.tree.n_nodes for sh in shards)
+    shape = (len(shards), 4, n_max)
+    sharding = NamedSharding(mesh, PartitionSpec("shard"))
+    sharding.check(shape)
+    blocks = np.empty(mesh.devices.shape, dtype=object)
+    for pos in mesh.positions():
+        span = sharding.block_slices(shape, pos)[0]
+        blocks[pos] = stacked_node_planes(shards, mesh.devices[pos],
+                                          span.start, span.stop)
+    return ShardedTensor(blocks, sharding, shape, torch.int64)
+
+
+def descend_over_mesh(placed: ShardedTensor, cs_path: torch.Tensor,
+                      box_keys: torch.Tensor) -> torch.Tensor:
+    """The sharded descent over the mesh `placed` is laid out over: each
+    position's (S/d, 4, N_max) planes, its shards' cs_path rows and the
+    boxes on its device, one `ops.tree_descend_sharded` call there (kernel
+    on a card, else the plain version; each call its own chain); the
+    (S, B, N_max) masks concatenated on box_keys' device."""
+    if placed.sharding.spec.axes(0) != ("shard",):
+        raise ValueError(f"descend_over_mesh: planes laid out "
+                         f"{placed.sharding.spec!r}; needs P('shard')")
+    masks, lo = [], 0
+    for planes in placed.along("shard"):
+        dev, k = planes.device, planes.shape[0]
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            masks.append(ops.tree_descend_sharded(
+                planes, cs_path[lo:lo + k].to(dev),
+                box_keys.to(dev)).to(box_keys.device))
+        lo += k
+    return masks[0] if len(masks) == 1 else torch.cat(masks)
 
 
 def candidate_nodes_sharded(shards: list[TreeShard], box_sets, dist_norm,
@@ -189,10 +258,11 @@ def candidate_nodes_sharded(shards: list[TreeShard], box_sets, dist_norm,
 
     Returns a list aligned with `shards` of (B, N_s) bool masks. The host
     frontier route (and a single shard) loops shards, each batched over
-    blocks; the kernel route stacks every shard's node planes into ONE
-    `ops.tree_descend_sharded` call on `device` (its chain's fallback is a
-    per-shard loop). Both give the masks each shard's `candidate_nodes`
-    gives alone.
+    blocks; the kernel route stacks each shard mesh position's node planes
+    into ONE `ops.tree_descend_sharded` call on its device
+    (`descend_over_mesh`; the chain's fallback is a per-shard loop), and
+    on the engine's `device` alone that is one call over every shard. Both
+    give the masks each shard's `candidate_nodes` gives alone.
     """
     driven_cs = np.asarray(driven_cs, dtype=np.int64)
     dback = squadtree.resolve_descend_backend(descend_backend)
@@ -229,8 +299,8 @@ def candidate_nodes_sharded(shards: list[TreeShard], box_sets, dist_norm,
         keys[pad] = ops.DESCEND_PAD_BOX
     if not isinstance(shards, ShardSet):
         shards = ShardSet(shards)
-    masks = ops.tree_descend_sharded(
-        stacked_node_planes(shards, device),
+    masks = descend_over_mesh(
+        placed_node_planes(shards, descent_mesh(shards, device)),
         torch.from_numpy(cs_stack).to(device),
         torch.from_numpy(keys).to(device)).cpu().numpy()
     return [masks[si, :, :sizes[si]] for si in range(len(shards))]

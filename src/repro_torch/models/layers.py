@@ -69,12 +69,23 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4):
 
 
 def shard_activations(x: torch.Tensor, batch_axes: tuple, seq_axes: tuple):
-    """The reference's residual-stream sharding constraint. On one device it
-    has no meaning: with no axes it returns x, with any it raises (sharding
-    comes with the port's distributed slice)."""
-    if batch_axes or seq_axes:
-        raise NotImplementedError(
-            "activation sharding (batch_axes/seq_axes) is not ported")
+    """The reference's Megatron-SP residual-stream constraint, (B, S, D)
+    with batch over `batch_axes` and sequence over `seq_axes`, held to the
+    ambient mesh (`with mesh:`, launch/mesh.py) as the reference's is: no
+    axes return x; axes with no ambient mesh raise `RuntimeError`; an axis
+    the mesh lacks raises `ValueError`. The constraint never changes a
+    value, and the port keeps the stream on the model's device, so x comes
+    back as it is."""
+    if not batch_axes and not seq_axes:
+        return x
+    from ..launch.mesh import NamedSharding, PartitionSpec, ambient_mesh
+    mesh = ambient_mesh()
+    if mesh is None:
+        raise RuntimeError(
+            "shard_activations: batch_axes/seq_axes need a mesh in context "
+            "(`with mesh:`)")
+    NamedSharding(mesh, PartitionSpec(tuple(batch_axes) or None,
+                                      tuple(seq_axes) or None, None))
     return x
 
 

@@ -27,7 +27,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from . import transformer
+from . import layers, transformer
 from .layers import activation, apply_norm, dense_init, init_norm
 from .transformer import (TransformerConfig, _attend, _embed,
                           _full_f32_matmuls, _layer_params, _remat, lm_nll)
@@ -219,6 +219,7 @@ def _ffn(lp, h2, cfg: MoEConfig):
 
 def _block(lp, x, cfg: MoEConfig, positions):
     """One layer over (B, S, D): (x, aux, k, v)."""
+    x = layers.shard_activations(x, cfg.batch_axes, cfg.seq_axes)
     x, k, v = _attend(lp, x, cfg, positions)
     y, aux = _ffn(lp, apply_norm(x, lp["ln2"], cfg.norm), cfg)
     return x + y, aux, k, v

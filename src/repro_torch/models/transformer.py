@@ -39,8 +39,9 @@ class TransformerConfig:
     checkpointing) and `loss_chunks` splits the LM loss's vocab projection
     over the sequence; both act only when gradients are taken.
     `scatter_cache_update` selects nothing (both cache-update modes are one
-    in-place write) and `batch_axes`/`seq_axes` raise when set; they are
-    kept so that the registry's configs equal the reference's.
+    in-place write). `batch_axes`/`seq_axes` name the ambient mesh's axes
+    of the residual-stream constraint (`layers.shard_activations`), checked
+    as the reference checks them; the stream stays on the model's device.
     """
     name: str = "transformer"
     n_layers: int = 4
@@ -62,7 +63,7 @@ class TransformerConfig:
     use_flash: bool = False    # route square attention through the kernel
     attn_chunk: int | None = None  # query-chunked attention (long prefill):
     #   bounds the (B,H,chunk,S) logit buffer instead of (B,H,S,S)
-    batch_axes: tuple = ()     # residual-stream sharding (not ported: raises)
+    batch_axes: tuple = ()     # residual-stream sharding constraint (SP)
     seq_axes: tuple = ()
     attn_bf16_operands: bool = False  # QK^T / PV operands in the cache dtype
     #   with f32 accumulation

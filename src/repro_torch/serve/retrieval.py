@@ -20,12 +20,20 @@ wins a tie against a new block and an earlier item against a later one.
 `torch.topk` promises no order among equal values, so the merge selects by
 value and then by position itself (`_stable_topk`). The products are f32
 `torch.matmul`s (TF32 stays off, as torch's default has it, so that the
-scores are f32's). The reference's sharded variants wait for the port's
-multi-device slice.
+scores are f32's).
+
+The sharded variants (`streak_topk_sharded`, `blocked_topk_sharded`) lay
+the catalog over one axis of a device mesh (`launch/mesh.py`): shard i owns
+the reference's contiguous `P(axis, None)` slice, runs the unsharded scan
+on its own device, and one k-wide gather to the mesh's first position
+merges the shards' top-k, the lower shard first among equal scores (the
+reference's `all_gather` then `lax.top_k`).
 """
 from __future__ import annotations
 
 import torch
+
+from ..launch.mesh import shard_blocks
 
 
 def _stable_topk(s: torch.Tensor, k: int) -> tuple[torch.Tensor,
@@ -125,3 +133,55 @@ def streak_topk(state: torch.Tensor, items_sorted: torch.Tensor,
         scores, ids = _merge_topk(scores, ids, s, real_ids.expand_as(s), k)
         bi += 1
     return scores, ids, bi
+
+
+def _merge_shards(mesh, parts: list, k: int):
+    """One k-wide gather of every shard's (scores, ids) to the mesh's first
+    position and their top-k over the (B, S·k) concatenation."""
+    dev = mesh.devices.flat[0]
+    s = torch.cat([p[0].to(dev) for p in parts], dim=-1)
+    i = torch.cat([p[1].to(dev) for p in parts], dim=-1)
+    top_s, pos = _stable_topk(s, k)
+    return top_s, torch.gather(i, -1, pos)
+
+
+def streak_topk_sharded(state, items_sorted, item_order, bounds,
+                        mesh, axis: str = "model", k: int = 100,
+                        block: int = 65536):
+    """Catalog-sharded STREAK retrieval: each `axis` shard runs the
+    early-terminating scan over its own block set on its device, then one
+    k-wide gather merges the shards' top-k; no catalog block crosses
+    devices.
+
+    `items_sorted`, `item_order` and `bounds` are cut as `P(axis)` cuts
+    them (or come as `ShardedTensor`s laid out so, resident): shard i owns
+    blocks [i·nb/S, (i+1)·nb/S); a size that S does not divide raises
+    `ValueError`. `state` is replicated. Returns (scores, ids) on the
+    mesh's first position and the blocks read, the largest count of any
+    shard (the reference's `pmax`)."""
+    items = shard_blocks(items_sorted, mesh, axis)
+    orders = shard_blocks(item_order, mesh, axis)
+    bnds = shard_blocks(bounds, mesh, axis)
+    parts, read = [], 0
+    for it, order, bd in zip(items, orders, bnds):
+        scores, ids, bi = streak_topk(state.to(it.device), it, order, bd,
+                                      k=k, block=block)
+        parts.append((scores, ids))
+        read = max(read, bi)
+    return (*_merge_shards(mesh, parts, k), read)
+
+
+def blocked_topk_sharded(state, items, mesh, axis: str = "model",
+                         k: int = 100, block: int = 65536):
+    """Catalog-sharded bulk scoring: each `axis` shard scans its own item
+    rows (shard i from row i·(N // S), `P(axis, None)`; an N that S does
+    not divide raises `ValueError`) on its device in blocks of at most
+    `block`, then one k-wide merge. Returns (scores, ids) on the mesh's
+    first position."""
+    n = items.shape[0]
+    parts = []
+    for i, it in enumerate(shard_blocks(items, mesh, axis)):
+        scores, ids = blocked_topk(state.to(it.device), it, k=k,
+                                   block=min(block, it.shape[0]))
+        parts.append((scores, ids + i * (n // mesh.shape[axis])))
+    return _merge_shards(mesh, parts, k)

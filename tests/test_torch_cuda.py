@@ -814,6 +814,58 @@ def test_engine_on_a_sharded_store_on_cuda_equals_cpu(dev):
         assert dataclasses.asdict(g[2]) == dataclasses.asdict(w[2])
 
 
+def test_shard_mesh_over_every_card_equals_one_card(dev):
+    """With two or more cards: the engine over a four-shard store laid over
+    `make_shard_mesh(4)` across every card (each position's planes resident
+    on its card, one launch there a descent) answers as on one card, and
+    both sharded retrievals over `make_host_mesh(1, n)` equal the
+    unsharded scans."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip("needs two or more cards")
+    from repro_torch.launch import mesh as pmesh
+    from repro_torch.serve import retrieval
+    ds = synth_rdf.make_lgd(n_per_class=300, seed=0)
+    store = repro_torch.shard_store(ds.store, 4)
+    mesh = pmesh.make_shard_mesh(4)
+    assert mesh.shape["shard"] >= 2
+    cfg = ExecConfig(policy=BackendPolicy(join="fused", descend="kernel",
+                                          probe="kernel", rank="kernel"))
+    one = StreakEngine(store, cfg)
+    spread_store = store.on_mesh(mesh)
+    spread = StreakEngine(spread_store, cfg)
+    launches = ops.LAUNCHES["tree_descend"]
+    got = [spread.execute(q) for q in ds.queries]
+    assert ops.LAUNCHES["tree_descend"] > launches
+    assert {k[0] for k in spread_store.tree_shards.planes} == \
+        set(mesh.devices.flat)
+    for g, q in zip(got, ds.queries):
+        w = one.execute(q)
+        np.testing.assert_array_equal(g[0], w[0])
+        assert list(g[1]) == list(w[1])
+        for c in w[1]:
+            np.testing.assert_array_equal(g[1][c], w[1][c])
+    rng = np.random.default_rng(3)
+    n_items, block = 64 * 8 * n_cards, 64
+    items = torch.from_numpy(rng.normal(size=(n_items, 16)).astype(
+        np.float32)).to(dev)
+    state = torch.from_numpy(rng.normal(size=(5, 16)).astype(
+        np.float32)).to(dev)
+    srt, order = retrieval.sort_items_by_norm(items, block)
+    bounds = retrieval.block_bounds(srt, block)
+    host = pmesh.make_host_mesh(1, n_cards)
+    assert len({d for d in host.devices.flat}) == n_cards
+    s, i, _ = retrieval.streak_topk_sharded(state, srt, order, bounds, host,
+                                            k=8, block=block)
+    ws, wi, _ = retrieval.streak_topk(state, srt, order, bounds, k=8,
+                                      block=block)
+    assert torch.equal(s.cpu(), ws.cpu()) and torch.equal(i.cpu(), wi.cpu())
+    s, i = retrieval.blocked_topk_sharded(state, items, host, k=8,
+                                          block=block)
+    ws, wi = retrieval.blocked_topk(state, items, k=8, block=block)
+    assert torch.equal(s.cpu(), ws.cpu()) and torch.equal(i.cpu(), wi.cpu())
+
+
 def _op_call(op, dev):
     """A call of one chained op on card inputs, and its kernel's name."""
     rng = np.random.default_rng(5)

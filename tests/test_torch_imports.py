@@ -40,6 +40,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import repro_torch.data.recsys, repro_torch.launch.serve_topk\n"
         "import repro_torch.models.gnn, repro_torch.models.graphcast\n"
         "import repro_torch.models.equivariant, repro_torch.data.graphs\n"
+        "import repro_torch.launch.mesh, repro_torch.dist.elastic\n"
+        "import repro_torch.roofline.analysis, repro_torch.roofline.op_count\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")

@@ -344,14 +344,16 @@ def test_tree_descend_sharded_matches_reference(seed):
 
 
 def test_stacked_planes_built_once_per_device(sharded):
-    """The stacked descent planes are made once per shard set and device and
-    are exactly each shard tree's own key planes, padded."""
+    """The stacked descent planes are made once per shard set, device and
+    span of shards and are exactly each shard tree's own key planes,
+    padded."""
     shards = port_shard.shard_views(sharded[4][1])
     a = port_shard.stacked_node_planes(shards, torch.device("cpu"))
     b = port_shard.stacked_node_planes(
         port_shard.shard_views(sharded[4][1]), torch.device("cpu"))
     assert a.data_ptr() == b.data_ptr()
-    assert list(sharded[4][1].tree_shards.planes) == [torch.device("cpu")]
+    assert list(sharded[4][1].tree_shards.planes) == [
+        (torch.device("cpu"), 0, 4)]
     assert a.transpose(0, 1).is_contiguous()
     for si, sh in enumerate(shards):
         n = sh.tree.n_nodes
@@ -360,6 +362,142 @@ def test_stacked_planes_built_once_per_device(sharded):
             sh.tree._node_key_planes(torch.device("cpu")).numpy())
         assert (a[si, :, n:].numpy() == ops.DESCEND_PAD_BOX[:, None]).all()
 
+
+
+# ------------------------------------ the sharded descent over a mesh ----
+MESH_SIZES = {4: (37, 50, 11, 64), 8: (37, 50, 11, 64, 9, 80, 21, 3)}
+MESH_REFERENCE = r"""
+from repro.kernels import ops as ref_ops
+ans = {}
+for s, sizes in %(sizes)r.items():
+    for seed in range(2):
+        planes, cs, keys = _stacked_inputs(seed, sizes)
+        ans[f"{s}_{seed}"] = ref_ops.tree_descend_sharded(
+            planes, cs, keys, backend="interpret")
+np.savez(OUT, **ans)
+"""
+
+
+@pytest.fixture(scope="module")
+def mesh_ref(tmp_path_factory):
+    """The reference's `shard_map` route on 4 forced host devices:
+    `make_shard_mesh(S)` has 4 positions at S = 4 and S = 8."""
+    import inspect
+    from test_torch_mesh import run_reference
+    helper = inspect.getsource(_stacked_inputs).replace(
+        "ops.", "ref_ops.")
+    code = ("from repro.kernels import ops as ref_ops\n" + helper
+            + MESH_REFERENCE % dict(sizes=MESH_SIZES))
+    return run_reference(code, tmp_path_factory.mktemp("descent") / "r.npz")
+
+
+@pytest.mark.parametrize("n_pos", (1, 2, 4))
+@pytest.mark.parametrize("n_shards", sorted(MESH_SIZES))
+@pytest.mark.parametrize("seed", range(2))
+def test_tree_descend_sharded_over_a_mesh_matches_reference(
+        mesh_ref, n_pos, n_shards, seed):
+    """`ops.tree_descend_sharded` called once a position of a 1-, 2- or
+    4-position shard mesh (the CPU at every position) over its P("shard")
+    planes (`shard.descend_over_mesh`) equals the single call and the
+    reference's `shard_map` route over 4 devices; each position's per-shard
+    fallback too."""
+    from repro_torch.launch import mesh as pmesh
+    planes, cs, keys = _stacked_inputs(seed, MESH_SIZES[n_shards])
+    args = tuple(torch.from_numpy(x) for x in (planes, cs, keys))
+    mesh = pmesh.make_shard_mesh(n_shards, devices=[torch.device("cpu")]
+                                 * n_pos)
+    assert mesh.shape["shard"] == n_pos
+    placed = pmesh.device_put(args[0], pmesh.NamedSharding(
+        mesh, pmesh.PartitionSpec("shard")))
+    got = port_shard.descend_over_mesh(placed, *args[1:])
+    want = mesh_ref[f"{n_shards}_{seed}"]
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(got, ops.tree_descend_sharded(*args))
+    plan = fault.FaultPlan(rules=(fault.FaultRule(op="tree_descend_sharded"),))
+    with fault.fault_plan(plan):
+        fallback = port_shard.descend_over_mesh(placed, *args[1:])
+    assert plan.calls == {"tree_descend_sharded": n_pos,
+                          "tree_descend": n_shards}
+    np.testing.assert_array_equal(fallback.numpy(), want)
+    fault.STATE.reset()
+
+
+def test_tree_descend_sharded_refuses_an_unsplit_layout():
+    from repro_torch.launch import mesh as pmesh
+    planes, cs, keys = (torch.from_numpy(x) for x in _stacked_inputs(0))
+    mesh = pmesh.make_shard_mesh(3, devices=[torch.device("cpu")] * 3)
+    whole = pmesh.device_put(planes, pmesh.NamedSharding(
+        mesh, pmesh.PartitionSpec()))
+    with pytest.raises(ValueError, match="needs P"):
+        port_shard.descend_over_mesh(whole, cs, keys)
+
+
+def test_descent_over_two_devices_keeps_each_call_on_its_device():
+    """A shard mesh whose two positions lie on different devices (the CPU
+    and `meta`, which holds no values): each position's call gets its
+    planes, its shards' cs_path rows and the boxes all on its own device,
+    and the masks come back in shard order on the boxes' device. The stub
+    wrapper answers each call from the CPU copy of the same shards."""
+    from repro_torch.launch import mesh as pmesh
+    planes, cs, keys = (torch.from_numpy(x)
+                        for x in _stacked_inputs(0, MESH_SIZES[4]))
+    mesh = pmesh.make_shard_mesh(4, devices=[torch.device("cpu"),
+                                             torch.device("meta")])
+    placed = pmesh.device_put(planes, pmesh.NamedSharding(
+        mesh, pmesh.PartitionSpec("shard")))
+    assert [b.device.type for b in placed.along("shard")] == ["cpu", "meta"]
+    real, calls = ops.tree_descend_sharded, []
+
+    def stub(node_keys, cs_path, box_keys):
+        lo = sum(k for _, k in calls)
+        k = node_keys.shape[0]
+        calls.append(({t.device.type for t in (node_keys, cs_path,
+                                               box_keys)}, k))
+        return real(planes[lo:lo + k], cs[lo:lo + k], keys)
+    ops.tree_descend_sharded = stub
+    try:
+        got = port_shard.descend_over_mesh(placed, cs, keys)
+    finally:
+        ops.tree_descend_sharded = real
+    assert calls == [({"cpu"}, 2), ({"meta"}, 2)]
+    assert got.device == keys.device
+    assert torch.equal(got, real(planes, cs, keys))
+
+
+@pytest.mark.parametrize("n_shards,n_pos", [(4, 2), (4, 4), (8, 4)])
+def test_engine_over_a_shard_mesh_matches_reference(ds, sharded, ref_answers,
+                                                    n_shards, n_pos):
+    """The sharded engine with its descent laid over a 2- or 4-position
+    shard mesh answers as the reference's sharded engine (rows, scores,
+    order, `ExecStats`); each position's planes are made once and stay."""
+    from repro_torch.launch import mesh as pmesh
+    cpu = torch.device("cpu")
+    ref_store, port_store = sharded[n_shards]
+    store = port_store.on_mesh(pmesh.make_shard_mesh(n_shards,
+                                                     devices=[cpu] * n_pos))
+    assert store.tree_shards.mesh.shape["shard"] == n_pos
+    assert list(store.tree_shards) == list(port_store.tree_shards)
+    eng = engine(repro_torch, store, "fused")
+    ref_eng = engine(repro, ref_store, "fused")
+    launches = []
+    over_mesh = port_shard.descend_over_mesh
+
+    def spy(placed, *a):
+        launches.append([b.data_ptr() for b in placed.along("shard")])
+        return over_mesh(placed, *a)
+    port_shard.descend_over_mesh = spy
+    try:
+        for qi, q in enumerate(ds[1].queries):
+            key = ("run", n_shards, "fused", qi)
+            if key not in ref_answers:
+                ref_answers[key] = ref_eng.execute(ds[0].queries[qi])
+            assert_same_answer(eng.execute(q), ref_answers[key])
+    finally:
+        port_shard.descend_over_mesh = over_mesh
+    per = n_shards // n_pos
+    assert sorted(store.tree_shards.planes) == [
+        (cpu, i * per, (i + 1) * per) for i in range(n_pos)]
+    assert launches and all(ptrs == launches[0] for ptrs in launches)
 
 # ------------------------------------------------------- carried state ----
 def test_store_from_state_carries_a_sharded_store(ds, sharded):

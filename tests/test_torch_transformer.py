@@ -152,7 +152,13 @@ def test_decode_steps_match(model, over):
 
 
 def test_sharding_axes_are_refused():
-    _, cfg = _cfgs("gemma-7b", batch_axes=("data",))
+    """Sharding axes with no mesh in context are refused with the
+    reference's RuntimeError (under a mesh that has them the forward runs:
+    tests/test_torch_mesh.py)."""
+    ref_cfg, cfg = _cfgs("gemma-7b", batch_axes=("data",))
     params = ttr.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="sharding"):
+    with pytest.raises(RuntimeError, match="mesh"):
         ttr.forward(params, torch.zeros((1, 4), dtype=torch.int64), cfg)
+    ref_params = rtr.init_params(jax.random.PRNGKey(0), ref_cfg)
+    with pytest.raises(RuntimeError, match="mesh"):
+        rtr.forward(ref_params, jnp.zeros((1, 4), jnp.int32), ref_cfg)
