@@ -198,6 +198,16 @@ In order it:
    roofline fraction, each beside the wall ms of the same plain path from
    this run and the counted time's share of it (the prefills' flash ms
    beside, with no share); the records go to artifacts/roofline_torch/;
+   then "cells": each of the 40 (arch x shape) cells of
+   `launch/cells.py` gets its one-device dry-run record
+   (`launch/dryrun.run_cell` on a 1x1 mesh, counted on fake tensors in
+   CELL_WORKERS processes beside the card's work), and each cell whose
+   predicted args + temps + results fit CELL_MEM_SHARE of the card runs
+   one warm and one measured step at the full reference size on real
+   seeded tensors ("cell" lines: predicted and measured peak GiB, their
+   ratio, step ms by CUDA events); a measured peak above CELL_PEAK_SLACK
+   times the prediction, an output that is not finite, or one of the
+   smallest cells (CELLS_VS_CPU) that disagrees with its CPU run fails it;
 13. traces one more pass of each query set on the card: host ms per
    executor layer, device busy ms (by kind: each kernel, memcpy) and the
    device's idle share; then the LGD and 1M-quad sets (fused join) with
@@ -5277,6 +5287,175 @@ def roofline_records(runs: dict, out_dir) -> list:
     return rows
 
 
+# ------------------------------------------------------------- the cells --
+CELL_MEM_SHARE = 0.85    # a cell runs where its predicted peak fits this
+CELL_PEAK_SLACK = 1.25   # measured peak over predicted, at most
+CELL_WORKERS = 6         # processes counting the one-device records
+# the smallest cell of each family, held to its CPU run
+CELLS_VS_CPU = (("gcn-cora", "full_graph_sm"),
+                ("graphsage-reddit", "full_graph_sm"),
+                ("graphcast", "full_graph_sm"), ("nequip", "molecule"),
+                ("sasrec", "serve_p99"))
+
+
+def one_device_record(arch: str, shape: str) -> dict:
+    """The cell's dry-run record on a one-position mesh (`launch/dryrun`:
+    plain fake tensors, no card): what one device holds and allocates."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh, placeholder_devices
+    mesh = make_host_mesh(1, 1, devices=placeholder_devices(1))
+    return dryrun.run_cell(arch, shape, False, verbose=False, mesh=mesh,
+                           art=None)
+
+
+def peak_bytes(rec: dict) -> int:
+    """A record's predicted peak: arguments, temporaries and the results
+    that are not arguments written in place."""
+    return rec["arg_bytes"] + rec["temp_bytes"] + rec["out_bytes"] \
+        - rec["alias_bytes"]
+
+
+def pytree_leaves(tree) -> list:
+    from repro_torch import pytree
+    return pytree.leaves(list(tree) if isinstance(tree, tuple) else tree)
+
+
+def _floats(tree) -> list:
+    return [x for x in pytree_leaves(tree)
+            if torch.is_tensor(x) and x.is_floating_point()]
+
+
+def cell_vs_cpu(arch, shape, cell, cpu_args, got) -> dict:
+    """The card's first step against the same step on the CPU from the
+    same inputs: a training step's loss within TRAIN_REL_TOL relative and
+    its first moments within GNN_FWD_RMS x 10 relative RMS (f32 sums in
+    other orders; NequIP's energies as NEQUIP_CPU_RMS), serve_p99's top-k
+    as the retrieval phase holds it (`topk_agreement`); GraphCast's bf16
+    step within GRAPHCAST_REL_TOL (its bf16 phase's limit) for both."""
+    from repro_torch import pytree
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import sasrec
+    with make_host_mesh(1, 1, devices=["cpu"]):
+        want = cell.fn(*cpu_args)
+    if shape == "serve_p99":
+        cfg = registry.get(arch).config
+        params, seq = cpu_args
+        dense = sasrec.score_all(params, sasrec.user_state(params, seq, cfg))
+        return topk_agreement(f"cell {arch} {shape} card vs cpu",
+                              got[0].cpu(), got[1].cpu(), want[0], want[1],
+                              dense)
+    loss = abs(float(got[2]) - float(want[2])) / abs(float(want[2]))
+    m = rel_err(torch.cat([x.flatten().cpu() for x in
+                           pytree.leaves(got[1]["m"])]),
+                torch.cat([x.flatten() for x in pytree.leaves(want[1]["m"])]))
+    tol_loss, tol_m = (GRAPHCAST_REL_TOL, GRAPHCAST_REL_TOL) \
+        if arch == "graphcast" else (TRAIN_REL_TOL, 10 * GNN_FWD_RMS)
+    row = dict(loss_rel_err=loss, moments_rel_rms=m, tolerance_loss=tol_loss,
+               tolerance_moments=tol_m)
+    if not (loss <= tol_loss and m <= tol_m):
+        raise AssertionError(f"cell {arch} {shape}: card against CPU {row}")
+    return row
+
+
+def run_cell_on_card(arch: str, shape: str, dev) -> dict:
+    """One warm step and one measured step of the cell at its full size on
+    real seeded tensors on the card: step ms by CUDA events, peak memory,
+    every output finite; the smallest cells also against their CPU run."""
+    from repro_torch.launch import cells
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(1, 1, devices=[dev])
+    cell = cells.build_cell(arch, shape, mesh)
+    torch.cuda.empty_cache()
+    vs_cpu = (arch, shape) in CELLS_VS_CPU
+    if vs_cpu:
+        cpu_args = cells.materialize(cell, device="cpu", seed=0)
+        args = [tree_to(a, dev, copy=True) if isinstance(a, dict)
+                else a.to(dev) for a in cpu_args]
+    else:
+        args = cells.materialize(cell, device=dev, seed=0)
+    with mesh:
+        out = cell.fn(*args)
+        torch.cuda.synchronize()
+        row = dict(cell_vs_cpu(arch, shape, cell, cpu_args, out)) \
+            if vs_cpu else {}
+        del out
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # what the process holds beside the cell's arguments (the cuBLAS
+        # workspaces, 64 MiB on the H100): not the cell's, and taken off
+        held = torch.cuda.memory_allocated()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = cell.fn(*args)
+        stop.record()
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    finite = all(bool(torch.isfinite(x).all()) for x in _floats(out))
+    arg_bytes = sum({id(st): st.nbytes() for st in (
+        x.untyped_storage() for x in pytree_leaves(args)
+        if torch.is_tensor(x))}.values())
+    del out, args
+    torch.cuda.empty_cache()
+    return dict(row, step_ms=start.elapsed_time(stop),
+                max_memory_allocated=peak, held_beside_args=held - arg_bytes,
+                measured_bytes=peak - (held - arg_bytes), finite=finite)
+
+
+def check_cells(dev, smi: str) -> list:
+    """Every one of the 40 base cells: its one-device record counted on the
+    host (CELL_WORKERS processes), and where the predicted args + temps +
+    outputs fit CELL_MEM_SHARE of the card, one warm and one measured step
+    at the full reference size on the card. A "cell" line each: predicted
+    peak GiB (`peak_bytes`), and for a cell that ran,
+    `torch.cuda.max_memory_allocated` GiB, the cell's own peak (that, less
+    what the process held beside the cell's arguments before the step),
+    their ratio to the prediction and the step ms. Fails on a cell's own
+    peak above CELL_PEAK_SLACK x predicted, an output that is not finite, or a
+    smallest cell (CELLS_VS_CPU) that disagrees with its CPU run."""
+    import concurrent.futures
+    import multiprocessing
+    from repro_torch.configs import registry
+    total = torch.cuda.get_device_properties(dev).total_memory
+    order = sorted(registry.all_cells(), key=lambda c: registry.get(
+        c[0]).family in ("lm", "moe"))
+    rows = []
+    with concurrent.futures.ProcessPoolExecutor(
+            CELL_WORKERS, mp_context=multiprocessing.get_context(
+                "spawn")) as pool:
+        futures = {pool.submit(one_device_record, *c): c for c in order}
+        for fut in concurrent.futures.as_completed(futures):
+            arch, shape = futures[fut]
+            rec = fut.result()
+            predicted = peak_bytes(rec)
+            row = dict(arch=arch, shape=shape, card=smi,
+                       predicted_gib=predicted / 2 ** 30,
+                       arg_gib=rec["arg_bytes"] / 2 ** 30,
+                       temp_gib=rec["temp_bytes"] / 2 ** 30,
+                       out_gib=rec["out_bytes"] / 2 ** 30,
+                       count_s=rec["compile_s"],
+                       fits=predicted <= CELL_MEM_SHARE * total)
+            if row["fits"]:
+                ran = run_cell_on_card(arch, shape, dev)
+                row.update(ran, measured_gib=ran["measured_bytes"] / 2 ** 30,
+                           max_memory_allocated_gib=ran[
+                               "max_memory_allocated"] / 2 ** 30,
+                           ratio=ran["measured_bytes"] / predicted)
+                if not (ran["finite"]
+                        and ran["measured_bytes"]
+                        <= CELL_PEAK_SLACK * predicted):
+                    raise AssertionError(f"cell {arch} {shape}: {row}")
+            rows.append(row)
+            print("cell " + json.dumps(row), flush=True)
+    ran = [r for r in rows if r["fits"]]
+    missing = set(CELLS_VS_CPU) - {(r["arch"], r["shape"]) for r in ran}
+    if len(rows) != 40 or missing:
+        raise AssertionError(f"cells: {len(rows)} records, smallest cells "
+                             f"not run: {missing}")
+    return rows
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="write the full report (JSON) here")
@@ -5714,6 +5893,11 @@ def main() -> None:
               flush=True)
     phase_done("roofline", t0)
 
+    # ---- the 40 cells: one-device records, the ones that fit run ---------
+    t0 = time.perf_counter()
+    cells_run = check_cells(dev, smi)
+    phase_done("cells", t0)
+
     # ---- where the time goes ---------------------------------------------
     t0 = time.perf_counter()
     traces = [trace_queries(rt, name, ds, n_q, join)
@@ -5772,7 +5956,7 @@ def main() -> None:
             training=training, retrieval=retrieval_run,
             recsys_train=recsys_train, gnn=gnn_run, graphcast=graphcast_run,
             nequip=nequip_run, mesh=mesh_run, ogb_gcn=ogb_run,
-            roofline=roofline, phase_seconds=phase_s),
+            roofline=roofline, cells=cells_run, phase_seconds=phase_s),
             indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -21,10 +21,21 @@ the mesh positions itself.
     Multi-pod:  (2, 16, 16) = 512 devices, axes ("pod", "data", "model").
 
 `devices=None` means every CUDA device, and raises where there is none.
+`placeholder_devices(n)` names n positions that hold nothing, for a mesh
+that is only laid out, never computed on: the dry run's production
+meshes.
+
+The bridge to `torch.distributed.tensor` (DTensor): `device_mesh(mesh)` is
+the `DeviceMesh` of the same devices and axes (the data-parallel "pod" and
+"data" joined into one dimension), over the default process group
+(`fake_process_group(n)` gives one of n ranks that exchanges no data, for
+the dry run); `placements` lays a `PartitionSpec` out as DTensor
+placements; `to_dtensor` wraps a local block.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import math
 import threading
@@ -295,3 +306,106 @@ def make_shard_mesh(n_shards: int, devices=None) -> Mesh:
     d = max(k for k in range(1, min(len(devs), n_shards) + 1)
             if n_shards % k == 0)
     return _make_mesh((d,), ("shard",), devs)
+
+
+def placeholder_devices(n: int) -> list:
+    """n mesh positions on the "meta" device: a mesh over them is laid out
+    and counted (the dry run), never computed on."""
+    return [torch.device("meta")] * n
+
+
+@contextlib.contextmanager
+def fake_process_group(world_size: int):
+    """The default process group for the calls inside: rank 0 of
+    `world_size` ranks whose collectives move no data (torch's "fake"
+    backend), torn down on exit."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("fake_process_group: a process group is already "
+                           "initialised")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+# mesh axes that every layout of the port splits together (the data-
+# parallel axes): the DeviceMesh of a mesh that has both holds them as one
+# dimension, which DTensor plans collectives over far faster than over two
+JOINED = ("pod", "data")
+
+
+def _dims(axis_names: tuple) -> list:
+    """The DeviceMesh dimensions of a mesh's axes, `JOINED` axes as one:
+    [("pod", "data"), ("model",)] for ("pod", "data", "model")."""
+    if all(a in axis_names for a in JOINED):
+        i = axis_names.index(JOINED[0])
+        if axis_names[i:i + len(JOINED)] == JOINED:
+            return [(a,) for a in axis_names[:i]] + [JOINED] \
+                + [(a,) for a in axis_names[i + len(JOINED):]]
+    return [(a,) for a in axis_names]
+
+
+def device_mesh(mesh: Mesh):
+    """The `DeviceMesh` of `mesh` over the default process group, whose
+    world size must be `mesh.size`: the same shape and axis names, but the
+    `JOINED` axes ("pod", "data") as one dimension named "pod+data"."""
+    from torch.distributed.device_mesh import init_device_mesh
+    dev = mesh.devices.flat[0].type
+    dims = _dims(mesh.axis_names)
+    return init_device_mesh(
+        "cpu" if dev == "meta" else dev,
+        tuple(math.prod(mesh.shape[a] for a in d) for d in dims),
+        mesh_dim_names=tuple("+".join(d) for d in dims))
+
+
+def placements(spec: PartitionSpec, ndim: int, dim_names: tuple) -> list:
+    """DTensor placements, one per DeviceMesh dimension of `dim_names`
+    (`device_mesh`'s names), of a rank-`ndim` tensor laid out by `spec`:
+    `Shard(d)` on each dimension whose axes split tensor dimension d,
+    `Replicate()` elsewhere. A tensor dimension split over several
+    dimensions takes them in mesh order (the first outermost, as `spec`
+    says); a spec that orders them otherwise, or that splits a joined
+    dimension's axes apart, raises `ValueError`."""
+    from torch.distributed.tensor import Replicate, Shard
+    groups = [tuple(n.split("+")) for n in dim_names]
+    out = [Replicate() for _ in groups]
+    for d in range(ndim):
+        axes = spec.axes(d)
+        idx, k = [], 0
+        while k < len(axes):
+            g = next((i for i, grp in enumerate(groups)
+                      if axes[k:k + len(grp)] == grp), None)
+            if g is None:
+                raise ValueError(f"{spec!r}: dimension {d}'s axes {axes} "
+                                 f"do not fall on the mesh's {groups}")
+            idx.append(g)
+            k += len(groups[g])
+        if idx != sorted(idx):
+            raise ValueError(f"{spec!r}: dimension {d} splits over axes out "
+                             f"of mesh order {dim_names}")
+        for i in idx:
+            out[i] = Shard(d)
+    return out
+
+
+def local_shape(shape: tuple, sharding: NamedSharding) -> tuple:
+    """The block of a tensor of `shape` that each position holds."""
+    sharding.check(shape)
+    return tuple(n // sharding.parts(d) for d, n in enumerate(shape))
+
+
+def to_dtensor(local: torch.Tensor, dmesh, sharding: NamedSharding,
+               shape: tuple):
+    """A DTensor of global `shape` over `dmesh` laid out by `sharding`,
+    whose block on this rank is `local`."""
+    from torch.distributed.tensor import DTensor
+    shape = tuple(shape)
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(
+        local, dmesh, placements(sharding.spec, len(shape),
+                                 tuple(dmesh.mesh_dim_names)),
+        run_check=False, shape=torch.Size(shape), stride=stride)

@@ -71,7 +71,7 @@ def init_params(cfg: GNNConfig, seed: int = 0,
 
 def segment_sum(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
     """The sum of x's rows by segment id (n segments; an empty one is 0)."""
-    return x.new_zeros((n,) + x.shape[1:]).index_add_(0, seg, x)
+    return x.new_zeros((n,) + x.shape[1:]).index_add(0, seg, x)
 
 
 def _aggregate(msg: torch.Tensor, dst: torch.Tensor, n: int, kind: str):

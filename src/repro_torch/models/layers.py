@@ -74,19 +74,47 @@ def shard_activations(x: torch.Tensor, batch_axes: tuple, seq_axes: tuple):
     ambient mesh (`with mesh:`, launch/mesh.py) as the reference's is: no
     axes return x; axes with no ambient mesh raise `RuntimeError`; an axis
     the mesh lacks raises `ValueError`. The constraint never changes a
-    value, and the port keeps the stream on the model's device, so x comes
-    back as it is."""
+    value (`constrain`)."""
     if not batch_axes and not seq_axes:
         return x
-    from ..launch.mesh import NamedSharding, PartitionSpec, ambient_mesh
+    return constrain(x, tuple(batch_axes) or None, tuple(seq_axes) or None,
+                     None)
+
+
+def constrain(x: torch.Tensor, *spec):
+    """x laid out as `PartitionSpec(*spec)` over the ambient mesh (the
+    reference's `with_sharding_constraint`): no ambient mesh raises
+    `RuntimeError`, an axis the mesh lacks `ValueError`. A DTensor (the dry
+    run's SPMD step) is redistributed to it; a plain tensor stays on the
+    model's device and comes back as it is."""
+    from torch.distributed.tensor import DTensor
+
+    from ..launch.mesh import (NamedSharding, PartitionSpec, ambient_mesh,
+                               placements)
     mesh = ambient_mesh()
     if mesh is None:
         raise RuntimeError(
             "shard_activations: batch_axes/seq_axes need a mesh in context "
             "(`with mesh:`)")
-    NamedSharding(mesh, PartitionSpec(tuple(batch_axes) or None,
-                                      tuple(seq_axes) or None, None))
+    want = NamedSharding(mesh, PartitionSpec(*spec))
+    if isinstance(x, DTensor):
+        return x.redistribute(x.device_mesh, placements(
+            want.spec, x.ndim, tuple(x.device_mesh.mesh_dim_names)))
     return x
+
+
+def replicated_over(x: torch.Tensor, axis: str):
+    """x with its blocks whole over mesh axis `axis`: a DTensor (the dry
+    run's SPMD step) is redistributed to `Replicate()` there; a plain
+    tensor comes back as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor) \
+            or axis not in (x.device_mesh.mesh_dim_names or ()):
+        return x
+    names = x.device_mesh.mesh_dim_names
+    return x.redistribute(x.device_mesh, [
+        Replicate() if n == axis else p for n, p in zip(names,
+                                                         x.placements)])
 
 
 def dense_init(gen: torch.Generator, shape, in_axis: int = 0,

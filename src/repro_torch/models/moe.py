@@ -207,7 +207,10 @@ def moe_ffn(lp, x: torch.Tensor, cfg: MoEConfig):
 
 
 def _ffn(lp, h2, cfg: MoEConfig):
-    """The routed experts plus the shared ones over h2 (B, S, D)."""
+    """The routed experts plus the shared ones over h2 (B, S, D). Tokens
+    are whole over "model" for routing (the reference's contract: experts
+    split over "model", tokens replicated there)."""
+    h2 = layers.replicated_over(h2, "model")
     b, s, d = h2.shape
     y, aux = moe_ffn(lp, h2.reshape(b * s, d), cfg)
     y = y.reshape(b, s, d)

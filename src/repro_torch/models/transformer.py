@@ -172,6 +172,13 @@ def _attention(q, k, v, cfg: TransformerConfig, causal: bool,
                        kv_positions=kv_positions,
                        q_positions=q_positions[:, i:i + ck])
             for i in range(0, s, ck)], dim=1)
+    if g > 1 and _heads_split_unevenly(q, hk):
+        # an SPMD step whose model axis cannot split the KV heads: each KV
+        # head repeated for its group, so the query heads can be split and
+        # every device holds the KV heads of its own (the same products)
+        k, v = (_split_like_heads(x.repeat_interleave(g, dim=2), q)
+                for x in (k, v))
+        hk, g = h, 1
     qg = q.reshape(b, s, hk, g, dh)
     # bf16 operands with f32 accumulation (attn_bf16_operands) are the same
     # products as the f32 ones: each bf16 value and each product of two is
@@ -197,6 +204,29 @@ def _attention(q, k, v, cfg: TransformerConfig, causal: bool,
         w = w.to(v.dtype).float()
     out = torch.einsum("bhgst,bthd->bshgd", w, v.float())
     return out.reshape(b, s, h, dh).to(q.dtype)
+
+
+def _heads_split_unevenly(q, hk: int) -> bool:
+    """Is q a DTensor on a mesh whose "model" axis does not divide `hk`,
+    the KV head count? Its query heads may be split there (in the forward
+    pass, or in the backward pass by the output projection's rows), and
+    the KV heads cannot follow."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(q, DTensor):
+        return False
+    names = q.device_mesh.mesh_dim_names or ()
+    return "model" in names \
+        and hk % q.device_mesh.size(names.index("model")) != 0
+
+
+def _split_like_heads(x, q):
+    """x (B, T, H, Dh), whole over the mesh dimensions that split q's
+    heads, split there as q's heads are; its other splits kept. (Its
+    gradient comes back whole there, as the repeat it follows needs.)"""
+    from torch.distributed.tensor import Shard
+    pls = [Shard(2) if isinstance(p, Shard) and p.dim == 2 else xp
+           for p, xp in zip(q.placements, x.placements)]
+    return x.redistribute(x.device_mesh, pls)
 
 
 def _ffn(lp, x, cfg: TransformerConfig):
@@ -275,8 +305,10 @@ def logits_fn(params, hidden, cfg: TransformerConfig):
 def _chunk_nll(h, targets, head):
     """Summed next-token NLL of one sequence chunk: logits in f32."""
     logits = (h @ head).float()                         # (B, sc, V)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-    return torch.sum(torch.logsumexp(logits, dim=-1) - gold)
+    # (B, sc, 1) throughout: the same values and sum as (B, sc), in a shape
+    # DTensor's masked gather from a vocabulary block reduces correctly
+    gold = torch.gather(logits, -1, targets[..., None].long())
+    return torch.sum(torch.logsumexp(logits, dim=-1, keepdim=True) - gold)
 
 
 def lm_nll(params, hidden, targets, cfg: TransformerConfig):
@@ -334,6 +366,43 @@ def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig, block):
 
 
 # ----------------------------------------------------------------- decode ---
+def write_rows(cache, slots, rows, new) -> None:
+    """cache (B, S, Hk, Dh): row rows[b] of slot slots[b] becomes new[b]
+    (B, Hk, Dh), in place. On a DTensor cache (the dry run's SPMD step)
+    each rank writes into its own block the slots and heads it holds, and
+    only the rows that fall in its block of the sequence."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(cache, DTensor):
+        cache[slots, rows] = new
+        return
+    dmesh, pls = cache.device_mesh, cache.placements
+    # the new rows and positions laid out as the cache's slots and heads
+    by = {0: 0, 2: 1, 3: 2}
+    new_pl = [Shard(by[p.dim]) if isinstance(p, Shard) and p.dim in by
+              else Replicate() for p in pls]
+    row_pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+              for p in pls]
+    whole = [Replicate()] * dmesh.ndim
+    if not isinstance(new, DTensor):
+        new = DTensor.from_local(new, dmesh, whole)
+    if not isinstance(rows, DTensor):
+        rows = DTensor.from_local(rows, dmesh, whole)
+    block = cache.to_local()
+    n = new.redistribute(dmesh, new_pl).to_local()
+    r = rows.redistribute(dmesh, row_pl).to_local()
+    idx = 0
+    for d, p in enumerate(pls):
+        if isinstance(p, Shard) and p.dim == 1:
+            idx = idx * dmesh.size(d) + dmesh.get_local_rank(d)
+    s_loc = block.shape[1]
+    r = r - idx * s_loc
+    inside = (r >= 0) & (r < s_loc)
+    r = r.clamp(0, s_loc - 1)
+    local_slots = torch.arange(block.shape[0], device=block.device)
+    block[local_slots, r] = torch.where(inside[:, None, None], n,
+                                        block[local_slots, r])
+
+
 def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
                device: torch.device | str | None = None):
     device = resolve_device(device, "init_cache")
@@ -377,8 +446,8 @@ def decode(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
         k_cache, v_cache = cache["k"][i], cache["v"][i]
-        k_cache[slots, rows] = k[:, 0]
-        v_cache[slots, rows] = v[:, 0]
+        write_rows(k_cache, slots, rows, k[:, 0])
+        write_rows(v_cache, slots, rows, v[:, 0])
         attn = _attention(q, k_cache, v_cache, cfg, causal=True,
                           q_positions=positions, kv_positions=kv_pos)
         x = x + attn.reshape(b, 1, -1) @ lp["wo"]

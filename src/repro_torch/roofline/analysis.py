@@ -170,7 +170,10 @@ def analyze(rec: dict, hw: Hardware = H100_SXM) -> dict:
     # roofline fraction: useful-FLOPs time / bound time (an achievable-MFU
     # style score; 1.0 = useful math fully hides behind the binding term)
     frac = (mf / peak) / max(bound, 1e-12)
-    peak_gib = (rec["arg_bytes"] + rec["temp_bytes"] + rec["out_bytes"]) / 2**30
+    # results that are arguments written in place count once (dry-run
+    # records give their bytes; a record without them has none)
+    peak_gib = (rec["arg_bytes"] + rec["temp_bytes"] + rec["out_bytes"]
+                - rec.get("alias_bytes", 0)) / 2**30
     recs = {
         "compute": "compute-bound: raise MFU via larger tiles / fused "
                    "attention; remat ratio shows recompute overhead",

@@ -27,7 +27,10 @@ the catalog over one axis of a device mesh (`launch/mesh.py`): shard i owns
 the reference's contiguous `P(axis, None)` slice, runs the unsharded scan
 on its own device, and one k-wide gather to the mesh's first position
 merges the shards' top-k, the lower shard first among equal scores (the
-reference's `all_gather` then `lax.top_k`).
+reference's `all_gather` then `lax.top_k`). Given DTensors (the dry run's
+SPMD step, `launch/cells.py`), they run as one rank of the mesh: the scan
+over this rank's block of the catalog, then an all-gather of the k-wide
+results over `axis` and the same merge.
 """
 from __future__ import annotations
 
@@ -145,6 +148,27 @@ def _merge_shards(mesh, parts: list, k: int):
     return top_s, torch.gather(i, -1, pos)
 
 
+def _dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _spmd(scan, state, catalog: tuple, axis: str, k: int):
+    """One rank's part of a sharded retrieval over DTensors: `scan(state,
+    *blocks, shard)` over this rank's blocks of `catalog` (its state rows),
+    then the shards' (scores, ids) all-gathered over `axis` and merged."""
+    from torch.distributed._functional_collectives import all_gather_tensor
+    dmesh = catalog[0].device_mesh
+    dim = dmesh.mesh_dim_names.index(axis)
+    local = state.to_local() if _dtensor(state) else state
+    scores, ids, *rest = scan(local, *(c.to_local() for c in catalog),
+                              dmesh.get_local_rank(dim))
+    s = all_gather_tensor(scores, 1, (dmesh, dim))
+    i = all_gather_tensor(ids, 1, (dmesh, dim))
+    top_s, pos = _stable_topk(s, k)
+    return (top_s, torch.gather(i, -1, pos), *rest)
+
+
 def streak_topk_sharded(state, items_sorted, item_order, bounds,
                         mesh, axis: str = "model", k: int = 100,
                         block: int = 65536):
@@ -179,6 +203,14 @@ def blocked_topk_sharded(state, items, mesh, axis: str = "model",
     `block`, then one k-wide merge. Returns (scores, ids) on the mesh's
     first position."""
     n = items.shape[0]
+    if _dtensor(items):
+        per = n // mesh.shape[axis]
+
+        def scan(st, it, shard):
+            scores, ids = blocked_topk(st, it, k=k,
+                                       block=min(block, it.shape[0]))
+            return scores, ids + shard * per
+        return _spmd(scan, state, (items,), axis, k)
     parts = []
     for i, it in enumerate(shard_blocks(items, mesh, axis)):
         scores, ids = blocked_topk(state.to(it.device), it, k=k,

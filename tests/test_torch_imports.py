@@ -42,9 +42,26 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import repro_torch.models.equivariant, repro_torch.data.graphs\n"
         "import repro_torch.launch.mesh, repro_torch.dist.elastic\n"
         "import repro_torch.roofline.analysis, repro_torch.roofline.op_count\n"
+        "import repro_torch.launch.cells, repro_torch.launch.dryrun\n"
+        "import repro_torch.dist.partitioning\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin"})
+
+
+def test_the_dry_run_starts_no_process_group_at_import():
+    """`launch.dryrun` sets its fake process group up inside a count and
+    tears it down after; importing it (or the cells) starts none."""
+    code = (
+        "import torch.distributed as dist\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.cells\n"
+        "assert not dist.is_initialized()\n"
+        "from repro_torch.launch import dryrun\n"
+        "rec = dryrun.run_cell('gcn-cora', 'molecule', False, verbose=False,"
+        " art=None)\n"
+        "assert rec['n_devices'] == 256 and not dist.is_initialized()\n")
     subprocess.run([sys.executable, "-c", code], check=True,
                    env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin"})
 
