@@ -1749,54 +1749,50 @@ def busy_union_us(spans) -> float:
     return busy_us
 
 
-@contextlib.contextmanager
-def timed_layers():
-    """Wall-clock timers on the executor's layer entry points, for the
-    duration of the block; yields {layer: seconds}. Phase 3 is reported
-    without the refinement it calls."""
-    from repro_torch.core import aps, executor, shard
-    totals = collections.defaultdict(float)
-    targets = [(executor, "plan_query", "plan"),
-               (executor.QueryCursor, "_materialize", "driver blocks"),
-               (shard, "sip_select", "phase 1-2 (SIP)"),
-               (aps, "choose", "APS"),
-               (executor.StreakEngine, "_driven_nplan", "driven retrieval"),
-               (executor.StreakEngine, "_driven_splan", "driven retrieval"),
-               (executor.QueryCursor, "_phase3", "phase 3"),
-               (executor.StreakEngine, "_emit_pairs", "refine + top-k")]
+# chip_smoke's layer labels, by the program's spans (`repro_torch.tracing`)
+# whose self times each sums
+LAYER_SPANS = {"plan": ("exec.plan",),
+               "driver blocks": ("exec.materialize",),
+               "phase 1-2 (SIP)": ("sip.select", "sip.descend",
+                                   "sip.node_select"),
+               "APS": ("driven.aps",),
+               "driven retrieval": ("driven.nplan", "driven.splan"),
+               "phase 3": ("phase3.prepare", "phase3.join", "phase3.flush"),
+               "refine + top-k": ("refine.emit", "refine.exact")}
 
-    def timed(fn, layer):
-        def wrapper(*args, **kwargs):
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            totals[layer] += time.perf_counter() - t0
-            return out
-        return wrapper
 
-    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in targets]
-    for owner, attr, layer in targets:
-        setattr(owner, attr, timed(getattr(owner, attr), layer))
-    yield totals
-    for owner, attr, fn in saved:
-        setattr(owner, attr, fn)
-    totals["phase 3"] -= totals["refine + top-k"]
+def layer_ms(spans: dict, names: list) -> dict:
+    """{layer label: host ms} of drained program spans: the self times of
+    each label's spans (so no nested layer counts twice)."""
+    from repro_torch import tracing
+    by_name = np.bincount(spans["name"], weights=tracing.self_ns(spans),
+                          minlength=len(names)) / 1e6
+    return {label: float(sum(by_name[names.index(n)] for n in parts
+                             if n in names))
+            for label, parts in LAYER_SPANS.items()}
 
 
 def trace_queries(rt, name, ds, n_q, join, policy=SLICE_POLICY) -> dict:
     """One traced pass of a query set on the card: host ms per executor
-    layer, device busy ms (the union of the kernel and copy intervals of a
-    torch.profiler trace) and the device's idle share of the wall time."""
+    layer (the self times of the program's spans), device busy ms (the
+    union of the kernel and copy intervals of a torch.profiler trace) and
+    the device's idle share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
     cfg = rt.ExecConfig(policy=rt.BackendPolicy(join=join, **policy))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof, \
-            timed_layers() as layers:
+    tracing.drain()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tracing.enable()
         t0 = time.perf_counter()
         eng = rt.StreakEngine(ds.store, cfg, device="cuda")
         for qi in range(n_q):
             eng.execute(ds.queries[qi])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        tracing.disable()
+    host = layer_ms(*tracing.drain())
     spans = device_spans(prof)
     busy_us = busy_union_us(spans)
     by_kind: dict = collections.defaultdict(float)
@@ -1804,7 +1800,6 @@ def trace_queries(rt, name, ds, n_q, join, policy=SLICE_POLICY) -> dict:
         kind = next((k for k in REPLACES if k in ev_name),
                     "memcpy" if "memcpy" in ev_name.lower() else "other")
         by_kind[kind] += (stop - start) / 1e3
-    host = {k: v * 1e3 for k, v in layers.items()}
     host["other"] = wall_ms - sum(host.values())
     return dict(dataset=name, join=join, probe=policy["probe"],
                 rank=policy["rank"], queries=n_q, wall_ms=wall_ms,

@@ -20,6 +20,8 @@ import dataclasses
 
 import numpy as np
 
+from .. import tracing
+
 
 @dataclasses.dataclass(frozen=True)
 class CostParams:
@@ -51,6 +53,7 @@ def estimate_c_r(tree, v_star: np.ndarray, driven_cs: np.ndarray,
     return total
 
 
+@tracing.spanned("driven.aps")
 def choose(tree, v_star, driven_cs, driven_scan, key_needed: float,
            driver_block_rows: int,
            params: CostParams = CostParams(),

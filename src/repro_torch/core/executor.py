@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from . import aps, node_select, shard as shard_mod, spatial_join
+from .. import tracing
 from ..device import resolve_device
 from .fault import QueryDeadline
 from .join import Relation, filter_in_ranges, join, scan_pattern
@@ -24,6 +25,18 @@ from .query import Query, Var
 from .spatial_join import JoinStats
 from .store import DirectedNumericScan, QuadStore
 from .topk import TopK
+
+
+_SHARE_COUNTERS = {kind: (f"share.hit:{kind}", f"share.miss:{kind}")
+                   for kind in ("mat", "splan", "nblk", "mbr", "refine")}
+
+
+def _shared(sc: dict, key: tuple, kind: str) -> bool:
+    """Whether the share cache `sc` holds `key`: one lookup, counted in
+    `tracing.COUNTS` as a hit or a miss of `kind`."""
+    hit = key in sc
+    tracing.count(_SHARE_COUNTERS[kind][0 if hit else 1])
+    return hit
 
 
 @dataclasses.dataclass
@@ -201,7 +214,8 @@ class StreakEngine:
                     driver: SidePlan, driven: SidePlan, plan: QueryPlan,
                     topk: TopK, stats: ExecStats,
                     ds: np.ndarray | None = None,
-                    vs: np.ndarray | None = None) -> None:
+                    vs: np.ndarray | None = None,
+                    rid: int | None = None) -> None:
         """θ-aware refinement: order pairs by key bound, refine in chunks.
 
         Candidate pairs are sorted by descending score-key bound
@@ -211,65 +225,69 @@ class StreakEngine:
         top-k *between* chunks — so once the best remaining bound cannot
         beat θ, the whole tail of candidate pairs is skipped without ever
         touching its geometry (the paper's early termination applied to the
-        refinement stage itself).
+        refinement stage itself). One `refine.emit` span, on behalf of
+        request `rid` (None: the open span's).
         """
-        if len(pi) == 0:
-            return
-        store = self.store
-        if ds is None:
-            ds = self._entity_key_bound(drv_rel, uniq_ents, driver, plan)
-        if vs is None:
-            vs = self._entity_key_bound(dvn_rel, dvn_ents, driven, plan)
-        bounds = ds[pi] + vs[pj]
-        order = np.argsort(-bounds, kind="stable")
-        pi, pj, bounds = pi[order], pj[order], bounds[order]
-        # resolve pool rows once per unique entity, gather per pair
-        rows_a = store.geom_rows(uniq_ents)[pi]
-        rows_b = store.geom_rows(dvn_ents)[pj]
-        chunk = max(int(self.config.refine_chunk), 1)
-        for start in range(0, len(pi), chunk):
-            # bounds are sorted: bounds[start] caps every remaining pair
-            if topk.full and bounds[start] <= topk.theta:
-                stats.join.refine_skipped += len(pi) - start
-                break
-            end = min(start + chunk, len(pi))
-            # exact-geometry chunk verdicts are pure in (pool rows,
-            # distance, metric); same-shape tenants chunk identically
-            # (same pairs, same bound order), so serve mode shares them
-            sc = self.share_cache
-            rkey = None
-            if sc is not None:
-                rkey = ("refine", plan.metric, float(plan.dist_world),
-                        rows_a[start:end].tobytes(),
-                        rows_b[start:end].tobytes())
-            if rkey is not None and rkey in sc:
-                keep = sc[rkey]
-            else:
-                keep = spatial_join.refine(
-                    pi[start:end], pj[start:end], store.geom_pool,
-                    rows_a[start:end], rows_b[start:end],
-                    plan.dist_world, plan.metric, stats.join,
-                    device=self.device)
-                if rkey is not None:
-                    sc[rkey] = keep
-            ci, cj = pi[start:end][keep], pj[start:end][keep]
-            if len(ci) == 0:
-                continue
-            pair_rel = Relation({driver.entity_var: uniq_ents[ci],
-                                 driven.entity_var: dvn_ents[cj]})
-            out = join(drv_rel, pair_rel, impl=plan.join_impl,
-                       backend=plan.rank_backend, device=self.device)
-            out = join(out, dvn_rel, impl=plan.join_impl,
-                       backend=plan.rank_backend, device=self.device)
-            if out.n == 0:
-                continue
-            keys = self._score_key(out, plan)
-            valid = ~np.isnan(keys)
-            out, keys = out.take(np.flatnonzero(valid)), keys[valid]
-            stats.results_considered += out.n
-            topk.push(keys, out)
+        with tracing.span("refine.emit", rid):
+            if len(pi) == 0:
+                return
+            store = self.store
+            if ds is None:
+                ds = self._entity_key_bound(drv_rel, uniq_ents, driver, plan)
+            if vs is None:
+                vs = self._entity_key_bound(dvn_rel, dvn_ents, driven, plan)
+            bounds = ds[pi] + vs[pj]
+            order = np.argsort(-bounds, kind="stable")
+            pi, pj, bounds = pi[order], pj[order], bounds[order]
+            # resolve pool rows once per unique entity, gather per pair
+            rows_a = store.geom_rows(uniq_ents)[pi]
+            rows_b = store.geom_rows(dvn_ents)[pj]
+            chunk = max(int(self.config.refine_chunk), 1)
+            for start in range(0, len(pi), chunk):
+                # bounds are sorted: bounds[start] caps every remaining pair
+                if topk.full and bounds[start] <= topk.theta:
+                    stats.join.refine_skipped += len(pi) - start
+                    break
+                end = min(start + chunk, len(pi))
+                # exact-geometry chunk verdicts are pure in (pool rows,
+                # distance, metric); same-shape tenants chunk identically
+                # (same pairs, same bound order), so serve mode shares them
+                sc = self.share_cache
+                rkey = None
+                if sc is not None:
+                    rkey = ("refine", plan.metric, float(plan.dist_world),
+                            rows_a[start:end].tobytes(),
+                            rows_b[start:end].tobytes())
+                if rkey is not None and _shared(sc, rkey, "refine"):
+                    keep = sc[rkey]
+                else:
+                    with tracing.span("refine.exact"):
+                        keep = spatial_join.refine(
+                            pi[start:end], pj[start:end], store.geom_pool,
+                            rows_a[start:end], rows_b[start:end],
+                            plan.dist_world, plan.metric, stats.join,
+                            device=self.device)
+                    if rkey is not None:
+                        sc[rkey] = keep
+                ci, cj = pi[start:end][keep], pj[start:end][keep]
+                if len(ci) == 0:
+                    continue
+                pair_rel = Relation({driver.entity_var: uniq_ents[ci],
+                                     driven.entity_var: dvn_ents[cj]})
+                out = join(drv_rel, pair_rel, impl=plan.join_impl,
+                           backend=plan.rank_backend, device=self.device)
+                out = join(out, dvn_rel, impl=plan.join_impl,
+                           backend=plan.rank_backend, device=self.device)
+                if out.n == 0:
+                    continue
+                keys = self._score_key(out, plan)
+                valid = ~np.isnan(keys)
+                out, keys = out.take(np.flatnonzero(valid)), keys[valid]
+                stats.results_considered += out.n
+                topk.push(keys, out)
 
     # ------------------------------------------------------------------
+    @tracing.spanned("exec.execute")
     def execute(self, q: Query, deadline: QueryDeadline | None = None
                 ) -> tuple[np.ndarray, Relation, ExecStats]:
         cur = self.cursor(q, deadline=deadline)
@@ -301,6 +319,7 @@ class StreakEngine:
             self._scan_cache[key] = rel
         return self._scan_cache[key]
 
+    @tracing.spanned("driven.splan")
     def _driven_splan(self, driven: SidePlan, plan: QueryPlan, intervals,
                       explicit, stats: ExecStats) -> Relation:
         """S-Plan: spatial join pushed down -- one full scan of the driven
@@ -312,7 +331,7 @@ class StreakEngine:
             if sc is not None:
                 key = ("splan", self._side_sig(driven, plan),
                        intervals.tobytes(), explicit.tobytes())
-            if key is not None and key in sc:
+            if key is not None and _shared(sc, key, "splan"):
                 rel = sc[key]
             else:
                 rel = filter_in_ranges(rel, driven.entity_var, intervals,
@@ -324,6 +343,7 @@ class StreakEngine:
         stats.driven_rows_after_sip += rel.n
         return rel
 
+    @tracing.spanned("driven.nplan")
     def _driven_nplan(self, driven: SidePlan, plan: QueryPlan, intervals,
                       explicit, key_needed: float, stats: ExecStats) -> Relation:
         """N-Plan: numeric predicate pushed down -- block-wise driven scan in
@@ -343,7 +363,7 @@ class StreakEngine:
             if sc is not None:
                 key = ("nblk", sig, b2, intervals.tobytes(),
                        explicit.tobytes())
-            if key is not None and key in sc:
+            if key is not None and _shared(sc, key, "nblk"):
                 scanned, joined = sc[key]
                 stats.driven_rows_scanned += scanned
             else:
@@ -398,6 +418,7 @@ class QueryCursor:
     Kernels run on the engine's device; everything else is host numpy.
     """
 
+    @tracing.spanned("exec.cursor")
     def __init__(self, engine: StreakEngine, q: Query,
                  deadline: QueryDeadline | None = None):
         self.engine = engine
@@ -405,8 +426,9 @@ class QueryCursor:
         cfg = engine.config
         store = engine.store
         self.tree = store.tree
-        self.plan = plan_query(store, q, force_driver=cfg.force_driver,
-                               policy=cfg.policy)
+        with tracing.span("exec.plan"):
+            self.plan = plan_query(store, q, force_driver=cfg.force_driver,
+                                   policy=cfg.policy)
         self.stats = ExecStats()
         self.topk = TopK(k=self.plan.k, descending=True)  # key space
         self.driver, self.driven = self.plan.driver, self.plan.driven
@@ -498,12 +520,13 @@ class QueryCursor:
             return False
         return True
 
+    @tracing.spanned("exec.materialize")
     def _materialize(self, w: int) -> tuple:
         """(drv_rel, uniq_ents, boxes) for driver block `w`."""
         eng, plan, driver = self.engine, self.plan, self.driver
         sc = eng.share_cache
         key = ("mat", self._drv_sig, w) if sc is not None else None
-        if key is not None and key in sc:
+        if key is not None and _shared(sc, key, "mat"):
             return sc[key]
         if driver.scan is not None:
             block_rel, _ = eng._block_relation(driver, w)
@@ -576,7 +599,8 @@ class QueryCursor:
         for si, sh in enumerate(self.shards):
             if cfg.use_sip and len(v_star[si]) == 0:
                 continue
-            intervals, explicit = sh.filter_material(v_star[si])
+            with tracing.span("exec.filter_material"):
+                intervals, explicit = sh.filter_material(v_star[si])
 
             # ---- APS plan decision ----------------------------------
             # θ re-read per shard: the cross-shard pruning exchange
@@ -610,61 +634,68 @@ class QueryCursor:
         cfg, plan = eng.config, self.plan
         driver, driven = self.driver, self.driven
         topk, stats = self.topk, self.stats
-        dvn_ents = np.unique(dvn_rel[driven.entity_var])
-        dvn_boxes = eng.store.spatial_box_of(dvn_ents)
-        ok = ~np.isnan(dvn_boxes[:, 0])
-        dvn_ents, dvn_boxes = dvn_ents[ok], dvn_boxes[ok]
-        if len(dvn_ents) == 0:
-            return
-        if cfg.mbr_join_fn is None and plan.join_backend == "fused":
-            # streaming fused path: driven columns arrive in score-key
-            # order, each batch refined+scored+pushed before the next so
-            # the θ the kernel prunes with tightens inside the block
-            ds = eng._entity_key_bound(drv_rel, uniq_ents, driver, plan)
-            vs = eng._entity_key_bound(dvn_rel, dvn_ents, driven, plan)
-
-            def emit(pi, pj):
-                eng._emit_pairs(pi, pj, uniq_ents, dvn_ents, drv_rel,
-                                dvn_rel, driver, driven, plan, topk,
-                                stats, ds=ds, vs=vs)
-
-            if batcher is not None:
-                batcher.add(spatial_join.StreamEntry(
-                    boxes, dvn_boxes, ds, vs, plan.dist_norm, plan.k,
-                    theta_fn=lambda: topk.theta, emit=emit,
-                    stats=stats.join))
+        fused = cfg.mbr_join_fn is None and plan.join_backend == "fused"
+        with tracing.span("phase3.prepare"):
+            dvn_ents = np.unique(dvn_rel[driven.entity_var])
+            dvn_boxes = eng.store.spatial_box_of(dvn_ents)
+            ok = ~np.isnan(dvn_boxes[:, 0])
+            dvn_ents, dvn_boxes = dvn_ents[ok], dvn_boxes[ok]
+            if len(dvn_ents) == 0:
                 return
-            for pi, pj in spatial_join.fused_stream_join(
-                    boxes, dvn_boxes, ds, vs, plan.dist_norm, k=plan.k,
-                    theta_fn=lambda: topk.theta,
-                    batch_cols=cfg.fused_batch_cols, stats=stats.join,
-                    tuner=eng.kcap_tuner, device=eng.device):
-                emit(pi, pj)
-        else:
-            # the MBR pair set is pure in (boxes, driven boxes, distance),
-            # so same-shape tenants share it too; a cache hit skips the
-            # per-launch JoinStats counters (they count work done, and a
-            # hit does none)
-            # (an overriding join is never keyed: it need not be pure)
-            sc = eng.share_cache
-            key = None
-            if sc is not None and cfg.mbr_join_fn is None:
-                key = ("mbr", plan.join_backend, boxes.shape,
-                       dvn_boxes.shape, boxes.tobytes(),
-                       dvn_boxes.tobytes(), float(plan.dist_norm))
-            if key is not None and key in sc:
-                pi, pj = sc[key]
-            elif cfg.mbr_join_fn is not None:
-                pi, pj = cfg.mbr_join_fn(boxes, dvn_boxes, plan.dist_norm,
-                                         plan.join_backend, stats.join)
+            if fused:
+                ds = eng._entity_key_bound(drv_rel, uniq_ents, driver, plan)
+                vs = eng._entity_key_bound(dvn_rel, dvn_ents, driven, plan)
+        with tracing.span("phase3.join"):
+            if fused:
+                # streaming fused path: driven columns arrive in score-key
+                # order, each batch refined+scored+pushed before the next so
+                # the θ the kernel prunes with tightens inside the block; the
+                # pairs are refined on behalf of this query also when a shared
+                # launch emits them
+                rid = tracing.current_rid()
+
+                def emit(pi, pj):
+                    eng._emit_pairs(pi, pj, uniq_ents, dvn_ents, drv_rel,
+                                    dvn_rel, driver, driven, plan, topk,
+                                    stats, ds=ds, vs=vs, rid=rid)
+
+                if batcher is not None:
+                    batcher.add(spatial_join.StreamEntry(
+                        boxes, dvn_boxes, ds, vs, plan.dist_norm, plan.k,
+                        theta_fn=lambda: topk.theta, emit=emit,
+                        stats=stats.join))
+                    return
+                for pi, pj in spatial_join.fused_stream_join(
+                        boxes, dvn_boxes, ds, vs, plan.dist_norm, k=plan.k,
+                        theta_fn=lambda: topk.theta,
+                        batch_cols=cfg.fused_batch_cols, stats=stats.join,
+                        tuner=eng.kcap_tuner, device=eng.device):
+                    emit(pi, pj)
             else:
-                pi, pj = spatial_join.mbr_distance_join(
-                    boxes, dvn_boxes, plan.dist_norm, plan.join_backend,
-                    stats.join, device=eng.device)
-                if key is not None:
-                    sc[key] = (pi, pj)
-            eng._emit_pairs(pi, pj, uniq_ents, dvn_ents, drv_rel,
-                            dvn_rel, driver, driven, plan, topk, stats)
+                # the MBR pair set is pure in (boxes, driven boxes, distance),
+                # so same-shape tenants share it too; a cache hit skips the
+                # per-launch JoinStats counters (they count work done, and a
+                # hit does none)
+                # (an overriding join is never keyed: it need not be pure)
+                sc = eng.share_cache
+                key = None
+                if sc is not None and cfg.mbr_join_fn is None:
+                    key = ("mbr", plan.join_backend, boxes.shape,
+                           dvn_boxes.shape, boxes.tobytes(),
+                           dvn_boxes.tobytes(), float(plan.dist_norm))
+                if key is not None and _shared(sc, key, "mbr"):
+                    pi, pj = sc[key]
+                elif cfg.mbr_join_fn is not None:
+                    pi, pj = cfg.mbr_join_fn(boxes, dvn_boxes, plan.dist_norm,
+                                             plan.join_backend, stats.join)
+                else:
+                    pi, pj = spatial_join.mbr_distance_join(
+                        boxes, dvn_boxes, plan.dist_norm, plan.join_backend,
+                        stats.join, device=eng.device)
+                    if key is not None:
+                        sc[key] = (pi, pj)
+                eng._emit_pairs(pi, pj, uniq_ents, dvn_ents, drv_rel,
+                                dvn_rel, driver, driven, plan, topk, stats)
 
     # -- serial mode ----------------------------------------------------
     def step(self) -> None:

@@ -20,6 +20,7 @@ import dataclasses
 
 import numpy as np
 
+from .. import tracing
 from .squadtree import SQuadTree
 
 EMPTY, SELF, CHILDREN = 0, 1, 2
@@ -66,6 +67,7 @@ def node_costs_base(tree: SQuadTree, driven_cs: np.ndarray,
     return base, xi
 
 
+@tracing.spanned("sip.node_select")
 def select_batch(tree: SQuadTree, in_v: np.ndarray, driven_cs: np.ndarray,
                  params: SelectParams = SelectParams(),
                  card_all: np.ndarray | None = None) -> list[np.ndarray]:

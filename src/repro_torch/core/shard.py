@@ -30,6 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import tracing
 from ..kernels import ops
 from ..launch.mesh import (Mesh, NamedSharding, PartitionSpec, ShardedTensor,
                            make_shard_mesh)
@@ -196,7 +197,7 @@ def stacked_node_planes(shards: ShardSet, device: torch.device,
             host[:, si, :sh.tree.n_nodes] = ops.f64_sort_keys(
                 np.ascontiguousarray(sh.tree.node_mbr.T))
         planes = shards.planes[device, lo, hi] = \
-            torch.from_numpy(host).to(device)
+            ops.upload(host, device, "tree_descend")
     return planes.transpose(0, 1)
 
 
@@ -301,11 +302,12 @@ def candidate_nodes_sharded(shards: list[TreeShard], box_sets, dist_norm,
         shards = ShardSet(shards)
     masks = descend_over_mesh(
         placed_node_planes(shards, descent_mesh(shards, device)),
-        torch.from_numpy(cs_stack).to(device),
-        torch.from_numpy(keys).to(device)).cpu().numpy()
+        ops.upload(cs_stack, device, "tree_descend"),
+        ops.upload(keys, device, "tree_descend")).cpu().numpy()
     return [masks[si, :, :sizes[si]] for si in range(len(shards))]
 
 
+@tracing.spanned("sip.select")
 def sip_select(shards: list[TreeShard], box_sets, dist_norm,
                driven_cs: np.ndarray, prepared, probe_backend,
                descend_backend, cs_paths, params, card_all: list,

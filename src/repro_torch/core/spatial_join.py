@@ -139,11 +139,12 @@ def mbr_distance_join(driver_boxes: np.ndarray, driven_boxes: np.ndarray,
 
 
 def _f32_on(x: np.ndarray, device: torch.device | str | None) -> torch.Tensor:
-    """Host array -> contiguous f32 tensor on the kernels' device."""
+    """Host array -> contiguous f32 tensor on the kernels' device, for
+    the fused join."""
     if device is None:
         raise ValueError("a kernel backend needs a device")
-    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)) \
-        .to(device)
+    return ops.upload(np.ascontiguousarray(x, dtype=np.float32), device,
+                      "fused_topk_join")
 
 
 def _sanitize_keys(keys: np.ndarray, n: int) -> np.ndarray:
@@ -198,7 +199,7 @@ def _batch_pairs(idx: np.ndarray, counts: np.ndarray, kcap: int,
         if stats is not None:
             stats.overflow_rows += len(over)
             stats.overflow_batches += 1
-        over_t = torch.from_numpy(over + row0).to(drv_t.device)
+        over_t = ops.upload(over + row0, drv_t.device, "distance_join")
         oi, oj = ops.distance_join_pairs(drv_t.index_select(0, over_t),
                                          cols_t, dist32)
         keep = ds[over][oi] + vs_sorted[start + oj] > theta32
@@ -251,8 +252,8 @@ def fused_stream_join(driver_boxes: np.ndarray, driven_boxes: np.ndarray,
     vs_sorted = vs[order]
     drv_t = _f32_on(driver_boxes, device)
     dvn_t = _f32_on(driven_boxes[order], device)
-    ds_t = torch.from_numpy(ds).to(device)
-    vs_t = torch.from_numpy(vs_sorted).to(device)
+    ds_t = ops.upload(ds, device, "fused_topk_join")
+    vs_t = ops.upload(vs_sorted, device, "fused_topk_join")
     dist32 = np.float32(dist_norm)
     dist_t = torch.full((m,), float(dist32), dtype=torch.float32,
                         device=device)
@@ -400,8 +401,8 @@ def fused_stream_join_multi(entries: list[StreamEntry],
             col_off += ncols
         try:
             drv_t, cols_t, ds_t, ck_t, dist_t, th_t, rq_t, cq_t = (
-                torch.from_numpy(np.concatenate(x)).to(device) for x in (
-                    drv_l, col_l, ds_l, ck_l, dist_l, th_l, rq_l, cq_l))
+                ops.upload(np.concatenate(x), device, "fused_topk_join")
+                for x in (drv_l, col_l, ds_l, ck_l, dist_l, th_l, rq_l, cq_l))
             _, idx_t, counts_t = ops.fused_topk_join(
                 drv_t, cols_t, ds_t, ck_t, dist_t, th_t, k=kcap,
                 row_qid=rq_t, col_qid=cq_t)
@@ -455,7 +456,7 @@ def fused_topk_pairs(driver_boxes: np.ndarray, driven_boxes: np.ndarray,
     kcap = max(int(k), 1)
     theta32 = _theta32_lower(float(theta))
     drv_t = _f32_on(driver_boxes, device)
-    ds_t = torch.from_numpy(ds).to(device)
+    ds_t = ops.upload(ds, device, "fused_topk_join")
     dist_t = torch.full((m,), float(np.float32(dist_norm)),
                         dtype=torch.float32, device=device)
     theta_t = torch.full((m,), float(theta32), dtype=torch.float32,
@@ -464,7 +465,8 @@ def fused_topk_pairs(driver_boxes: np.ndarray, driven_boxes: np.ndarray,
     for start in range(0, n, batch_cols):
         scores, idx, _ = ops.fused_topk_join(
             drv_t, _f32_on(driven_boxes[start:start + batch_cols], device),
-            ds_t, torch.from_numpy(vs[start:start + batch_cols]).to(device),
+            ds_t, ops.upload(vs[start:start + batch_cols], device,
+                             "fused_topk_join"),
             dist_t, theta_t, k=kcap)
         idx = idx.cpu().numpy().astype(np.int64)
         parts.append((scores.cpu().numpy(),
@@ -564,7 +566,7 @@ def pool_min_dist(pool, rows_a: np.ndarray, rows_b: np.ndarray,
             va[d], vb[d] = p[ia], p[ib]
     # every bucket in one upload, one launch and one copy back
     core = ops.bucketed_min_core_group(
-        torch.from_numpy(buf).to(device), group).cpu().numpy()
+        ops.upload(buf, device, "bucketed_min_core"), group).cpu().numpy()
     for g, sel in enumerate(sels):
         np.minimum.at(out, pair_idx[sel], core[group.rows(g)])
     return core_to_dist(out, metric)

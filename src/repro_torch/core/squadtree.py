@@ -20,6 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import tracing
 from ..kernels import ops
 from . import geometry, ids, morton
 from .charsets import BloomBank, NodeCSStats, PreparedKeys, build_node_cs_stats
@@ -322,6 +323,7 @@ class SQuadTree:
     # ------------------------------------------------------------------
     # Phase 1: candidate-node search (paper §3.2.1)
     # ------------------------------------------------------------------
+    @tracing.spanned("sip.descend")
     def candidate_nodes(self, driver_boxes, dist_norm: float,
                         driven_cs: np.ndarray, which: str = "self",
                         prepared: PreparedKeys | None = None,
@@ -525,9 +527,9 @@ class SQuadTree:
         cache = self.__dict__.setdefault("_node_mbr_keys", {})
         keys = cache.get(device)
         if keys is None:
-            keys = torch.from_numpy(
-                ops.f64_sort_keys(np.ascontiguousarray(self.node_mbr.T))
-            ).to(device)
+            keys = ops.upload(
+                ops.f64_sort_keys(np.ascontiguousarray(self.node_mbr.T)),
+                device, "tree_descend")
             cache[device] = keys
         return keys
 
@@ -550,8 +552,9 @@ class SQuadTree:
             keys[pad] = ops.DESCEND_PAD_BOX
         out = ops.tree_descend(
             self._node_key_planes(device),
-            torch.from_numpy(np.ascontiguousarray(cs_path, dtype=bool)).to(device),
-            torch.from_numpy(keys).to(device))
+            ops.upload(np.ascontiguousarray(cs_path, dtype=bool), device,
+                       "tree_descend"),
+            ops.upload(keys, device, "tree_descend"))
         return out.cpu().numpy()
 
     # ------------------------------------------------------------------

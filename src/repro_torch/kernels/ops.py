@@ -26,6 +26,12 @@ staged in pinned memory: the rank pass of the relational merge join
 the candidate pairs of a distance join (`distance_join_pairs`) and the
 per-filter Bloom probe (`bloom_probe_any`, against a bank kept on the device
 by `device_bloom_bank`).
+
+The bytes that cross from host to device are counted in `tracing.COUNTS`:
+under "h2d.copy:<op>" those copied (the round trips' staged words, the
+resident tables and banks, and every host array that `upload` sends), under
+"h2d.mapped:<op>" those a kernel reads in place from pinned host memory
+(the rank pass's probes against a resident table).
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ import threading
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core import fault
 from . import _build, ref
 
@@ -51,6 +58,17 @@ def reset_launch_counts() -> None:
             LAUNCHES[name] = 0
         else:
             del LAUNCHES[name]
+
+
+def upload(x: np.ndarray, device: torch.device | str, op: str
+           ) -> torch.Tensor:
+    """`torch.from_numpy(x).to(device)`: the host array `x` on `device`
+    for a call of `op`, its bytes counted under "h2d.copy:<op>" when they
+    cross to a CUDA device."""
+    t = torch.from_numpy(x).to(device)
+    if t.device.type == "cuda":
+        tracing.count("h2d.copy:" + op, x.nbytes)
+    return t
 
 
 def _fallback(op: str, backend: str, fn):
@@ -261,6 +279,8 @@ def _pairs_round_trip(driver, driven, staged, dist32: np.float32,
                 raise RuntimeError(f"distance_join_pairs: CUDA round trip "
                                    f"failed with error {err}")
             LAUNCHES["distance_join"] += 1
+            if staged is not None:     # the boxes went up with the call
+                tracing.count("h2d.copy:distance_join", (m + n) * 16)
             count = int(st.host_out_np[0])
             if count <= cap:
                 break
@@ -646,8 +666,11 @@ def device_bloom_bank(bits: np.ndarray, device: torch.device | str
     (core/charsets.BloomBank). Counted in `bloom_bank_uploads`."""
     global bloom_bank_uploads
     bloom_bank_uploads += 1
-    return torch.from_numpy(np.ascontiguousarray(bits).view(np.int32)
-                            ).to(device, copy=True)
+    t = torch.from_numpy(np.ascontiguousarray(bits).view(np.int32)
+                         ).to(device, copy=True)
+    if t.device.type == "cuda":
+        tracing.count("h2d.copy:bloom_bank", t.nbytes)
+    return t
 
 
 def bloom_probe_any(bits: torch.Tensor, filter_idx: np.ndarray,
@@ -705,6 +728,7 @@ def _any_round_trip(bits: torch.Tensor, fi: np.ndarray, keys: np.ndarray,
             raise RuntimeError(f"bloom_probe_any: CUDA round trip failed "
                                f"with error {err}")
         LAUNCHES["bloom_probe"] += 1
+        tracing.count("h2d.copy:bloom_probe", (n_f + n_c) * 8)
         return st.host_out_np.view(np.uint8)[:n_f].astype(bool)
 
 
@@ -787,8 +811,11 @@ def device_table(table: np.ndarray, device: torch.device | str
     `rank_table_uploads`."""
     global rank_table_uploads
     rank_table_uploads += 1
-    return torch.from_numpy(np.ascontiguousarray(table, dtype=np.int64)
-                            ).to(device, copy=True)
+    t = torch.from_numpy(np.ascontiguousarray(table, dtype=np.int64)
+                         ).to(device, copy=True)
+    if t.device.type == "cuda":
+        tracing.count("h2d.copy:rank_table", t.nbytes)
+    return t
 
 
 class _Staging:
@@ -871,6 +898,10 @@ def _cuda_round_trip(table: np.ndarray, probes: np.ndarray, side: str,
             raise RuntimeError(f"merge_join_ranks: CUDA round trip failed "
                                f"with error {err}")
         LAUNCHES["merge_join_ranks"] += 1
+        if up:      # the staged table and probes went up in one copy
+            tracing.count("h2d.copy:merge_join_ranks", (n + m) * 8)
+        else:       # the kernel read the staged probes in place
+            tracing.count("h2d.mapped:merge_join_ranks", m * 8)
         return st.host_out_np[:rows * m].reshape(rows, m).copy()
 
 

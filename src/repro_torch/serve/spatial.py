@@ -46,6 +46,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core import fault, node_select, shard as shard_mod, spatial_join
 from ..core.executor import ExecStats, QueryCursor, StreakEngine
 from ..core.join import Relation
@@ -100,6 +101,7 @@ class _FusedJoinBatcher:
     def add(self, entry: spatial_join.StreamEntry) -> None:
         self.entries.append(entry)
 
+    @tracing.spanned("phase3.flush", -1)
     def flush(self) -> int:
         if not self.entries:
             return 0
@@ -182,8 +184,9 @@ class SpatialServeEngine:
                     continue
                 self.queue.pop(i)
                 try:
-                    cur = self.engine.cursor(req.query,
-                                             deadline=req.deadline)
+                    with tracing.span("serve.admit", req.rid):
+                        cur = self.engine.cursor(req.query,
+                                                 deadline=req.deadline)
                 except Exception as exc:    # noqa: BLE001 — surface per-req
                     self.stats.admission_failures += 1
                     self._fail(req, exc)
@@ -197,13 +200,14 @@ class SpatialServeEngine:
 
     def _retire(self, slot: int) -> None:
         req, cur = self.slots[slot]
-        req.scores, req.rows, req.stats = cur.results()
-        req.done = True
-        if cur.stats.early_terminated:
-            self.stats.released_early += 1
-        if cur.stats.partial:
-            self.stats.deadline_partials += 1
-        self.slots[slot] = None
+        with tracing.span("serve.retire", req.rid):
+            req.scores, req.rows, req.stats = cur.results()
+            req.done = True
+            if cur.stats.early_terminated:
+                self.stats.released_early += 1
+            if cur.stats.partial:
+                self.stats.deadline_partials += 1
+            self.slots[slot] = None
 
     # ------------------------------------------------------------------
     def _slot_sip(self, r: dict) -> list:
@@ -233,6 +237,7 @@ class SpatialServeEngine:
         return [[sel_shards[si][i] for si in range(len(shards))]
                 for i in range(n)]
 
+    @tracing.spanned("serve.step", -1)
     def step(self) -> int:
         """One iteration: admit, advance every active slot one driver block
         (Phases 1-2 pooled, Phase 3 cross-query batched), retire finished
@@ -259,7 +264,8 @@ class SpatialServeEngine:
         for s in active:
             req, cur = self.slots[s]
             try:
-                sip_req = cur.begin_block()
+                with tracing.span("serve.begin", req.rid):
+                    sip_req = cur.begin_block()
             except Exception as exc:    # noqa: BLE001 — isolate the tenant
                 self._fault_slot(s, exc)
                 continue
@@ -283,44 +289,46 @@ class SpatialServeEngine:
             cs_paths = []
             row_of: dict[tuple, int] = {}
             spans: list[tuple[int, list[int]]] = []
-            for s, r in sip_slots:
-                cs_bytes = np.asarray(r["driven_cs"]).tobytes()
-                rows = []
-                for box in r["boxes"]:
-                    box = box if box is not None else np.zeros((0, 4))
-                    rk = (box.shape, box.tobytes(), cs_bytes,
-                          float(r["dist_norm"]))
-                    idx = row_of.get(rk)
-                    if idx is None:
-                        idx = len(boxes)
-                        row_of[rk] = idx
-                        boxes.append(box)
-                        cs_sets.append(r["driven_cs"])
-                        prepared.append(r["prepared"])
-                        dists.append(r["dist_norm"])
-                        cards.append(r["card_all"])
-                        # tenants' precomputed root-path masks ride along so
-                        # fused descents skip the per-step Bloom probes
-                        cs_paths.append(r.get("cs_path"))
-                    rows.append(idx)
-                spans.append((s, rows))
+            with tracing.span("serve.pool"):
+                for s, r in sip_slots:
+                    cs_bytes = np.asarray(r["driven_cs"]).tobytes()
+                    rows = []
+                    for box in r["boxes"]:
+                        box = box if box is not None else np.zeros((0, 4))
+                        rk = (box.shape, box.tobytes(), cs_bytes,
+                              float(r["dist_norm"]))
+                        idx = row_of.get(rk)
+                        if idx is None:
+                            idx = len(boxes)
+                            row_of[rk] = idx
+                            boxes.append(box)
+                            cs_sets.append(r["driven_cs"])
+                            prepared.append(r["prepared"])
+                            dists.append(r["dist_norm"])
+                            cards.append(r["card_all"])
+                            # tenants' precomputed root-path masks ride along so
+                            # fused descents skip the per-step Bloom probes
+                            cs_paths.append(r.get("cs_path"))
+                        rows.append(idx)
+                    spans.append((s, rows))
             try:
                 # cards[i] / cs_paths[i] are per-shard lists (tenant
                 # cursors expose one entry per shard view, same order)
                 sel_shards = []
-                for si, sh in enumerate(shards):
-                    in_v = sh.tree.candidate_nodes(
-                        boxes, np.array(dists), cs_sets,
-                        prepared=prepared,
-                        probe_backend=policy.probe,
-                        descend_backend=policy.descend,
-                        cs_path=[p[si] if p is not None else None
-                                 for p in cs_paths],
-                        device=self.engine.device)
-                    sel_shards.append(node_select.select_batch(
-                        sh.tree, in_v, cs_sets,
-                        self.engine.config.select_params,
-                        card_all=np.stack([c[si] for c in cards])))
+                with tracing.span("sip.pooled"):
+                    for si, sh in enumerate(shards):
+                        in_v = sh.tree.candidate_nodes(
+                            boxes, np.array(dists), cs_sets,
+                            prepared=prepared,
+                            probe_backend=policy.probe,
+                            descend_backend=policy.descend,
+                            cs_path=[p[si] if p is not None else None
+                                     for p in cs_paths],
+                            device=self.engine.device)
+                        sel_shards.append(node_select.select_batch(
+                            sh.tree, in_v, cs_sets,
+                            self.engine.config.select_params,
+                            card_all=np.stack([c[si] for c in cards])))
                 for s, rows in spans:
                     v_stars[s] = [[sel_shards[si][i]
                                    for si in range(len(shards))]
@@ -353,7 +361,8 @@ class SpatialServeEngine:
             req, cur = self.slots[s]
             n0 = len(batcher.entries) if batcher is not None else 0
             try:
-                cur.finish_block(v_stars[s], batcher=batcher)
+                with tracing.span("serve.finish", req.rid):
+                    cur.finish_block(v_stars[s], batcher=batcher)
             except Exception as exc:    # noqa: BLE001 — isolate the tenant
                 if batcher is not None:          # roll back registrations
                     del batcher.entries[n0:]
