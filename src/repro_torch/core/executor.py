@@ -18,7 +18,8 @@ from . import aps, node_select, shard as shard_mod, spatial_join
 from .. import tracing
 from ..device import resolve_device
 from .fault import QueryDeadline
-from .join import Relation, filter_in_ranges, join, scan_pattern
+from .join import (Relation, filter_in_ranges, join, resolve_join_impl,
+                   rows_in_ranges, scan_pattern)
 from .planner import QueryPlan, SidePlan, plan_query
 from .policy import BackendPolicy
 from .query import Query, Var
@@ -37,6 +38,47 @@ def _shared(sc: dict, key: tuple, kind: str) -> bool:
     hit = key in sc
     tracing.count(_SHARE_COUNTERS[kind][0 if hit else 1])
     return hit
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DrivenMaterial:
+    """Phase 3's per-row material of one cached full driven relation that
+    is sorted by its entity variable, made once per engine and query shape.
+
+    An S-Plan block keeps rows of that relation; `entities(rows)` turns
+    them into the driven entities, boxes and key bounds by gathers alone,
+    the same arrays `StreakEngine._driven_entities` finds by lookups."""
+    ents: np.ndarray     # (n,) int64 entity column, non-decreasing
+    geo: np.ndarray      # (n,) int64 the entity's row of `mbr`, -1: no box
+    contrib: np.ndarray  # (n,) float64 score-key contribution, NaN -> -inf
+    mbr: np.ndarray      # (M, 4) float64 the tree's `obj_mbr`
+
+    @classmethod
+    def build(cls, tree, ents: np.ndarray,
+              contrib: np.ndarray) -> DrivenMaterial:
+        """Material of the rows with entity column `ents` (sorted) and
+        score-key contributions `contrib`, against the S-QuadTree `tree`."""
+        pos = np.clip(np.searchsorted(tree.obj_ids, ents), 0,
+                      len(tree.obj_ids) - 1)
+        ok = (tree.obj_ids[pos] == ents) & ~np.isnan(tree.obj_mbr[pos, 0])
+        return cls(ents, np.where(ok, pos, -1), contrib,
+                   np.asarray(tree.obj_mbr, dtype=np.float64))
+
+    def entities(self, rows: np.ndarray, bound: bool = True) -> tuple:
+        """(driven entities with a box, their boxes, their key bounds) over
+        the ascending `rows`; the bounds are None unless `bound` and there
+        are entities."""
+        ents = self.ents[rows]
+        if len(ents) == 0:
+            return ents, np.empty((0, 4)), None
+        first = np.flatnonzero(np.concatenate(([True],
+                                               ents[1:] != ents[:-1])))
+        geo = self.geo[rows[first]]
+        ok = geo >= 0
+        vs = None
+        if bound and ok.any():
+            vs = np.maximum.reduceat(self.contrib[rows], first)[ok]
+        return ents[first][ok], self.mbr[geo[ok]], vs
 
 
 @dataclasses.dataclass
@@ -185,6 +227,16 @@ class StreakEngine:
                 out += kw * self.store.values_of(rel[var])
         return out
 
+    def _key_contrib(self, rel: Relation, side: SidePlan,
+                     plan: QueryPlan) -> np.ndarray:
+        """Per-row score-key contribution of this side's quant terms; NaN
+        (the entity lacks a value) becomes -inf."""
+        contrib = np.zeros(rel.n)
+        for tp, var, w in side.quant_terms:
+            kw = self._kw(w, plan.descending)
+            contrib += kw * self.store.values_of(rel[var])
+        return np.where(np.isnan(contrib), -np.inf, contrib)
+
     def _entity_key_bound(self, rel: Relation, ents: np.ndarray,
                           side: SidePlan, plan: QueryPlan) -> np.ndarray:
         """Per-entity upper bound on this side's score-key contribution.
@@ -195,11 +247,7 @@ class StreakEngine:
         Rows whose contribution is NaN (entity lacks a value) can never
         score and count as -inf; an entity with only such rows gets -inf.
         """
-        contrib = np.zeros(rel.n)
-        for tp, var, w in side.quant_terms:
-            kw = self._kw(w, plan.descending)
-            contrib += kw * self.store.values_of(rel[var])
-        contrib = np.where(np.isnan(contrib), -np.inf, contrib)
+        contrib = self._key_contrib(rel, side, plan)
         out = np.full(len(ents), -np.inf)
         ent_col = rel[side.entity_var]
         pos = np.searchsorted(ents, ent_col)        # ents is sorted unique
@@ -207,6 +255,20 @@ class StreakEngine:
             (ents[np.minimum(pos, len(ents) - 1)] == ent_col)
         np.maximum.at(out, pos[ok], contrib[ok])
         return out
+
+    def _driven_entities(self, rel: Relation, side: SidePlan,
+                         plan: QueryPlan, bound: bool = True) -> tuple:
+        """(driven entities with a box, their boxes, their key bounds) of
+        `rel` by sort and lookup; the bounds are None unless `bound` and
+        there are entities (`DrivenMaterial.entities` gathers the same)."""
+        ents = np.unique(rel[side.entity_var])
+        boxes = self.store.spatial_box_of(ents)
+        ok = ~np.isnan(boxes[:, 0])
+        ents, boxes = ents[ok], boxes[ok]
+        vs = None
+        if bound and len(ents):
+            vs = self._entity_key_bound(rel, ents, side, plan)
+        return ents, boxes, vs
 
     def _emit_pairs(self, pi: np.ndarray, pj: np.ndarray,
                     uniq_ents: np.ndarray, dvn_ents: np.ndarray,
@@ -305,43 +367,81 @@ class StreakEngine:
         return QueryCursor(self, q, deadline=deadline)
 
     # ------------------------------------------------------------------
+    @staticmethod
+    def _full_key(driven: SidePlan, impl: str | None,
+                  backend: str | None) -> tuple:
+        # key on the pattern *contents*: id(tp) can collide after pattern
+        # objects are garbage-collected, silently reusing a stale relation
+        return ("__driven_full", impl, backend) \
+            + tuple((tp.g, tp.s, tp.p, tp.o) for tp in driven.all_ordered)
+
     def _driven_full(self, driven: SidePlan, impl: str | None,
                      backend: str | None = None) -> Relation:
         """Fully-joined driven sub-query, cached per query (S-Plan is a
         full scan per the paper; only the SIP filter varies per block)."""
-        # key on the pattern *contents*: id(tp) can collide after pattern
-        # objects are garbage-collected, silently reusing a stale relation
-        key = ("__driven_full", impl, backend) \
-            + tuple((tp.g, tp.s, tp.p, tp.o) for tp in driven.all_ordered)
+        key = self._full_key(driven, impl, backend)
         if key not in self._scan_cache:
             rel = self._cached_scan(driven.all_ordered[0])
             rel = self._join_chain(rel, driven.all_ordered[1:], impl, backend)
             self._scan_cache[key] = rel
         return self._scan_cache[key]
 
+    def _driven_material(self, driven: SidePlan,
+                         plan: QueryPlan) -> DrivenMaterial:
+        """Phase-3 material of `_driven_full`'s relation, which must be
+        sorted by the entity variable; cached beside it, keyed also by the
+        quant terms and the ranking direction the contributions use."""
+        full = self._full_key(driven, plan.join_impl, plan.rank_backend)
+        key = ("__phase3",) + full + (
+            driven.entity_var, plan.descending,
+            tuple((var, w) for _, var, w in driven.quant_terms))
+        if key not in self._scan_cache:
+            rel = self._scan_cache[full]
+            self._scan_cache[key] = DrivenMaterial.build(
+                self.store.tree, rel[driven.entity_var],
+                self._key_contrib(rel, driven, plan))
+        return self._scan_cache[key]
+
     @tracing.spanned("driven.splan")
     def _driven_splan(self, driven: SidePlan, plan: QueryPlan, intervals,
-                      explicit, stats: ExecStats) -> Relation:
+                      explicit, stats: ExecStats) -> tuple:
         """S-Plan: spatial join pushed down -- one full scan of the driven
-        sub-query (cached), then I-Range/E-list skipping of its rows."""
+        sub-query (cached), then I-Range/E-list skipping of its rows.
+
+        Returns the kept relation and, when the merge filter kept rows of
+        a relation sorted by the entity variable, `(material, rows)` for
+        `QueryCursor._phase3` to gather from (else None)."""
         rel = self._driven_full(driven, plan.join_impl, plan.rank_backend)
         stats.driven_rows_scanned += rel.n
+        rows = None
         if self.config.use_sip and driven.entity_var in rel:
             sc, key = self.share_cache, None
             if sc is not None:
                 key = ("splan", self._side_sig(driven, plan),
                        intervals.tobytes(), explicit.tobytes())
             if key is not None and _shared(sc, key, "splan"):
-                rel = sc[key]
+                rel, rows = sc[key]
             else:
-                rel = filter_in_ranges(rel, driven.entity_var, intervals,
-                                       explicit, impl=plan.join_impl,
-                                       backend=plan.rank_backend,
-                                       device=self.device)
+                if resolve_join_impl(plan.join_impl) == "merge":
+                    rows = rows_in_ranges(rel, driven.entity_var, intervals,
+                                          explicit, plan.rank_backend,
+                                          self.device)
+                    kept = rel.take(rows)
+                    kept.sorted_by = rel.sorted_by  # the rows keep their order
+                    rel = kept
+                    if rel.sorted_by[:1] != (driven.entity_var,):
+                        rows = None     # nothing to gather: hold no index
+                else:
+                    rel = filter_in_ranges(rel, driven.entity_var, intervals,
+                                           explicit, impl=plan.join_impl,
+                                           backend=plan.rank_backend,
+                                           device=self.device)
                 if key is not None:
-                    sc[key] = rel
+                    sc[key] = (rel, rows)
         stats.driven_rows_after_sip += rel.n
-        return rel
+        if rows is None:
+            return rel, None
+        return rel, (self._driven_material(driven, plan), rows)
 
     @tracing.spanned("driven.nplan")
     def _driven_nplan(self, driven: SidePlan, plan: QueryPlan, intervals,
@@ -615,36 +715,44 @@ class QueryCursor:
             if driven.scan is None:
                 chosen = "S"
             stats.plan_log.append(chosen)
+            gather = None
             if chosen == "N":
                 stats.plan_n += 1
                 dvn_rel = eng._driven_nplan(driven, plan, intervals,
                                             explicit, key_needed, stats)
             else:
                 stats.plan_s += 1
-                dvn_rel = eng._driven_splan(driven, plan, intervals,
-                                            explicit, stats)
+                dvn_rel, gather = eng._driven_splan(driven, plan, intervals,
+                                                    explicit, stats)
             if dvn_rel.n:
                 self._phase3(drv_rel, uniq_ents, boxes, dvn_rel,
-                             batcher=batcher)
+                             batcher=batcher, gather=gather)
 
     def _phase3(self, drv_rel, uniq_ents, boxes, dvn_rel,
-                batcher=None) -> None:
-        """Phase-3 spatial join + refinement of one driven relation."""
+                batcher=None, gather=None) -> None:
+        """Phase-3 spatial join + refinement of one driven relation.
+
+        ``gather`` is `_driven_splan`'s `(material, rows)`: the driven
+        entities, boxes and key bounds are then gathered from the material,
+        else looked up (N-Plan blocks, unsorted relations, no SIP)."""
         eng = self.engine
         cfg, plan = eng.config, self.plan
         driver, driven = self.driver, self.driven
         topk, stats = self.topk, self.stats
         fused = cfg.mbr_join_fn is None and plan.join_backend == "fused"
         with tracing.span("phase3.prepare"):
-            dvn_ents = np.unique(dvn_rel[driven.entity_var])
-            dvn_boxes = eng.store.spatial_box_of(dvn_ents)
-            ok = ~np.isnan(dvn_boxes[:, 0])
-            dvn_ents, dvn_boxes = dvn_ents[ok], dvn_boxes[ok]
+            if gather is not None:
+                tracing.count("phase3.prepare:gathered")
+                material, rows = gather
+                dvn_ents, dvn_boxes, vs = material.entities(rows, fused)
+            else:
+                tracing.count("phase3.prepare:looked_up")
+                dvn_ents, dvn_boxes, vs = eng._driven_entities(
+                    dvn_rel, driven, plan, fused)
             if len(dvn_ents) == 0:
                 return
             if fused:
                 ds = eng._entity_key_bound(drv_rel, uniq_ents, driver, plan)
-                vs = eng._entity_key_bound(dvn_rel, dvn_ents, driven, plan)
         with tracing.span("phase3.join"):
             if fused:
                 # streaming fused path: driven columns arrive in score-key

@@ -557,6 +557,19 @@ def filter_in_ranges(rel: Relation, col: str, intervals: np.ndarray,
             np.empty(0, dtype=np.int64))
     if resolve_join_impl(impl) == "looped":
         return filter_in_ranges_looped(rel, col, intervals, explicit)
+    out = rel.take(rows_in_ranges(rel, col, intervals, explicit, backend,
+                                  device))
+    out.sorted_by = rel.sorted_by  # the rows keep their order
+    return out
+
+
+def rows_in_ranges(rel: Relation, col: str, intervals: np.ndarray,
+                   explicit: np.ndarray, backend: str | None = None,
+                   device=None) -> np.ndarray:
+    """Ascending indices of the rows of `rel` that the merge
+    `filter_in_ranges` keeps."""
+    if rel.n == 0 or (len(intervals) == 0 and len(explicit) == 0):
+        return np.empty(0, dtype=np.int64)
     vals = rel[col]
     keep = np.zeros(rel.n, dtype=bool)
     if len(intervals):
@@ -569,9 +582,7 @@ def filter_in_ranges(rel: Relation, col: str, intervals: np.ndarray,
     if len(explicit):
         keep |= _member_sorted(np.asarray(explicit, dtype=np.int64), vals,
                                backend, device)
-    out = rel.take(np.flatnonzero(keep))
-    out.sorted_by = rel.sorted_by  # flatnonzero keeps row order
-    return out
+    return np.flatnonzero(keep)
 
 
 def filter_in_ranges_looped(rel: Relation, col: str, intervals: np.ndarray,
