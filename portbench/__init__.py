@@ -6,5 +6,7 @@ One command runs one cell of BENCHMARK.json once and prints one JSON line:
         --trace <0|1>
 
 Each configuration, traffic mix and per-layer metric is a file of its own
-(configs/, traffic/, metrics/), found by its name in BENCHMARK.json.
+(configs/, traffic/, metrics/), found by its name in BENCHMARK.json; a
+configuration's generator, where `datagen.GENERATORS` has none of its name,
+and each template's query shape are files too (generators/, shapes/).
 """

@@ -1,9 +1,11 @@
 """The comparison that decides `correct`: an answer against the reference.
 
-For one request the reference gives every answer row with a score of at
-most T (`reference.Answer`), each with its pair's distance, marked sure
-where that lies beyond a share `WINDOW` inside the query's distance d. An
-answer of n rows, ordered best first, is held to:
+`limits` are the numbers compared, for every query shape; `judge` is the
+top-k join's (``shapes/topk_join.py``). For one request the reference
+gives every answer row with a score of at most T (`reference.Answer`),
+each with its pair's distance, marked sure where that lies beyond a share
+`WINDOW` inside the query's distance d. An answer of n rows, ordered best
+first, is held to:
 
 - wrong rows: rows beyond k, rows out of order, and rows that match no
   reference row of the same selected bindings and the bit-equal score

@@ -30,23 +30,28 @@ import time
 
 import numpy as np
 
-from . import datagen, harness, reference, traffic
+from . import datagen, harness, program, reference, traffic
 
 KINDS = {"scores": dict(dtype=np.float32),
          "dist": dict(dtype=np.float64, dist_bf16=True)}
 
 
-def control_answers(ds, reqs: list, kind: str = "scores") -> list:
+def control_answers(ds, reqs: list, kind: str = "scores",
+                    root=harness.ROOT) -> list:
     """(request, scores, keys) of each request, answered by the reference
-    one precision down: its rows within the distance, best first, the
-    first k."""
+    one precision down as the program would serve it (its template's
+    shape's `served`: for the top-k join, its rows within the distance,
+    best first, the first k)."""
     low = reference.Reference(ds, **KINDS[kind])
+    shapes = program.shapes_of(ds.templates, root)
     out = []
-    for r in reqs:
-        tpl = ds.templates[r.template]
-        a = low.answer(tpl, r.dist, r.k, 0.0)
-        order = np.argsort(a.scores, kind="stable")[:r.k]
-        out.append((r, a.scores[order].astype(np.float64), a.keys[order]))
+    for key, group in harness.groups(ds, [(r,) for r in reqs],
+                                     shapes).items():
+        tpl = ds.templates[key[0]]
+        group = [r for r, in group]
+        for r, (scores, keys) in zip(group, shapes[tpl.shape].served(
+                low, tpl, group)):
+            out.append((r, scores, keys))
     return out
 
 
@@ -55,10 +60,12 @@ def readings(cell, seed: int, n: int, scale: dict | None = None,
     """The control's numbers compared for `seed`: its answers to the
     first `n` requests of the cell's traffic."""
     cfg, mix = cell.config, cell.mix
-    ds = datagen.make(dict(cfg, scale=scale or cfg["scale"]), seed)
+    ds = datagen.make(dict(cfg, scale=scale or cfg["scale"]), seed,
+                      cell.root)
     seq = traffic.requests(mix, cfg, ds.templates, seed)
     reqs = [next(seq) for _ in range(n)]
-    return harness.compare(ds, control_answers(ds, reqs, kind), 0)
+    return harness.compare(ds, control_answers(ds, reqs, kind, cell.root),
+                           0, root=cell.root)
 
 
 def main(argv=None) -> int:

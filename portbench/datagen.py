@@ -9,6 +9,10 @@ plain arrays and templates that the harness hands to the program
 (``program.py``) and to the plain reference (``reference.py``) alike, and
 no store.
 
+A configuration's `generator` names one of `GENERATORS` or a file
+``generators/<name>.py`` whose ``make(**scale, seed)`` returns a `Dataset`;
+its templates may be of any query shape (``shapes/``).
+
 `relabel` gives a dataset new identifiers in an order drawn from a run's
 seed. A configuration fixes its dataset (the generator's seed is its
 `data_seed`, as the paper evaluates one LGD and one YAGO3), and each run
@@ -21,8 +25,11 @@ seed by more than runs of one seed spread.
 from __future__ import annotations
 
 import dataclasses
+import pathlib
 
 import numpy as np
+
+from . import files
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,7 +42,10 @@ class V:
 class Template:
     """SELECT select WHERE patterns FILTER(distance(a, b) <= dist)
     ORDER BY sum(w * value(var)) [DESC] LIMIT k. A pattern is (g, s, p, o):
-    a term id, a `V`, or None for g (the default graph, don't care)."""
+    a term id, a `V`, or None for g (the default graph, don't care).
+
+    A template of another shape is a frozen dataclass of its own with
+    `select`, `patterns` and `shape` (``shapes/<shape>.py``)."""
     select: tuple
     patterns: tuple
     geo_a: V
@@ -44,6 +54,7 @@ class Template:
     ranking: tuple          # ((V, weight), ...)
     descending: bool
     k: int
+    shape: str = "topk_join"
 
 
 @dataclasses.dataclass
@@ -331,8 +342,17 @@ def relabel(ds: Dataset, seed: int) -> Dataset:
                    templates, ds.extent)
 
 
-def make(config: dict, seed: int) -> Dataset:
+def generator(name: str, root: pathlib.Path = files.ROOT):
+    """`GENERATORS[name]`, or the `make` of `root`/portbench/generators/
+    `name`.py."""
+    if name in GENERATORS:
+        return GENERATORS[name]
+    return files.load("generators", name, root).make
+
+
+def make(config: dict, seed: int, root: pathlib.Path = files.ROOT
+         ) -> Dataset:
     """A configuration's dataset, under identifiers drawn from `seed`."""
-    ds = GENERATORS[config["generator"]](**config["scale"],
-                                         seed=config["data_seed"])
+    ds = generator(config["generator"], root)(**config["scale"],
+                                               seed=config["data_seed"])
     return relabel(ds, seed)

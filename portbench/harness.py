@@ -8,14 +8,14 @@ when its last one completes), and finally hold every answer due in the
 window (or a sample drawn from the seed) against the plain reference.
 
 With `trace`, the window runs under the layer timers, the kernel
-recorder and torch.profiler, and the per-layer metrics are read from them;
-without it, nothing but the clients' clocks runs in the window.
+recorder, the program's own span recorder (`repro_torch.tracing`) and
+torch.profiler, and the per-layer metrics are read from them; without it,
+nothing but the clients' clocks runs in the window.
 """
 from __future__ import annotations
 
 import dataclasses
 import gc
-import importlib.util
 import json
 import os
 import pathlib
@@ -24,7 +24,7 @@ import time
 
 import numpy as np
 
-from . import check, datagen, program, traffic
+from . import check, datagen, files, program, traffic
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -64,12 +64,7 @@ def load_cell(name: str, bench: dict | None = None,
 
 def reader(metric: str, root: pathlib.Path = ROOT):
     """The `read(window)` function of portbench/metrics/<metric>.py."""
-    path = root / "portbench" / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"portbench_metric_{metric.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return files.load("metrics", metric, root).read
 
 
 @dataclasses.dataclass
@@ -98,17 +93,29 @@ class Window:
     spans: list | None = None           # traced: device spans in the window
     trace_window_us: tuple | None = None
     bounds: dict | None = None          # traced: kernel -> (bound ms, calls)
+    # traced: what `repro_torch.tracing.drain()` gave for the window (int64
+    # columns, span names), the window's change of `tracing.COUNTS`, and
+    # trace us less perf_counter us (None without a device trace)
+    program_spans: dict | None = None
+    program_names: list | None = None
+    program_counts: dict | None = None
+    program_offset_us: float | None = None
 
 
 class _Tracing:
-    """The layer timers, kernel recorder and profiler around a window."""
+    """The layer timers, kernel recorder, the program's span recorder and
+    the profiler around a window."""
 
     def __init__(self, device: str):
+        from repro_torch import tracing
+
         from . import bounds, trace
         self.timers = trace.LayerTimers()
         self.recorder = bounds.KernelRecorder()
+        self.tracing = tracing
         self.cuda = device == "cuda"
         self.prof = None
+        self.offset_us = None
 
     def start(self, ops) -> None:
         import torch
@@ -125,11 +132,16 @@ class _Tracing:
             self.t_marker = time.perf_counter()
             torch.cuda._sleep(100)
             torch.cuda.synchronize()
+        self.tracing.drain()
+        self.counts0 = dict(self.tracing.COUNTS)
+        self.tracing.enable()
         self.t0 = time.perf_counter()
 
     def stop(self, ops) -> None:
         import torch
         self.t1 = time.perf_counter()
+        self.tracing.disable()
+        self.counts1 = dict(self.tracing.COUNTS)
         if self.cuda:
             torch.cuda.synchronize()
             self.prof.__exit__(None, None, None)
@@ -143,6 +155,10 @@ class _Tracing:
         w.layer_s = dict(self.timers.self_s)
         w.launches = self.launches
         w.bounds = self.recorder.bounds()
+        w.program_spans, w.program_names = self.tracing.drain()
+        w.program_counts = {k: v - self.counts0.get(k, 0)
+                            for k, v in self.counts1.items()
+                            if v != self.counts0.get(k, 0)}
         if self.prof is None:
             return
         spans = trace.device_spans(self.prof.events())
@@ -156,7 +172,7 @@ class _Tracing:
         w.spans = [(max(a, lo), min(b, hi), name) for a, b, name in spans
                    if b > lo and a < hi and (a, b, name) != marker]
         w.trace_window_us = (lo, hi)
-        self.offset_us = off
+        self.offset_us = w.program_offset_us = off
 
     def gaps(self, w: Window, n: int = 10) -> list:
         """[layer, seconds] of the n longest device idle gaps, by the layer
@@ -180,8 +196,7 @@ def _serve(prog, srv, seq, templates, clients: int, seconds: float,
 
     def send():
         r = next(seq)
-        req = prog.new_request(len(sent),
-                               prog.query(templates[r.template], r.dist, r.k))
+        req = prog.new_request(len(sent), prog.query(templates[r.template], r))
         d = Done(r, time.perf_counter())
         srv.submit(req)
         sent.append(d)
@@ -226,7 +241,7 @@ def _serial(prog, eng, seq, templates, seconds: float, on_close
     t_end = t0 + seconds
     while time.perf_counter() < t_end:
         r = next(seq)
-        q = prog.query(templates[r.template], r.dist, r.k)
+        q = prog.query(templates[r.template], r)
         d = Done(r, time.perf_counter())
         sent.append(d)
         try:
@@ -245,7 +260,7 @@ def _warm(prog, engine, seq, mix, config, templates, serve: bool,
     raises if the serving engine has not answered them in `limit_s`."""
     reqs = traffic.warmup(mix, config, templates)
     reqs += [next(seq) for _ in range(2 * len(mix["templates"]))]
-    queries = [prog.query(templates[r.template], r.dist, r.k) for r in reqs]
+    queries = [prog.query(templates[r.template], r) for r in reqs]
     if not serve:
         for q in queries:
             engine.execute(q)
@@ -266,12 +281,13 @@ def _warm(prog, engine, seq, mix, config, templates, serve: bool,
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
              device: str, t_start: float, drain_s: float = 60.0,
-             scale: dict | None = None, data_seed: int | None = None
-             ) -> dict:
+             scale: dict | None = None, data_seed: int | None = None,
+             keep: dict | None = None) -> dict:
     """One run; returns the result line's object (without `device`'s
     card fields when `device` is not "cuda"). `scale` replaces the
     configuration's generator sizes (the tests' tiny stores), `data_seed`
-    its dataset (a check of other datasets)."""
+    its dataset (a check of other datasets); `keep`, where given, gets the
+    run's `Window` under "window"."""
     import torch
     cfg, mix = cell.config, cell.mix
     t_build = time.perf_counter()
@@ -284,8 +300,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     t_build = time.perf_counter() - t_build
     if data_seed is not None:
         cfg = dict(cfg, data_seed=data_seed)
-    ds = datagen.make(dict(cfg, scale=scale or cfg["scale"]), seed)
-    prog = program.Program(ds, cfg, device)
+    ds = datagen.make(dict(cfg, scale=scale or cfg["scale"]), seed,
+                      cell.root)
+    prog = program.Program(ds, cfg, device, cell.root)
     from repro_torch.kernels import ops
     serve = mix["engine"] == "serve"
     engine = (prog.serve_engine(mix["max_slots"]) if serve
@@ -328,6 +345,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     w = Window(seconds=seconds, setup_s=setup_s,
                latencies_ms=[(d.done - d.sent) * 1e3 for d in in_window],
                completed=len(in_window))
+    if keep is not None:
+        keep["window"] = w
     extra: dict = {}
     breakdown = None
     if tracing is not None:
@@ -360,7 +379,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     if device == "cuda":
         torch.cuda.empty_cache()
     t_freed = time.perf_counter()
-    compared = compare(ds, answers, unanswered)
+    compared = compare(ds, answers, unanswered, root=cell.root)
     t_checked = time.perf_counter()
     load = " ".join(f"{x:.2f}" for x in os.getloadavg())
     print(f"portbench: kernels built or loaded in {t_build:.3f} s of set-up;"
@@ -385,23 +404,35 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     return out
 
 
-def compare(ds, answers: list, unanswered: int, ref=None) -> dict:
+def groups(ds, items: list, shapes: dict) -> dict:
+    """{(template, what its shape reads of the request): [item, ...]} of
+    `items`, each a tuple that starts with its request."""
+    out: dict = {}
+    for item in items:
+        r = item[0]
+        reads = shapes[ds.templates[r.template].shape].READS
+        out.setdefault((r.template,) + tuple(getattr(r, f) for f in reads),
+                       []).append(item)
+    return out
+
+
+def compare(ds, answers: list, unanswered: int, ref=None,
+            root: pathlib.Path = ROOT) -> dict:
     """The numbers compared, each with its limit, over `answers`:
-    (request, scores, keys) triples."""
+    (request, scores, keys) triples, each judged by its template's shape
+    against one reference answer a group of requests."""
     from . import reference
     ref = ref or reference.Reference(ds)
+    shapes = program.shapes_of(ds.templates, root)
     lim = check.limits()
     wrong = missed = 0
     edge = 0.0
-    groups: dict = {}
-    for r, scores, keys in answers:
-        groups.setdefault((r.template, r.dist), []).append((r, scores, keys))
-    for (t, dist), items in groups.items():
-        tpl = ds.templates[t]
-        a = ref.answer(tpl, dist, max(r.k for r, _, _ in items),
-                       check.WINDOW)
+    for key, items in groups(ds, answers, shapes).items():
+        tpl = ds.templates[key[0]]
+        shape = shapes[tpl.shape]
+        a = shape.answer(ref, tpl, [r for r, _, _ in items])
         for r, scores, keys in items:
-            w_, m_, e_ = check.judge(scores, keys, a, r.k, tpl.descending)
+            w_, m_, e_ = shape.judge(a, scores, keys, r, tpl)
             wrong += w_
             missed += m_
             edge = max(edge, e_)

@@ -3,7 +3,9 @@
 The only module of the harness that builds the program's objects. It hands
 the port the generated quads, boxes, exact geometries and queries, builds
 one long-lived engine, and decodes the answers back into the generator's
-own term ids for the comparison. Nothing here computes an answer.
+own term ids for the comparison. Nothing here computes an answer: a query
+is built, and an answer decoded, by its template's shape
+(``shapes/<shape>.py``).
 """
 from __future__ import annotations
 
@@ -24,13 +26,22 @@ def import_port():
     return repro_torch
 
 
+def shapes_of(templates, root: pathlib.Path = ROOT) -> dict:
+    """{shape: its module, `root`/portbench/shapes/<shape>.py} of the
+    templates' shapes."""
+    from . import files
+    return {s: files.load("shapes", s, root)
+            for s in sorted({t.shape for t in templates})}
+
+
 class Program:
     """One store and one engine of the port, built from a `datagen.Dataset`.
 
     `config` is the configuration file's dict: "store" holds
     `build_store`'s block and tree sizes, "policy" the `BackendPolicy`."""
 
-    def __init__(self, ds, config: dict, device: str):
+    def __init__(self, ds, config: dict, device: str,
+                 root: pathlib.Path = ROOT):
         rt = import_port()
         from repro_torch.core.dictionary import Dictionary
         d = Dictionary.empty()
@@ -45,9 +56,12 @@ class Program:
         self.ds_terms = ds.terms
         self._to_prog = self.store.dictionary.term_to_id
         self._ours: dict | None = None
+        self.shapes = shapes_of(ds.templates, root)
 
     # -- queries ---------------------------------------------------------
-    def _term(self, t):
+    def term(self, t):
+        """A template's term (a generator id, a `datagen.V` or None) as
+        the port's."""
         from .datagen import V
         if t is None:
             return None
@@ -55,21 +69,19 @@ class Program:
             return self.rt.Var(t.name)
         return int(self._to_prog[self.ds_terms[int(t) - 1]])
 
-    def query(self, tpl, dist: float, k: int):
-        """The port's `Query` for template `tpl` at distance `dist`, `k`."""
-        rt = self.rt
-        pats = tuple(rt.TriplePattern(self._term(s), self._term(p),
-                                      self._term(o), g=self._term(g))
+    def select(self, tpl) -> tuple:
+        return tuple(self.rt.Var(v.name) for v in tpl.select)
+
+    def patterns(self, tpl) -> tuple:
+        """The template's (g, s, p, o) patterns as the port's."""
+        return tuple(self.rt.TriplePattern(self.term(s), self.term(p),
+                                           self.term(o), g=self.term(g))
                      for g, s, p, o in tpl.patterns)
-        return rt.Query(
-            select=tuple(rt.Var(v.name) for v in tpl.select),
-            patterns=pats,
-            spatial=rt.SpatialFilter(rt.Var(tpl.geo_a.name),
-                                     rt.Var(tpl.geo_b.name), float(dist)),
-            ranking=rt.Ranking(tuple((rt.Var(v.name), float(w))
-                                     for v, w in tpl.ranking),
-                               descending=tpl.descending),
-            k=int(k))
+
+    def query(self, tpl, req):
+        """The port's `Query` for template `tpl` and request `req`, as the
+        template's shape builds it."""
+        return self.shapes[tpl.shape].query(self, tpl, req)
 
     # -- engines ---------------------------------------------------------
     def serve_engine(self, max_slots: int):
@@ -86,6 +98,14 @@ class Program:
 
     # -- answers ---------------------------------------------------------
     def decode(self, tpl, scores, rows) -> tuple[np.ndarray, np.ndarray]:
+        """(scores, keys) of one answer, as the template's shape decodes
+        it (`keys`, where the shape gives no `decode`)."""
+        shape = self.shapes[tpl.shape]
+        if hasattr(shape, "decode"):
+            return shape.decode(self, tpl, scores, rows)
+        return self.keys(tpl, scores, rows)
+
+    def keys(self, tpl, scores, rows) -> tuple[np.ndarray, np.ndarray]:
         """(scores (n,) f64, keys (n, len(select)) generator term ids) of
         one answer: the selected variables' bindings in the generator's
         ids, through the store's dictionary."""

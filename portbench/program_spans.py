@@ -4,23 +4,23 @@
         --seconds 51 [--turns 0] [--out chiprun_out/spans.json]
 
 runs one cell as `--trace 1` does (layer timers, kernel recorder,
-torch.profiler) with `repro_torch.tracing`'s recorder on for the window,
-and prints one JSON line: the harness's own result, the per-layer metrics
-of `METRICS` read from the program's spans and counters, the layer timers'
-self ms a query beside the program spans' self ms by the same layers,
-share-cache hits and misses by kind, host-to-device bytes by op, and the
-ten longest device idle gaps, each with the innermost program span open at
-its middle and that span's request id. With `--turns N` it instead times N
-windows of `--seconds` with the recorder on and N with it off, in turns on
-one long-lived engine and with no profiler, and prints each window's qps.
+`repro_torch.tracing`'s recorder, torch.profiler: the harness's own
+tracing) and prints one JSON line: the harness's own result, the
+per-layer metrics of `METRICS` read from the program's spans and counters,
+the layer timers' self ms a query beside the program spans' self ms by the
+same layers, share-cache hits and misses by kind, host-to-device bytes by
+op, Phase 3's gathered and looked-up prepares, and the ten longest device
+idle gaps, each with the innermost program span open at its middle and
+that span's request id. With `--turns N` it instead times N windows of
+`--seconds` with the recorder on and N with it off, in turns on one
+long-lived engine and with no profiler, and prints each window's qps.
 
-`ProgramTracing` wraps the harness's `_Tracing` from outside: the harness
-does not call it, and `BENCHMARK.json` names none of `METRICS`. Each reader
-takes the harness's `Window` with four more attributes, set by
-`ProgramTracing.read`: `program_spans` and `program_names` (what
-`tracing.drain()` returned), `program_counts` (the window's change of
-`tracing.COUNTS`) and `program_offset_us` (trace us less perf_counter us,
-None without a device trace).
+Each reader of `METRICS` takes the harness's `Window` of a traced run:
+`program_spans` and `program_names` (what `tracing.drain()` returned),
+`program_counts` (the window's change of `tracing.COUNTS`) and
+`program_offset_us` (trace us less perf_counter us, None without a device
+trace). `portbench/metrics/<name>.py` returns each one's reader, so
+`BENCHMARK.json` reports them in the cells each lists.
 """
 from __future__ import annotations
 
@@ -30,52 +30,18 @@ import json
 import os
 import sys
 import time
-from unittest import mock
 
 import numpy as np
 
 from . import datagen, harness, program, traffic
 
 
-class ProgramTracing(harness._Tracing):
-    """The harness's tracing, and the program's recorder on for the
-    window. The last one made is `ProgramTracing.last`."""
-    last = None
-
-    def __init__(self, device: str):
-        super().__init__(device)
-        program.import_port()
-        from repro_torch import tracing
-        self.tracing = tracing
-        ProgramTracing.last = self
-
-    def start(self, ops) -> None:
-        super().start(ops)
-        self.tracing.drain()
-        self.counts0 = dict(self.tracing.COUNTS)
-        self.tracing.enable()
-
-    def stop(self, ops) -> None:
-        self.tracing.disable()
-        self.counts1 = dict(self.tracing.COUNTS)
-        super().stop(ops)
-
-    def read(self, w: harness.Window) -> None:
-        super().read(w)
-        w.program_spans, w.program_names = self.tracing.drain()
-        w.program_counts = {k: v - self.counts0.get(k, 0)
-                            for k, v in self.counts1.items()
-                            if v != self.counts0.get(k, 0)}
-        w.program_offset_us = getattr(self, "offset_us", None)
-        self.window = w
-
-
 # -- readers ---------------------------------------------------------------
 def _self_ms(w, name: str) -> float | None:
     """Self ms of the spans `name` in the window, per query completed;
     None where no such span was recorded."""
-    spans = getattr(w, "program_spans", None)
-    names = getattr(w, "program_names", None) or []
+    spans = w.program_spans
+    names = w.program_names or []
     if spans is None or name not in names or not w.completed:
         return None
     from repro_torch import tracing
@@ -86,8 +52,8 @@ def _self_ms(w, name: str) -> float | None:
 
 
 def _counted(w, prefix: str) -> int:
-    return sum(v for k, v in (getattr(w, "program_counts", None) or {})
-               .items() if k.startswith(prefix))
+    return sum(v for k, v in (w.program_counts or {}).items()
+               if k.startswith(prefix))
 
 
 def cursor_ms(w):
@@ -125,7 +91,7 @@ def h2d_kb(w):
 
 def gc_ms(w):
     """ms of garbage collection (`host.gc` spans) a query."""
-    spans = getattr(w, "program_spans", None)
+    spans = w.program_spans
     if spans is None or not len(spans["name"]) or not w.completed:
         return None
     if "host.gc" not in w.program_names:
@@ -148,8 +114,8 @@ def unspanned_idle_share(w):
     """Device idle time in the window with no program span open, over all
     device idle time, in %."""
     from . import trace
-    if (not w.trace_window_us or getattr(w, "program_offset_us", None)
-            is None or not len(w.program_spans["name"])):
+    if (not w.trace_window_us or w.program_offset_us is None
+            or not len(w.program_spans["name"])):
         return None
     gaps = trace.idle_gaps(w.spans, *w.trace_window_us)
     idle = sum(b - a for a, b in gaps)
@@ -165,26 +131,24 @@ def unspanned_idle_share(w):
     return 100.0 * (idle - covered) / idle if idle > 0 else None
 
 
-# name: (unit, source, moves, cells, reader): the per-layer metrics the
-# program's recorder feeds
-BOTH = ["lgd.mixed.c8", "yago3.serial.c1"]
+# name: (unit, source, moves, reader): the per-layer metrics the program's
+# recorder feeds; BENCHMARK.json lists the cells that report each
 METRICS = {
     "exec.cursor_ms_per_query": ("ms", "program_span", "latency_p50_ms",
-                                 BOTH, cursor_ms),
+                                 cursor_ms),
     "exec.filter_material_ms_per_query": ("ms", "program_span",
-                                          "latency_p50_ms", BOTH,
+                                          "latency_p50_ms",
                                           filter_material_ms),
     "serve.residual_ms_per_query": ("ms", "program_span", "qps",
-                                    ["lgd.mixed.c8"], residual_ms),
+                                    residual_ms),
     "phase3.prepare_ms_per_query": ("ms", "program_span", "latency_p50_ms",
-                                    BOTH, prepare_ms),
+                                    prepare_ms),
     "exec.share_hit_share": ("%", "program_counter", "qps",
-                             ["lgd.mixed.c8"], share_hit_share),
+                             share_hit_share),
     "kernels.h2d_kb_per_query": ("KB", "program_counter", "latency_p50_ms",
-                                 BOTH, h2d_kb),
-    "host.gc_ms_per_query": ("ms", "program_span", "latency_p95_ms", BOTH,
-                             gc_ms),
-    "host.unspanned_idle_share": ("%", "device_trace", "qps", BOTH,
+                                 h2d_kb),
+    "host.gc_ms_per_query": ("ms", "program_span", "latency_p95_ms", gc_ms),
+    "host.unspanned_idle_share": ("%", "device_trace", "qps",
                                   unspanned_idle_share),
 }
 
@@ -251,7 +215,7 @@ def gaps(w, n: int = 10) -> list:
     device idle gaps in the window, at each gap's middle ("none" where no
     span was open)."""
     from . import trace
-    if not w.trace_window_us or getattr(w, "program_offset_us", None) is None:
+    if not w.trace_window_us or w.program_offset_us is None:
         return []
     s, names = w.program_spans, w.program_names
     start = s["start"] / 1e3 + w.program_offset_us
@@ -281,9 +245,9 @@ def h2d_rate_gb_s(w) -> float | None:
 
 def report(w) -> dict:
     """Everything the program's spans and counters say of one window."""
-    counts = getattr(w, "program_counts", {}) or {}
+    counts = w.program_counts or {}
     metrics = {}
-    for name, (unit, *_, read) in METRICS.items():
+    for name, (unit, _, _, read) in METRICS.items():
         value = read(w)
         if value is not None:
             metrics[name] = {"value": value, "unit": unit}
@@ -294,6 +258,8 @@ def report(w) -> dict:
                       if k.startswith("share.")},
             "h2d_bytes": {k: v for k, v in sorted(counts.items())
                           if k.startswith("h2d.")},
+            "phase3_prepare": {k: v for k, v in sorted(counts.items())
+                               if k.startswith("phase3.")},
             "h2d_copy_gb_s": h2d_rate_gb_s(w),
             "idle_gaps": gaps(w),
             "spans": int(len(w.program_spans["name"])),
@@ -303,10 +269,10 @@ def report(w) -> dict:
 def traced_run(cell: harness.Cell, seed: int, seconds: float, device: str,
                t_start: float, **kw) -> tuple[dict, dict]:
     """(the harness's result line, `report`) of one traced run."""
-    with mock.patch.object(harness, "_Tracing", ProgramTracing):
-        res = harness.run_cell(cell, seed, seconds, True, device, t_start,
-                               **kw)
-    return res, report(ProgramTracing.last.window)
+    keep: dict = {}
+    res = harness.run_cell(cell, seed, seconds, True, device, t_start,
+                           keep=keep, **kw)
+    return res, report(keep["window"])
 
 
 def cost_turns(cell: harness.Cell, seed: int, seconds: float, turns: int,
@@ -317,8 +283,9 @@ def cost_turns(cell: harness.Cell, seed: int, seconds: float, turns: int,
     program.import_port()
     from repro_torch import tracing
     cfg, mix = cell.config, cell.mix
-    ds = datagen.make(dict(cfg, scale=scale or cfg["scale"]), seed)
-    prog = program.Program(ds, cfg, device)
+    ds = datagen.make(dict(cfg, scale=scale or cfg["scale"]), seed,
+                      cell.root)
+    prog = program.Program(ds, cfg, device, cell.root)
     serve = mix["engine"] == "serve"
     engine = (prog.serve_engine(mix["max_slots"]) if serve
               else prog.serial_engine())

@@ -23,6 +23,10 @@ so that each part admits at least four times as many rows each round, until
 k answers that lie surely inside the distance score at most T, or every row
 is in.
 
+Other query shapes (``shapes/<shape>.py``) answer from the same pieces:
+`bgp` evaluates a basic graph pattern, `geometry_rows` finds a geometry
+term's exact points, `points` holds them.
+
 Near the distance. The store keeps exact points as float32, and an exact
 engine tests the distance on those: the reference takes the same float32
 points and works in float64, so an engine's float32 arithmetic alone sets
@@ -93,7 +97,7 @@ class Reference:
             pts[r, :len(g)] = g
             pts[r, len(g):] = g[-1]
         self._ents = ents
-        self._pts = self._rd(pts.astype(dtype))
+        self.points = self._rd(pts.astype(dtype))
         self._box = np.concatenate([pts.min(1), pts.max(1)], axis=1)
         self._scans: dict = {}
         self._parts: dict = {}
@@ -157,7 +161,9 @@ class Reference:
                 out[v] = col[ib]
         return out
 
-    def _bgp(self, pats: list) -> dict:
+    def bgp(self, pats: list) -> dict:
+        """Rows of a basic graph pattern (bag semantics): var name ->
+        column."""
         rel = self._scan(pats[0])
         left = list(pats[1:])
         while left:
@@ -167,6 +173,21 @@ class Reference:
                                for t in p)), 0)
             rel = self._join(rel, self._scan(left.pop(idx)))
         return rel
+
+    def geometry_rows(self, g: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """(has, row) of geometry terms `g`: whether ``hasGeometry`` gives
+        each term's subject an exact geometry, and that geometry's row of
+        `points` ((E, P, 2) in `dtype`, padded with each last point)."""
+        # the geometry's subject, then its exact-geometry row
+        pos = np.clip(np.searchsorted(self._geo_obj, g), 0,
+                      max(len(self._geo_obj) - 1, 0))
+        has_geo = (self._geo_obj[pos] == g) if len(self._geo_obj) else \
+            np.zeros(len(g), dtype=bool)
+        subj = self._geo_subj[pos]
+        grow = np.clip(np.searchsorted(self._ents, subj), 0,
+                       len(self._ents) - 1)
+        has_geo &= self._ents[grow] == subj
+        return has_geo, grow
 
     def _values(self, ids: np.ndarray) -> np.ndarray:
         pos = np.searchsorted(self._num_ids, ids)
@@ -187,23 +208,14 @@ class Reference:
         pats = [p for p in tpl.patterns
                 if any(hasattr(t, "name") and comp[t.name] == mine
                        for t in p)]
-        rel = self._bgp(pats)
+        rel = self.bgp(pats)
         n = self._n(rel)
         score = np.zeros(n, dtype=self.dtype)
         for v, w in tpl.ranking:
             if v.name in rel:
                 val = self._values(rel[v.name]).astype(self.dtype)
                 score = score + self.dtype(w) * val
-        # the geometry's subject, then its exact-geometry row
-        g = rel[geo.name]
-        pos = np.clip(np.searchsorted(self._geo_obj, g), 0,
-                      max(len(self._geo_obj) - 1, 0))
-        has_geo = (self._geo_obj[pos] == g) if len(self._geo_obj) else \
-            np.zeros(n, dtype=bool)
-        subj = self._geo_subj[pos]
-        grow = np.clip(np.searchsorted(self._ents, subj), 0,
-                       len(self._ents) - 1)
-        has_geo &= self._ents[grow] == subj
+        has_geo, grow = self.geometry_rows(rel[geo.name])
         ok = has_geo & ~np.isnan(score)
         sel = np.full((n, len(tpl.select)), -1, dtype=np.int64)
         for c, v in enumerate(tpl.select):
@@ -249,8 +261,8 @@ class Reference:
         d = np.empty(len(ii), dtype=self.dtype)
         step = 1 << 18
         for s in range(0, len(ii), step):
-            pa = self._pts[ga[ii[s:s + step]]]          # (q, P, 2)
-            pb = self._pts[gb[jj[s:s + step]]]
+            pa = self.points[ga[ii[s:s + step]]]          # (q, P, 2)
+            pb = self.points[gb[jj[s:s + step]]]
             diff = rd(pa[:, :, None, :] - pb[:, None, :, :])
             sq = rd(diff * diff)
             d2 = rd(sq[..., 0] + sq[..., 1]).min(axis=(1, 2))

@@ -48,7 +48,7 @@ def test_cell_matches_reference(name):
     assert list(res)[-1] == "compared"
 
 
-@pytest.mark.parametrize("name", ("lgd.mixed.c8", "yago3.serial.c1"))
+@pytest.mark.parametrize("name", CELLS)
 def test_traced_run_reads_layers(name):
     res = run(name, trace=True, seconds=6.0)
     assert res["correct"], res["compared"]
@@ -59,6 +59,10 @@ def test_traced_run_reads_layers(name):
               "driven.ms_per_query", "refine.ms_per_query"):
         assert got[m]["value"] > 0, m
     assert ("serve.steps_per_query" in got) == name.endswith(".c8")
+    # the program's own spans and counters, in every traced window
+    for m in ("exec.cursor_ms_per_query", "phase3.prepare_ms_per_query"):
+        assert got[m]["value"] > 0, m
+    assert ("exec.share_hit_share" in got) == name.endswith(".c8")
 
 
 def test_generator_is_the_programs():
@@ -111,6 +115,60 @@ def test_traffic_blocks_hold_every_size():
         assert slots == list(range(8))
     again = traffic.requests(cell.mix, cell.config, ds.templates, SEED)
     assert [next(again) for _ in range(64)] == first
+
+
+# sha256 of the first 64 requests' (template, distance, k) and of the
+# reference's answers to them (scores, keys) at the tiny scales, by mix
+# and seed, as the benchmark's first version gave them
+FROZEN = {
+    ("mixed.c8", 7): (
+        "2095d84c74bd2000dcdecd577f2d18e370271c8cf2c65c6632ca5873cd7e938e",
+        "03f77dd54fb4a414c02ea2d2170a5827acb34690380d1ef373e5eeeee5213506"),
+    ("mixed.c8", 2147495993): (
+        "e1bcb7a1be78e7610d0abde2786d6fc69fe4825618af4389fcd820dd994714b8",
+        "1c241e9694d0db0f0eea206acd056f1d746d12d90c9b900ff68be47f8be477e8"),
+    ("serial.c1", 7): (
+        "99c3b1439369cebc9da212fe26a5746509d9698b13b101846cd214d72e6be26a",
+        "a08aa5a7d0db92752a8b2af361005775e58a15fe4f392a10ed83d4d90e73b822"),
+    ("serial.c1", 2147495993): (
+        "ac01b1b602d0d68b963b0e078bb7af2b17cb8f180b4bdc2293f37fa2f128d2ab",
+        "53ce31c151a842dc858ae75522a1a122405495ef266d680ab79cdf0d084c8eeb"),
+    ("hot.c8", 7): (
+        "644e11d4fe271a16663ec46917cad43575eb4fca42b15487ff7c9f7dc354fd7a",
+        "873f7b0f20cdee7a87a75627b53975223c5c825fc72440ec1ca6314487e9b627"),
+    ("hot.c8", 2147495993): (
+        "41acdc8230305ed251493dc3aacbc52298a8c24c8f17e543a7122ca43e9ab6b6",
+        "3c316211b35e9e1a79c9a3d134277e2adf3ea180b8cb8e787afcc258737f9748"),
+}
+MIX_CONFIG = {"mixed.c8": "lgd-500k", "serial.c1": "yago3-550k",
+              "hot.c8": "lgd-500k"}
+
+
+@pytest.mark.parametrize("mix,seed", sorted(FROZEN))
+def test_requests_and_answers_are_frozen(mix, seed):
+    """Every mix's sequence of templates, distances and k, and the
+    reference's answers, stay as they were for every seed: a place drawn
+    for other mixes, or a shape's dispatch, moves none of them."""
+    import hashlib
+    root = harness.ROOT / "portbench"
+    cfg = json.loads((root / "configs" / f"{MIX_CONFIG[mix]}.json")
+                     .read_text())
+    m = json.loads((root / "traffic" / f"{mix}.json").read_text())
+    ds = datagen.make(dict(cfg, scale=SCALES[cfg["name"]]), seed)
+    seq = traffic.requests(m, cfg, ds.templates, seed)
+    reqs = [next(seq) for _ in range(64)]
+    assert all(r.pos is None for r in reqs)
+    got_reqs = hashlib.sha256(repr([(r.template, float(r.dist).hex(), r.k)
+                                    for r in reqs]).encode()).hexdigest()
+    shapes = program.shapes_of(ds.templates)
+    ref = reference.Reference(ds)
+    h = hashlib.sha256()
+    for r in reqs:
+        tpl = ds.templates[r.template]
+        a = shapes[tpl.shape].answer(ref, tpl, [r])
+        h.update(a.scores.tobytes())
+        h.update(a.keys.tobytes())
+    assert (got_reqs, h.hexdigest()) == FROZEN[(mix, seed)]
 
 
 def test_judge_counts_faults():

@@ -60,6 +60,7 @@ FAULTS = {
     ("yago3.serial.c1", "stale step"): _stale_cursor_step,
     ("lgd.mixed.c8", "half batch"): _half_batch,
     ("yago3.serial.c1", "half batch"): _half_batch,
+    ("lgd.hot.c8", "stale step"): _stale_serve_step,
     ("lgd.hot.c8", "half batch"): _half_batch,
     ("lgd.mixed.c8", "altered answer"): _altered_answer,
     ("yago3.serial.c1", "altered answer"): _altered_answer,
@@ -81,7 +82,8 @@ def test_fault_is_not_correct(cell, fault, monkeypatch):
     assert not res["correct"], res["compared"]
 
 
-@pytest.mark.parametrize("name", ("lgd.mixed.c8", "yago3.serial.c1"))
+@pytest.mark.parametrize("name", ("lgd.mixed.c8", "yago3.serial.c1",
+                                  "lgd.hot.c8"))
 def test_control_is_not_correct(name):
     cell = tiny(name)
     got = control.readings(cell, SEED, 24, scale=SCALES[cell.config["name"]])
@@ -89,7 +91,8 @@ def test_control_is_not_correct(name):
     assert got["wrong_rows"]["value"] > 0
 
 
-@pytest.mark.parametrize("name", ("lgd.mixed.c8", "yago3.serial.c1"))
+@pytest.mark.parametrize("name", ("lgd.mixed.c8", "yago3.serial.c1",
+                                  "lgd.hot.c8"))
 def test_bf16_distance_control_is_not_correct(name):
     """Float64 scores over bfloat16 distances: the edge gap reads far
     above its limit, or rows go wrong or missing."""

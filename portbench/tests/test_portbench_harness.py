@@ -9,7 +9,7 @@ import sys
 
 import pytest
 
-from portbench import harness
+from portbench import datagen, harness, traffic
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 PB = ROOT / "portbench"
@@ -48,6 +48,175 @@ def test_new_files_are_found_with_no_edit(tmp_path):
                            drain_s=60.0)
     assert res["correct"]
     assert res["metrics"]["serve.queries_seen"]["value"] >= 1
+
+
+# the files a later change adds for a new query shape: a generator that
+# adds range selections to the LGD-shaped data, the shape, a metric that
+# reads a program span and a counter
+GENERATOR = '''"""LGD-shaped data, its Q1-Q8 and two range selections."""
+import dataclasses
+
+from portbench import datagen
+
+
+@dataclasses.dataclass(frozen=True)
+class Selection:
+    select: tuple
+    patterns: tuple
+    geo: datagen.V
+    dist: float          # the window's half side
+    extent: float
+    k: int = 0
+    shape: str = "range_select"
+
+
+def make(n_per_class, seed):
+    ds = datagen.make_lgd(n_per_class, seed)
+    ids = {t: i for i, t in enumerate(ds.terms, start=1)}
+    V = datagen.V
+
+    def select(cls):
+        return Selection(
+            (V("place"),),
+            ((V("r"), V("place"), V("typePred"), ids[cls]),
+             (None, V("r"), ids["hasConfidence"], V("conf")),
+             (None, V("place"), ids["hasGeometry"], V("g"))),
+            V("g"), 10.0, ds.extent)
+    return dataclasses.replace(ds, templates=ds.templates + [
+        select("class:hotel"), select("class:park")])
+'''
+
+SHAPE = '''"""Every row of one class whose geometry has a point inside a window
+centred on the request's place: all rows, score 0, canonical order."""
+import collections
+
+import numpy as np
+
+READS = ("dist", "pos")
+
+
+def window(tpl, req, share=1.0):
+    x, y = req.pos[0] * tpl.extent, req.pos[1] * tpl.extent
+    h = req.dist * share
+    return (x - h, y - h, x + h, y + h)
+
+
+def query(prog, tpl, req):
+    rt = prog.rt
+    return rt.Query(select=prog.select(tpl), patterns=prog.patterns(tpl),
+                    spatial=rt.SpatialFilter(rt.Var(tpl.geo.name),
+                                             window=window(tpl, req, 1.0)),
+                    ranking=None)
+
+
+def answer(ref, tpl, reqs):
+    rel = ref.bgp(list(tpl.patterns))
+    has, row = ref.geometry_rows(rel[tpl.geo.name])
+    pts = ref.points[row]
+    x0, y0, x1, y1 = window(tpl, reqs[0])
+    inside = has & ((pts[..., 0] >= x0) & (pts[..., 0] <= x1)
+                    & (pts[..., 1] >= y0) & (pts[..., 1] <= y1)).any(axis=1)
+    keys = np.stack([rel[v.name] for v in tpl.select], axis=1)[inside]
+    return keys[np.lexsort(keys.T[::-1])]
+
+
+def judge(ans, scores, keys, req, tpl):
+    got = collections.Counter(map(tuple, np.asarray(keys).tolist()))
+    want = collections.Counter(map(tuple, ans.tolist()))
+    wrong = int(np.count_nonzero(np.asarray(scores) != 0))
+    return (wrong + sum((got - want).values()),
+            sum((want - got).values()), 0.0)
+
+
+def served(ref, tpl, reqs):
+    return [(np.zeros(len(a)), a)
+            for a in (answer(ref, tpl, [r]) for r in reqs)]
+'''
+
+METRIC = '''"""Admissions (`serve.admit` spans) per share-cache lookup."""
+
+
+def read(w):
+    if w.program_spans is None or "serve.admit" not in w.program_names:
+        return None
+    admits = int((w.program_spans["name"]
+                  == w.program_names.index("serve.admit")).sum())
+    lookups = sum(v for k, v in w.program_counts.items()
+                  if k.startswith("share."))
+    return admits / lookups if lookups else None
+'''
+
+
+def _with_a_new_shape(root: pathlib.Path, shape: str) -> harness.Cell:
+    """`root` holds a copy of portbench and BENCHMARK.json with, as new
+    files and entries only, the generator, `shape` as
+    shapes/range_select.py, a mix that draws places, a configuration, a
+    cell and the metric."""
+    shutil.copytree(PB, root / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    pb = root / "portbench"
+    (pb / "generators").mkdir(exist_ok=True)
+    (pb / "generators/lgd_places.py").write_text(GENERATOR)
+    (pb / "shapes/range_select.py").write_text(shape)
+    (pb / "metrics/serve.admits_per_share_lookup.py").write_text(METRIC)
+    cfg = json.loads((PB / "configs" / "lgd-500k.json").read_text())
+    cfg.update(name="lgd-places", generator="lgd_places",
+               scale={"n_per_class": 300})
+    cfg["store"]["block"] = 128
+    (pb / "configs/lgd-places.json").write_text(json.dumps(cfg))
+    (pb / "traffic/places.c3.json").write_text(json.dumps({
+        "engine": "serve", "clients": 3, "max_slots": 3,
+        "templates": [1, 9, 10], "dist": "template", "k": [5, 20],
+        "pos": True}))
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    bench["configs"].append(dict(bench["configs"][0], name="lgd-places",
+                                 file="portbench/configs/lgd-places.json"))
+    bench["workloads"].append({"name": "lgd.places.c3",
+                               "config": "lgd-places",
+                               "traffic": "places.c3", "chips": 1,
+                               "why": "x"})
+    bench["per_layer"].append({
+        "name": "serve.admits_per_share_lookup", "unit": "1",
+        "better": "lower", "source": "program_span",
+        "layer": "serve loop (serve/spatial)", "moves": "qps",
+        "workloads": ["lgd.places.c3"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return harness.load_cell("lgd.places.c3", root=root)
+
+
+def test_a_new_shape_is_added_as_files(tmp_path):
+    """A generator, a query shape that reads each request's place, a mix
+    that draws places, a configuration, a cell and a metric that reads a
+    program span and a counter, added as files and BENCHMARK.json entries
+    only: the cell is correct, and wrong with a window a tenth smaller."""
+    import time
+    cell = _with_a_new_shape(tmp_path / "sound", SHAPE)
+    ds = datagen.make(dict(cell.config), 5, cell.root)
+    assert [t.shape for t in ds.templates[-3:]] == \
+        ["topk_join", "range_select", "range_select"]
+    seq = traffic.requests(cell.mix, cell.config, ds.templates, 5)
+    reqs = [next(seq) for _ in range(32)]
+    assert all(0 <= x < 1 and 0 <= y < 1 for x, y in (r.pos for r in reqs))
+    plain = dict(cell.mix)
+    del plain["pos"]
+    again = traffic.requests(plain, cell.config, ds.templates, 5)
+    assert [(r.template, r.dist, r.k) for r in reqs] == \
+        [(r.template, r.dist, r.k) for r in (next(again) for _ in reqs)]
+    keep: dict = {}
+    res = harness.run_cell(cell, 5, 3.0, True, "cpu", time.perf_counter(),
+                           drain_s=60.0, keep=keep)
+    assert res["correct"], res["compared"]
+    assert res["metrics"]["serve.admits_per_share_lookup"]["value"] > 0
+    ranged = [r for r in keep["window"].program_names
+              if r.startswith("serve.")]
+    assert "serve.admit" in ranged
+    wrong = _with_a_new_shape(tmp_path / "wrong",
+                              SHAPE.replace("window(tpl, req, 1.0)",
+                                            "window(tpl, req, 0.9)"))
+    res = harness.run_cell(wrong, 5, 3.0, False, "cpu", time.perf_counter(),
+                           drain_s=60.0)
+    assert not res["correct"]
+    assert res["compared"]["missed_rows"]["value"] > 0
 
 
 def test_every_metric_and_file_is_named():

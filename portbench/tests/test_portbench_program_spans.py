@@ -1,7 +1,8 @@
 """The program's own spans and counters over a benchmark window
-(`portbench/program_spans.py`), at a tiny scale on the CPU: the metrics a
-CPU run can read, the layer timers' six layers against the program spans'
-self times, and an untraced run leaves the recorder untouched."""
+(`portbench/program_spans.py`, on the harness's tracing), at a tiny scale
+on the CPU: the metrics a CPU run can read, the layer timers' six layers
+against the program spans' self times, and an untraced run leaves the
+recorder untouched."""
 import time
 
 import pytest
@@ -29,17 +30,20 @@ def traced(request):
 def test_traced_run_reads_the_cpu_readable_metrics(traced):
     name, res, rep = traced
     assert res["correct"], res["compared"]
-    want = {m for m in ON_CPU if name in program_spans.METRICS[m][3]}
+    want = ON_CPU & {m["name"] for m in tiny(name).per_layer}
     got = rep["metrics"]
     assert set(got) == want
     for m in want - {"host.gc_ms_per_query"}:
         assert got[m]["value"] > 0, m
     assert got["host.gc_ms_per_query"]["value"] >= 0
     assert rep["h2d_bytes"] == {} and rep["idle_gaps"] == []
-    if name == "lgd.mixed.c8":
+    if name.endswith(".c8"):
         assert rep["share"]["share.hit:mat"] > 0
     else:
         assert rep["share"] == {}
+    # the harness's own result line reads the same metrics
+    for m in want:
+        assert res["metrics"][m] == got[m], m
 
 
 def test_layer_timers_agree_with_program_spans(traced):
@@ -69,14 +73,19 @@ def test_untraced_run_leaves_the_recorder_empty():
 
 
 def test_every_metric_names_cells_and_metrics_of_the_benchmark():
+    """Each metric of `METRICS` is a per-layer metric of BENCHMARK.json,
+    with its unit, source and end-to-end metric, listing cells of the
+    benchmark (BENCHMARK.json alone says which), and its file returns its
+    reader."""
     import json
     bench = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
     cells = {w["name"] for w in bench["workloads"]}
     e2e = {m["name"] for m in bench["end_to_end"]}
-    taken = {m["name"] for m in bench["end_to_end"] + bench["per_layer"]}
-    for name, (unit, source, moves, workloads, read) in \
-            program_spans.METRICS.items():
-        assert name not in taken
-        assert set(workloads) <= cells and moves in e2e, name
+    per_layer = {m["name"]: m for m in bench["per_layer"]}
+    for name, (unit, source, moves, read) in program_spans.METRICS.items():
+        m = per_layer[name]
+        assert (m["unit"], m["source"], m["moves"]) == (unit, source, moves)
+        assert m["workloads"] and set(m["workloads"]) <= cells, name
+        assert moves in e2e, name
         assert source in ("program_span", "program_counter", "device_trace")
-        assert callable(read) and unit
+        assert harness.reader(name) is read
