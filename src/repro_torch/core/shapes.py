@@ -28,6 +28,14 @@ Shape semantics (geometries are the exact point sets in the CSR pool):
 - **join** — binary, no ranking. Every (?a, ?b) entity pair with exact
   distance <= ``dist``; the score is the pair distance.
 
+Spans (`repro_torch.tracing`): ``shape.<range|within|knn|join>`` around
+each executor, and inside it ``shape.side`` (a side's relation, entities
+and boxes), ``shape.material`` (V* to SIP membership), ``shape.exact``
+(the MBR prefilter and the exact test) and ``shape.rows`` (rows out).
+Each selection counts ``shape.entities:<shape>`` (the side's entities
+with a geometry), ``shape.kept:<shape>`` (those sent to the exact test)
+and ``shape.rows:<shape>`` (rows returned) in `tracing.COUNTS`.
+
 Selections return ALL qualifying rows (`Query.k` is ignored; Geographica
 selections are not top-k), in a canonical deterministic order so every
 backend and device returns them bit-identically: entity column(s) first,
@@ -38,6 +46,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import tracing
 from . import shard as shard_mod, spatial_join
 from .fault import QueryDeadline
 from .join import Relation, join
@@ -113,15 +122,16 @@ class _Sip:
             plan.probe_backend, plan.descend_backend, self.cs_path,
             cfg.select_params, self.card_all, self.engine.device)
         masks = []
-        for v_star in v_stars:
-            stats.v_star_sizes.append(sum(len(v) for v in v_star))
-            keep = np.zeros(len(ents), dtype=bool)
-            for si, sh in enumerate(self.shards):
-                if len(v_star[si]) == 0:
-                    continue
-                intervals, explicit = sh.filter_material(v_star[si])
-                keep |= _material_mask(ents, intervals, explicit)
-            masks.append(keep)
+        with tracing.span("shape.material"):
+            for v_star in v_stars:
+                stats.v_star_sizes.append(sum(len(v) for v in v_star))
+                keep = np.zeros(len(ents), dtype=bool)
+                for si, sh in enumerate(self.shards):
+                    if len(v_star[si]) == 0:
+                        continue
+                    intervals, explicit = sh.filter_material(v_star[si])
+                    keep |= _material_mask(ents, intervals, explicit)
+                masks.append(keep)
         return masks
 
 
@@ -224,16 +234,36 @@ def execute_shape(engine, q: Query, deadline: QueryDeadline | None = None):
                       policy=cfg.policy)
     stats = ExecStats()
     if plan.shape == "range":
-        scores, rows = _exec_range(engine, q, plan, stats)
+        with tracing.span("shape.range"):
+            scores, rows = _exec_range(engine, q, plan, stats)
     elif plan.shape == "within":
-        scores, rows = _exec_within(engine, q, plan, stats)
+        with tracing.span("shape.within"):
+            scores, rows = _exec_within(engine, q, plan, stats)
     elif plan.shape == "knn":
-        scores, rows = _exec_knn(engine, q, plan, stats, deadline)
+        with tracing.span("shape.knn"):
+            scores, rows = _exec_knn(engine, q, plan, stats, deadline)
     elif plan.shape == "join":
-        scores, rows = _exec_join(engine, q, plan, stats, deadline)
+        with tracing.span("shape.join"):
+            scores, rows = _exec_join(engine, q, plan, stats, deadline)
     else:
         raise ValueError(f"not a shape query: {plan.shape!r}")
     return scores, rows, stats
+
+
+def _side(engine, side, plan: QueryPlan
+          ) -> tuple[Relation, np.ndarray, np.ndarray]:
+    """(relation, entities with geometry, their normalized MBRs) of one
+    side: one `shape.side` span."""
+    with tracing.span("shape.side"):
+        rel = _side_rel(engine, side, plan)
+        ents, boxes = _ents_boxes(engine.store, rel, side.entity_var)
+    return rel, ents, boxes
+
+
+def _count(shape: str, entities: int, kept: int, rows: int) -> None:
+    tracing.count(f"shape.entities:{shape}", entities)
+    tracing.count(f"shape.kept:{shape}", kept)
+    tracing.count(f"shape.rows:{shape}", rows)
 
 
 def _select_rows(rel: Relation, var: str, keep_ents: np.ndarray,
@@ -254,9 +284,8 @@ def _select_rows(rel: Relation, var: str, keep_ents: np.ndarray,
 
 def _exec_range(engine, q: Query, plan: QueryPlan, stats):
     store = engine.store
-    rel = _side_rel(engine, plan.driver, plan)
+    rel, ents, boxes = _side(engine, plan.driver, plan)
     stats.driven_rows_scanned += rel.n
-    ents, boxes = _ents_boxes(store, rel, plan.driver.entity_var)
     win = np.asarray(q.spatial.window, dtype=np.float64)
     ext = store.tree.extent
     win_norm = ext.normalize(win[None, :])[0]
@@ -268,23 +297,25 @@ def _exec_range(engine, q: Query, plan: QueryPlan, stats):
     # MBR prefilter in normalized space (conservative), exact point-in-
     # window test on the pool only for survivors
     from .geometry import boxes_intersect
-    keep &= boxes_intersect(boxes, win_norm[None, :])
-    stats.driven_rows_after_sip += int(keep.sum())
-    cand = np.flatnonzero(keep)
-    hit = spatial_join.pool_points_in_box(
-        store.geom_pool, store.geom_rows(ents[cand]), win)
+    with tracing.span("shape.exact"):
+        keep &= boxes_intersect(boxes, win_norm[None, :])
+        stats.driven_rows_after_sip += int(keep.sum())
+        cand = np.flatnonzero(keep)
+        hit = spatial_join.pool_points_in_box(
+            store.geom_pool, store.geom_rows(ents[cand]), win)
     qual = ents[cand[hit]]
-    scores, rows = _select_rows(rel, plan.driver.entity_var, qual,
-                                np.zeros(len(qual)))
+    with tracing.span("shape.rows"):
+        scores, rows = _select_rows(rel, plan.driver.entity_var, qual,
+                                    np.zeros(len(qual)))
     stats.results_considered += rows.n
+    _count("range", len(ents), len(cand), rows.n)
     return scores, rows
 
 
 def _exec_within(engine, q: Query, plan: QueryPlan, stats):
     store = engine.store
-    rel = _side_rel(engine, plan.driver, plan)
+    rel, ents, boxes = _side(engine, plan.driver, plan)
     stats.driven_rows_scanned += rel.n
-    ents, boxes = _ents_boxes(store, rel, plan.driver.entity_var)
     ext = store.tree.extent
     c = np.asarray(q.spatial.center, dtype=np.float64)
     c_box = ext.normalize(np.array([[c[0], c[1], c[0], c[1]]]))
@@ -294,15 +325,18 @@ def _exec_within(engine, q: Query, plan: QueryPlan, stats):
     stats.plan_log.append("S")
     keep = sip.filter([c_box], plan.dist_norm, ents, stats)[0]
     from .geometry import box_min_dist
-    keep &= box_min_dist(boxes, c_box[0][None, :]) <= plan.dist_norm
-    stats.driven_rows_after_sip += int(keep.sum())
-    cand = np.flatnonzero(keep)
-    d = spatial_join.pool_point_min_dist(
-        store.geom_pool, store.geom_rows(ents[cand]), c, plan.metric)
+    with tracing.span("shape.exact"):
+        keep &= box_min_dist(boxes, c_box[0][None, :]) <= plan.dist_norm
+        stats.driven_rows_after_sip += int(keep.sum())
+        cand = np.flatnonzero(keep)
+        d = spatial_join.pool_point_min_dist(
+            store.geom_pool, store.geom_rows(ents[cand]), c, plan.metric)
     ok = d <= float(plan.dist_world)
     qual, dq = ents[cand[ok]], d[ok]
-    scores, rows = _select_rows(rel, plan.driver.entity_var, qual, dq)
+    with tracing.span("shape.rows"):
+        scores, rows = _select_rows(rel, plan.driver.entity_var, qual, dq)
     stats.results_considered += rows.n
+    _count("within", len(ents), len(cand), rows.n)
     return scores, rows
 
 
@@ -310,11 +344,9 @@ def _exec_join(engine, q: Query, plan: QueryPlan, stats,
                deadline: QueryDeadline | None = None):
     store = engine.store
     cfg = engine.config
-    drv_rel = _side_rel(engine, plan.driver, plan)
-    dvn_rel = _side_rel(engine, plan.driven, plan)
+    drv_rel, a_ents, a_boxes = _side(engine, plan.driver, plan)
+    dvn_rel, b_ents, b_boxes = _side(engine, plan.driven, plan)
     stats.driven_rows_scanned += dvn_rel.n
-    a_ents, a_boxes = _ents_boxes(store, drv_rel, plan.driver.entity_var)
-    b_ents, b_boxes = _ents_boxes(store, dvn_rel, plan.driven.entity_var)
     rows_a_all = store.geom_rows(a_ents)
     rows_b_all = store.geom_rows(b_ents)
     sip = _Sip(engine, plan)
@@ -336,15 +368,16 @@ def _exec_join(engine, q: Query, plan: QueryPlan, stats,
             stats.driven_rows_after_sip += len(cand)
             if len(cand) == 0:
                 continue
-            pi, pj = spatial_join.mbr_distance_join(
-                a_boxes[c], b_boxes[cand], plan.dist_norm,
-                plan.join_backend, stats.join, device=engine.device)
-            if len(pi) == 0:
-                continue
-            gi, gj = c[pi], cand[pj]
-            d = spatial_join.exact_pair_distance(
-                store.geom_pool, rows_a_all[gi], rows_b_all[gj],
-                plan.metric, device=engine.device)
+            with tracing.span("shape.exact"):
+                pi, pj = spatial_join.mbr_distance_join(
+                    a_boxes[c], b_boxes[cand], plan.dist_norm,
+                    plan.join_backend, stats.join, device=engine.device)
+                if len(pi) == 0:
+                    continue
+                gi, gj = c[pi], cand[pj]
+                d = spatial_join.exact_pair_distance(
+                    store.geom_pool, rows_a_all[gi], rows_b_all[gj],
+                    plan.metric, device=engine.device)
             ok = d <= float(plan.dist_world)
             stats.join.refined += int(ok.sum())
             pa.append(gi[ok])
@@ -357,8 +390,9 @@ def _exec_join(engine, q: Query, plan: QueryPlan, stats,
     else:
         ia = ib = np.empty(0, dtype=np.int64)
         dd = np.empty(0, dtype=np.float64)
-    scores, rows = _assemble_pairs(engine, plan, drv_rel, dvn_rel,
-                                   a_ents[ia], b_ents[ib], dd)
+    with tracing.span("shape.rows"):
+        scores, rows = _assemble_pairs(engine, plan, drv_rel, dvn_rel,
+                                       a_ents[ia], b_ents[ib], dd)
     stats.results_considered += rows.n
     return scores, rows
 
@@ -378,11 +412,9 @@ def _exec_knn(engine, q: Query, plan: QueryPlan, stats,
     k = int(q.spatial.knn)
     if k <= 0:
         raise ValueError(f"knn must be positive, got {k}")
-    drv_rel = _side_rel(engine, plan.driver, plan)
-    dvn_rel = _side_rel(engine, plan.driven, plan)
+    drv_rel, a_ents, a_boxes = _side(engine, plan.driver, plan)
+    dvn_rel, b_ents, b_boxes = _side(engine, plan.driven, plan)
     stats.driven_rows_scanned += dvn_rel.n
-    a_ents, a_boxes = _ents_boxes(store, drv_rel, plan.driver.entity_var)
-    b_ents, b_boxes = _ents_boxes(store, dvn_rel, plan.driven.entity_var)
     rows_a_all = store.geom_rows(a_ents)
     rows_b_all = store.geom_rows(b_ents)
     sip = _Sip(engine, plan)
@@ -411,15 +443,17 @@ def _exec_knn(engine, q: Query, plan: QueryPlan, stats,
         stats.driven_rows_after_sip += len(cand)
         done_rounds = np.zeros(len(unc), dtype=bool)
         if len(cand):
-            pi, pj = spatial_join.mbr_distance_join(
-                a_boxes[unc], b_boxes[cand], rn, plan.join_backend,
-                stats.join, device=engine.device)
+            with tracing.span("shape.exact"):
+                pi, pj = spatial_join.mbr_distance_join(
+                    a_boxes[unc], b_boxes[cand], rn, plan.join_backend,
+                    stats.join, device=engine.device)
             if len(pi):
                 gi = unc[pi]                 # global driver index
                 gj = cand[pj]                # global driven index
-                d = spatial_join.exact_pair_distance(
-                    store.geom_pool, rows_a_all[gi], rows_b_all[gj],
-                    plan.metric, device=engine.device)
+                with tracing.span("shape.exact"):
+                    d = spatial_join.exact_pair_distance(
+                        store.geom_pool, rows_a_all[gi], rows_b_all[gj],
+                        plan.metric, device=engine.device)
                 within = d <= r
                 # per-driver certified-candidate counts (complete up to r)
                 cnt = np.zeros(len(unc), dtype=np.int64)
@@ -453,8 +487,9 @@ def _exec_knn(engine, q: Query, plan: QueryPlan, stats,
     ia = np.concatenate(res_a) if res_a else np.empty(0, np.int64)
     ib = np.concatenate(res_b) if res_b else np.empty(0, np.int64)
     dd = np.concatenate(res_d) if res_d else np.empty(0, np.float64)
-    scores, rows = _assemble_pairs(engine, plan, drv_rel, dvn_rel,
-                                   a_ents[ia], b_ents[ib], dd)
+    with tracing.span("shape.rows"):
+        scores, rows = _assemble_pairs(engine, plan, drv_rel, dvn_rel,
+                                       a_ents[ia], b_ents[ib], dd)
     stats.results_considered += rows.n
     return scores, rows
 

@@ -6,8 +6,10 @@ time is its time less its children's, every span of a serve run and of a
 serial run carries its request's id (the serve loop's pooled spans -1),
 and answers and statistics are bit-identical to a run with the recorder
 off. The share-cache counters count every lookup; garbage collections are
-spans while the recorder is on. One case needs the card: the bytes the
-rank pass's round trip counts.
+spans while the recorder is on. A range and a within selection
+(`core/shapes.py`) served by the loop record their `shape.*` spans under
+the request's `serve.begin`, and count the rows they return. One case
+needs the card: the bytes the rank pass's round trip counts.
 """
 import dataclasses
 import gc
@@ -243,6 +245,99 @@ def test_serial_spans_carry_their_execute_span(lgd):
                  "driven.aps", "phase3.prepare", "phase3.join",
                  "refine.emit", "refine.exact"):
         assert (got == name).any(), name
+
+
+# ------------------------------------------------------- query shapes
+SHAPE_SPANS = ("shape.side", "shape.material", "shape.exact", "shape.rows")
+
+
+def selections(d):
+    """A map window over hotels and a lookup of roads within d of a
+    point: one class each, one row an entity."""
+    V, TP = repro_torch.Var, repro_torch.TriplePattern
+    ns = d.ns
+
+    def of(cls, pred, spatial):
+        place = V("place")
+        return repro_torch.Query(
+            select=(place, V(pred)),
+            patterns=(TP(place, ns["rdf:type"], ns[cls], g=V("r")),
+                      TP(place, ns["hasGeometry"], V("g")),
+                      TP(place, ns[pred], V(pred))),
+            spatial=repro_torch.SpatialFilter(V("g"), **spatial),
+            ranking=None)
+
+    return [of("class:hotel", "name", dict(window=(20.0, 20.0, 60.0, 60.0))),
+            of("class:road", "name", dict(dist=15.0, center=(50.0, 40.0)))]
+
+
+def test_selection_spans_sit_under_their_requests_begin(lgd):
+    before = dict(tracing.COUNTS)
+    _, reqs = serve(lgd, selections(lgd), traced=True)
+    spans, names = tracing.drain()
+    got = names_of(spans, names)
+    rid, parent = spans["rid"], spans["parent"]
+    for req, shape in zip(reqs, ("range", "within")):
+        assert req.error is None and req.rows.n > 0
+        top = np.flatnonzero((got == f"shape.{shape}") & (rid == req.rid))
+        assert len(top) == 1
+        assert got[parent[top[0]]] == "serve.begin"
+        assert rid[parent[top[0]]] == req.rid
+        # every span under the selection carries its request's id
+        under = top.tolist()
+        for i in range(top[0] + 1, len(got)):
+            if parent[i] in under:
+                under.append(i)
+                assert rid[i] == req.rid, got[i]
+        for name in SHAPE_SPANS + ("sip.select",):
+            assert name in set(got[under]), (shape, name)
+        counted = {k: v - before.get(k, 0) for k, v in tracing.COUNTS.items()
+                   if k.endswith(f":{shape}") and k.startswith("shape.")}
+        assert counted[f"shape.rows:{shape}"] == req.rows.n
+        assert counted[f"shape.entities:{shape}"] \
+            >= counted[f"shape.kept:{shape}"] >= req.rows.n
+
+
+@pytest.mark.parametrize("shape,spatial", [
+    ("knn", dict(knn=2)), ("join", dict(dist=3.0))])
+def test_pair_shape_spans_sit_under_their_executor(lgd, shape, spatial):
+    """kNN and the non-top-k join: both sides, the exact distances and the
+    rows out are spans under `shape.<shape>`, on behalf of the request."""
+    V, TP, ns = repro_torch.Var, repro_torch.TriplePattern, lgd.ns
+    a, b = V("place"), V("nplace")
+    q = repro_torch.Query(
+        select=(a, b),
+        patterns=(TP(a, ns["rdf:type"], ns["class:hotel"], g=V("r")),
+                  TP(a, ns["hasGeometry"], V("g1")),
+                  TP(b, ns["rdf:type"], ns["class:police"], g=V("r1")),
+                  TP(b, ns["hasGeometry"], V("g2"))),
+        spatial=repro_torch.SpatialFilter(V("g1"), V("g2"), **spatial),
+        ranking=None)
+    (scores, rows, _), = serial(lgd, [q], traced=True)
+    assert rows.n > 0
+    spans, names = tracing.drain()
+    got = names_of(spans, names)
+    top = np.flatnonzero(got == f"shape.{shape}")
+    assert len(top) == 1
+    kids = got[spans["parent"] == top[0]]
+    assert list(kids).count("shape.side") == 2
+    for name in ("shape.exact", "shape.rows", "sip.select"):
+        assert name in kids, name
+    assert (spans["rid"][spans["parent"] >= 0]
+            == spans["rid"][top[0]]).all()
+
+
+def test_selections_are_bit_identical_with_tracing_on(lgd):
+    _, off = serve(lgd, selections(lgd), traced=False)
+    _, on = serve(lgd, selections(lgd), traced=True)
+    assert len(tracing.drain()[0]["name"]) > 0
+    for a, b in zip(on, off):
+        assert a.rows.n > 0
+        np.testing.assert_array_equal(a.scores, b.scores)
+        assert a.rows.keys() == b.rows.keys()
+        for c in b.rows.keys():
+            np.testing.assert_array_equal(a.rows[c], b.rows[c])
+        assert dataclasses.asdict(a.stats) == dataclasses.asdict(b.stats)
 
 
 # ---------------------------------------------------- on equals off
