@@ -402,6 +402,25 @@ class StreakEngine:
                 self._key_contrib(rel, driven, plan))
         return self._scan_cache[key]
 
+    def _shape_side(self, side: SidePlan, plan: QueryPlan) -> tuple:
+        """(relation, entities with a geometry, their normalized MBRs) of
+        one side of a non-top-k shape (`shapes._side`): no window or
+        centre enters them, so they are built once per engine and cached
+        beside the side's relation, the two arrays read-only. Each lookup
+        counts `shape.side_hit:<shape>` or `shape.side_built:<shape>`."""
+        from .shapes import _ents_boxes, _side_rel   # imports this module
+        key = ("__shape_side",) + self._full_key(
+            side, plan.join_impl, plan.rank_backend) + (side.entity_var,)
+        hit = key in self._scan_cache
+        tracing.count(f"shape.side_{'hit' if hit else 'built'}:{plan.shape}")
+        if not hit:
+            rel = _side_rel(self, side, plan)
+            ents, boxes = _ents_boxes(self.store, rel, side.entity_var)
+            ents.flags.writeable = False
+            boxes.flags.writeable = False
+            self._scan_cache[key] = (rel, ents, boxes)
+        return self._scan_cache[key]
+
     @tracing.spanned("driven.splan")
     def _driven_splan(self, driven: SidePlan, plan: QueryPlan, intervals,
                       explicit, stats: ExecStats) -> tuple:

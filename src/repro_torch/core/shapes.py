@@ -34,7 +34,9 @@ and boxes), ``shape.material`` (V* to SIP membership), ``shape.exact``
 (the MBR prefilter and the exact test) and ``shape.rows`` (rows out).
 Each selection counts ``shape.entities:<shape>`` (the side's entities
 with a geometry), ``shape.kept:<shape>`` (those sent to the exact test)
-and ``shape.rows:<shape>`` (rows returned) in `tracing.COUNTS`.
+and ``shape.rows:<shape>`` (rows returned) in `tracing.COUNTS`. Each side
+looked up counts ``shape.side_built:<shape>`` the first time an engine
+builds it and ``shape.side_hit:<shape>`` after that.
 
 Selections return ALL qualifying rows (`Query.k` is ignored; Geographica
 selections are not top-k), in a canonical deterministic order so every
@@ -253,11 +255,10 @@ def execute_shape(engine, q: Query, deadline: QueryDeadline | None = None):
 def _side(engine, side, plan: QueryPlan
           ) -> tuple[Relation, np.ndarray, np.ndarray]:
     """(relation, entities with geometry, their normalized MBRs) of one
-    side: one `shape.side` span."""
+    side, built once per engine (`StreakEngine._shape_side`; the arrays
+    are read-only): one `shape.side` span."""
     with tracing.span("shape.side"):
-        rel = _side_rel(engine, side, plan)
-        ents, boxes = _ents_boxes(engine.store, rel, side.entity_var)
-    return rel, ents, boxes
+        return engine._shape_side(side, plan)
 
 
 def _count(shape: str, entities: int, kept: int, rows: int) -> None:

@@ -17,7 +17,8 @@ import repro
 import repro_torch
 from repro.core import spatial_join as ref_sj
 from repro.data import synth_rdf as ref_synth
-from repro_torch.core import spatial_join as port_sj
+from repro_torch import tracing
+from repro_torch.core import shapes, spatial_join as port_sj
 from repro_torch.core.planner import plan_query
 from repro_torch.data import synth_rdf as port_synth
 
@@ -314,3 +315,148 @@ def test_shapes_through_serve_loop_match_serial(ds):
         _assert_same((req.scores, req.rows, req.stats),
                      (want_req.scores, want_req.rows, want_req.stats),
                      pair_store=pair)
+
+
+# ------------------------------------------------------------- cached sides --
+def _port_query(d, name: str):
+    """The port's query of `SHAPES[name]`; "bare" is a range selection
+    whose side is its geometry alone ("every spatial entity"), "empty" a
+    kNN whose driven side has no rows."""
+    V, TP = repro_torch.Var, repro_torch.TriplePattern
+    if name == "bare":
+        return repro_torch.Query(
+            select=(V("place"),),
+            patterns=(TP(V("place"), d.ns["hasGeometry"], V("g1")),),
+            spatial=repro_torch.SpatialFilter(V("g1"),
+                                              window=(15.0, 10.0, 70.0, 60.0)),
+            ranking=None)
+    if name == "empty":
+        return _port_shape_query(d, _f(knn=3), cls_b="class:police",
+                                 extra_b=("area",))
+    return _port_shape_query(d, SHAPES[name])
+
+
+def _port_shape_query(d, spatial, **qkw):
+    spatial = dict(spatial)
+    spatial["a"] = repro_torch.Var(spatial["a"])
+    if spatial["b"] is not None:
+        spatial["b"] = repro_torch.Var(spatial["b"])
+    return _shape_query(repro_torch, d, spatial, **qkw)
+
+
+def _engine_plan_sides(d, name: str):
+    eng = repro_torch.StreakEngine(d.store, device="cpu")
+    plan = plan_query(d.store, _port_query(d, name), policy=eng.config.policy)
+    sides = [plan.driver]
+    if plan.shape in ("knn", "join"):
+        sides.append(plan.driven)
+    return eng, plan, sides
+
+
+def _counted(before: dict, prefix: str) -> dict:
+    return {k: v - before.get(k, 0) for k, v in tracing.COUNTS.items()
+            if k.startswith(prefix) and v != before.get(k, 0)}
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES) + ["bare", "empty"])
+def test_cached_side_equals_a_fresh_build(ds, name):
+    """Every side of the corpus: the engine's cached (relation, entities,
+    boxes) equals `_ents_boxes` over `_side_rel`, array for array."""
+    d = ds[1]
+    eng, plan, sides = _engine_plan_sides(d, name)
+    for side in sides:
+        rel, ents, boxes = eng._shape_side(side, plan)
+        fresh = repro_torch.StreakEngine(d.store, device="cpu")
+        want_rel = shapes._side_rel(fresh, side, plan)
+        want_ents, want_boxes = shapes._ents_boxes(d.store, want_rel,
+                                                   side.entity_var)
+        assert sorted(rel.keys()) == sorted(want_rel.keys())
+        for c in want_rel.keys():
+            np.testing.assert_array_equal(rel[c], want_rel[c])
+        assert (ents.dtype, boxes.dtype) == (want_ents.dtype,
+                                             want_boxes.dtype)
+        np.testing.assert_array_equal(ents, want_ents)
+        np.testing.assert_array_equal(boxes, want_boxes)
+    if name == "bare":
+        tree = d.store.tree
+        assert len(ents) == int((~np.isnan(tree.obj_mbr[:, 0])).sum()) > 0
+
+
+@pytest.mark.parametrize("name", ["range", "within", "join", "knn4", "bare"])
+def test_cached_side_is_looked_up_not_built_again(ds, name, monkeypatch):
+    """The first lookup of each side builds it; later lookups, and whole
+    queries, return the same objects, count `shape.side_hit:<shape>` and
+    build nothing."""
+    d = ds[1]
+    eng, plan, sides = _engine_plan_sides(d, name)
+    before = dict(tracing.COUNTS)
+    first = [eng._shape_side(s, plan) for s in sides]
+    assert _counted(before, "shape.side_") == {
+        f"shape.side_built:{plan.shape}": len(sides)}
+
+    def no_build(*args):
+        raise AssertionError("a cached side was built again")
+
+    monkeypatch.setattr(shapes, "_side_rel", no_build)
+    monkeypatch.setattr(shapes, "_ents_boxes", no_build)
+    before = dict(tracing.COUNTS)
+    again = [eng._shape_side(s, plan) for s in sides]
+    for a, b in zip(again, first):
+        assert all(x is y for x, y in zip(a, b))
+    eng.execute(_port_query(d, name))
+    assert _counted(before, "shape.side_") == {
+        f"shape.side_hit:{plan.shape}": 2 * len(sides)}
+
+
+@pytest.mark.parametrize("name", ["range", "bare", "empty"])
+def test_cached_side_arrays_are_read_only(ds, name):
+    d = ds[1]
+    eng, plan, sides = _engine_plan_sides(d, name)
+    _, ents, boxes = eng._shape_side(sides[-1], plan)
+    assert not ents.flags.writeable and not boxes.flags.writeable
+    assert (len(ents) == 0) == (name == "empty")
+    with pytest.raises(ValueError, match="read-only"):
+        ents[:1] = 0
+    with pytest.raises(ValueError, match="read-only"):
+        boxes[:1] = 0.0
+
+
+# one template at several windows, centres or distances, each later one
+# over other entities than the one before it
+SWEEPS = {
+    "range": [_f(False, window=w) for w in (
+        (15.0, 10.0, 70.0, 60.0), (40.0, 0.0, 40.5, 100.0),
+        (0.0, 0.0, 100.0, 100.0), (400.0, 400.0, 500.0, 500.0),
+        (60.0, 50.0, 90.0, 95.0), (15.0, 10.0, 70.0, 60.0))],
+    "within": [_f(False, dist=r, center=c) for r, c in (
+        (18.0, (50.0, 30.0)), (0.01, (50.0, 30.0)), (40.0, (10.0, 90.0)),
+        (5.0, (80.0, 20.0)), (18.0, (50.0, 30.0)))],
+    "join": [_f(dist=r) for r in (12.0, 1e-12, 20.0, 8.0, 12.0)],
+}
+
+
+@pytest.mark.parametrize("mode", ["serial", "serve"])
+@pytest.mark.parametrize("kind", sorted(SWEEPS))
+def test_one_template_many_windows_answers_as_a_fresh_engine(ds, kind,
+                                                              mode):
+    """One engine answers the sweep in turn, serially or through the
+    serving loop; each answer equals a fresh engine's, so nothing of one
+    window is left in the sides the next one finds."""
+    from repro_torch.serve.spatial import SpatialServeEngine
+    d = ds[1]
+    queries = [_port_shape_query(d, spatial) for spatial in SWEEPS[kind]]
+    if mode == "serial":
+        eng = repro_torch.StreakEngine(d.store, device="cpu")
+        got = [eng.execute(q) for q in queries]
+    else:
+        srv = SpatialServeEngine(d.store, repro_torch.ExecConfig(),
+                                 max_slots=2, device="cpu")
+        reqs = srv.serve(queries)
+        assert all(r.error is None for r in reqs)
+        got = [(r.scores, r.rows, r.stats) for r in reqs]
+    rows = set()
+    for q, g in zip(queries, got):
+        want = repro_torch.StreakEngine(d.store, device="cpu").execute(q)
+        _assert_same(g, want)
+        rows.add(g[1].n)
+    assert len(rows) > 1

@@ -272,12 +272,18 @@ def selections(d):
 
 
 def test_selection_spans_sit_under_their_requests_begin(lgd):
+    """Each selection served twice by one engine: the first of a side
+    builds its entities and boxes, the second finds them; `shape.side`
+    sits under its executor either way."""
     before = dict(tracing.COUNTS)
-    _, reqs = serve(lgd, selections(lgd), traced=True)
+    _, reqs = serve(lgd, selections(lgd) * 2, traced=True)
     spans, names = tracing.drain()
     got = names_of(spans, names)
     rid, parent = spans["rid"], spans["parent"]
-    for req, shape in zip(reqs, ("range", "within")):
+    counted = {k: v - before.get(k, 0) for k, v in tracing.COUNTS.items()
+               if k.startswith("shape.")}
+    shapes = ("range", "within") * 2
+    for req, shape in zip(reqs, shapes):
         assert req.error is None and req.rows.n > 0
         top = np.flatnonzero((got == f"shape.{shape}") & (rid == req.rid))
         assert len(top) == 1
@@ -291,11 +297,15 @@ def test_selection_spans_sit_under_their_requests_begin(lgd):
                 assert rid[i] == req.rid, got[i]
         for name in SHAPE_SPANS + ("sip.select",):
             assert name in set(got[under]), (shape, name)
-        counted = {k: v - before.get(k, 0) for k, v in tracing.COUNTS.items()
-                   if k.endswith(f":{shape}") and k.startswith("shape.")}
-        assert counted[f"shape.rows:{shape}"] == req.rows.n
+        side = np.flatnonzero((got == "shape.side") & (rid == req.rid))
+        assert len(side) == 1 and parent[side[0]] == top[0]
+    for shape in ("range", "within"):
+        n = sum(r.rows.n for r, s in zip(reqs, shapes) if s == shape)
+        assert counted[f"shape.rows:{shape}"] == n
         assert counted[f"shape.entities:{shape}"] \
-            >= counted[f"shape.kept:{shape}"] >= req.rows.n
+            >= counted[f"shape.kept:{shape}"] >= n
+        assert counted[f"shape.side_built:{shape}"] == 1
+        assert counted[f"shape.side_hit:{shape}"] == 1
 
 
 @pytest.mark.parametrize("shape,spatial", [
@@ -313,8 +323,11 @@ def test_pair_shape_spans_sit_under_their_executor(lgd, shape, spatial):
                   TP(b, ns["hasGeometry"], V("g2"))),
         spatial=repro_torch.SpatialFilter(V("g1"), V("g2"), **spatial),
         ranking=None)
+    key = f"shape.side_built:{shape}"
+    before = tracing.COUNTS.get(key, 0)
     (scores, rows, _), = serial(lgd, [q], traced=True)
     assert rows.n > 0
+    assert tracing.COUNTS[key] - before == 2
     spans, names = tracing.drain()
     got = names_of(spans, names)
     top = np.flatnonzero(got == f"shape.{shape}")
