@@ -130,7 +130,8 @@ class FullScanEngine:
         pool = store.geom_pool
 
         def ents_of(rel, var):
-            return shapes._ents_boxes(store, rel, var)[0]
+            return store.entities_with_box(
+                rel.get(var, np.empty(0, np.int64)))[0]
 
         def geom_slices(ents):
             rows = store.geom_rows(ents)

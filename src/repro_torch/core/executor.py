@@ -18,8 +18,8 @@ from . import aps, node_select, shard as shard_mod, spatial_join
 from .. import tracing
 from ..device import resolve_device
 from .fault import QueryDeadline
-from .join import (Relation, filter_in_ranges, join, resolve_join_impl,
-                   rows_in_ranges, scan_pattern)
+from .join import (Relation, filter_in_ranges, join, scan_pattern,
+                   select_in_ranges)
 from .planner import QueryPlan, SidePlan, plan_query
 from .policy import BackendPolicy
 from .query import Query, Var
@@ -47,7 +47,8 @@ class DrivenMaterial:
 
     An S-Plan block keeps rows of that relation; `entities(rows)` turns
     them into the driven entities, boxes and key bounds by gathers alone,
-    the same arrays `StreakEngine._driven_entities` finds by lookups."""
+    the same arrays `StreakEngine._driven_entities` finds by lookups.
+    `SideCache.material` makes and keeps it."""
     ents: np.ndarray     # (n,) int64 entity column, non-decreasing
     geo: np.ndarray      # (n,) int64 the entity's row of `mbr`, -1: no box
     contrib: np.ndarray  # (n,) float64 score-key contribution, NaN -> -inf
@@ -79,6 +80,82 @@ class DrivenMaterial:
         if bound and ok.any():
             vs = np.maximum.reduceat(self.contrib[rows], first)[ok]
         return ents[first][ok], self.mbr[geo[ok]], vs
+
+
+class SideCache:
+    """What an engine derives from a query side and keeps for its life, in
+    one dict under one key scheme (`_key`):
+
+    - `scan(tp)`: one pattern's index scan;
+    - `full(side, plan)`: the side's patterns joined in turn, the S-Plan's
+      full driven scan (only the SIP filter varies per block);
+    - `material(side, plan)`: Phase 3's `DrivenMaterial` of that relation,
+      which must be sorted by the entity variable;
+    - `shape(side, plan)`: a query shape's (relation, entities with a box,
+      their normalized MBRs), the two arrays read-only; a pattern-less
+      side is every spatial entity. No window or centre enters them. Each
+      lookup counts `shape.side_hit:<shape>` or `shape.side_built:<shape>`.
+
+    A key holds the side's pattern contents, the plan's join impl and rank
+    backend (a `FaultPlan` that demotes a stage gets entries of its own),
+    and what a kind's arrays depend on besides."""
+
+    def __init__(self, engine: StreakEngine):
+        self.engine = engine
+        self._entries: dict = {}
+
+    @staticmethod
+    def _key(kind: str, patterns, plan: QueryPlan | None, *extra) -> tuple:
+        # key on the pattern *contents*: id(tp) can collide after pattern
+        # objects are garbage-collected, silently reusing a stale relation
+        pats = tuple((tp.g, tp.s, tp.p, tp.o) for tp in patterns)
+        if plan is None:
+            return (kind, pats) + extra
+        return (kind, pats, plan.join_impl, plan.rank_backend) + extra
+
+    def _get(self, key: tuple, build: Callable):
+        if key not in self._entries:
+            self._entries[key] = build()
+        return self._entries[key]
+
+    def scan(self, tp) -> Relation:
+        return self._get(self._key("scan", (tp,), None),
+                         lambda: scan_pattern(self.engine.store, tp))
+
+    def full(self, side: SidePlan, plan: QueryPlan) -> Relation:
+        eng = self.engine
+        return self._get(
+            self._key("full", side.all_ordered, plan),
+            lambda: eng._join_chain(self.scan(side.all_ordered[0]),
+                                    side.all_ordered[1:], plan))
+
+    def material(self, side: SidePlan, plan: QueryPlan) -> DrivenMaterial:
+        # the contributions read the quant terms and the ranking direction
+        def build():
+            rel = self.full(side, plan)
+            return DrivenMaterial.build(
+                self.engine.store.tree, rel[side.entity_var],
+                self.engine._key_contrib(rel, side, plan))
+        return self._get(self._key(
+            "material", side.all_ordered, plan, side.entity_var,
+            plan.descending,
+            tuple((var, w) for _, var, w in side.quant_terms)), build)
+
+    def shape(self, side: SidePlan, plan: QueryPlan) -> tuple:
+        key = self._key("shape", side.all_ordered, plan, side.entity_var)
+        hit = key in self._entries
+        tracing.count(f"shape.side_{'hit' if hit else 'built'}:{plan.shape}")
+
+        def build():
+            store, var = self.engine.store, side.entity_var
+            rel = (self.full(side, plan) if side.all_ordered
+                   else Relation({var: np.unique(store.tree.obj_ids)}))
+            ents, boxes = store.entities_with_box(
+                rel.get(var, np.empty(0, np.int64)))
+            ents.flags.writeable = False
+            boxes.flags.writeable = False
+            return rel, ents, boxes
+        return self._get(key, build)
 
 
 @dataclasses.dataclass
@@ -134,7 +211,7 @@ class StreakEngine:
         self.store = store
         self.config = config or ExecConfig()
         self.device = resolve_device(device)
-        self._scan_cache: dict = {}
+        self.sides = SideCache(self)
         # one tuner per engine: survivor statistics carry across queries,
         # which is exactly the serving workload the autotuner targets
         self.kcap_tuner = (spatial_join.KcapTuner()
@@ -159,32 +236,25 @@ class StreakEngine:
                 plan.rank_backend)
 
     # ------------------------------------------------------------------
-    def _cached_scan(self, tp) -> Relation:
-        key = (tp.g, tp.s, tp.p, tp.o)
-        if key not in self._scan_cache:
-            self._scan_cache[key] = scan_pattern(self.store, tp)
-        return self._scan_cache[key]
-
     def _join_chain(self, base: Relation, patterns: list,
-                    impl: str | None = None,
-                    backend: str | None = None) -> Relation:
-        """Join `base` with each pattern's scan in turn; rank kernels run
-        on the engine's device."""
+                    plan: QueryPlan) -> Relation:
+        """Join `base` with each pattern's cached scan in turn; rank
+        kernels run on the engine's device."""
         rel = base
         for tp in patterns:
             if rel.n == 0:
                 # empty stays empty, but the schema must stay complete —
                 # downstream consumers (and the brute-force oracles) expect
                 # every pattern's variables as (empty) columns
-                scan = self._cached_scan(tp)
+                scan = self.sides.scan(tp)
                 cols = {c: rel[c] for c in rel.keys()}
                 for c in scan.keys():
                     if c not in cols:
                         cols[c] = np.empty(0, dtype=np.int64)
                 rel = Relation(cols)
                 continue
-            rel = join(rel, self._cached_scan(tp), impl=impl, backend=backend,
-                       device=self.device)
+            rel = join(rel, self.sides.scan(tp), impl=plan.join_impl,
+                       backend=plan.rank_backend, device=self.device)
         return rel
 
     def _block_relation(self, side: SidePlan, b: int) -> tuple[Relation, np.ndarray]:
@@ -261,10 +331,7 @@ class StreakEngine:
         """(driven entities with a box, their boxes, their key bounds) of
         `rel` by sort and lookup; the bounds are None unless `bound` and
         there are entities (`DrivenMaterial.entities` gathers the same)."""
-        ents = np.unique(rel[side.entity_var])
-        boxes = self.store.spatial_box_of(ents)
-        ok = ~np.isnan(boxes[:, 0])
-        ents, boxes = ents[ok], boxes[ok]
+        ents, boxes = self.store.entities_with_box(rel[side.entity_var])
         vs = None
         if bound and len(ents):
             vs = self._entity_key_bound(rel, ents, side, plan)
@@ -367,60 +434,6 @@ class StreakEngine:
         return QueryCursor(self, q, deadline=deadline)
 
     # ------------------------------------------------------------------
-    @staticmethod
-    def _full_key(driven: SidePlan, impl: str | None,
-                  backend: str | None) -> tuple:
-        # key on the pattern *contents*: id(tp) can collide after pattern
-        # objects are garbage-collected, silently reusing a stale relation
-        return ("__driven_full", impl, backend) \
-            + tuple((tp.g, tp.s, tp.p, tp.o) for tp in driven.all_ordered)
-
-    def _driven_full(self, driven: SidePlan, impl: str | None,
-                     backend: str | None = None) -> Relation:
-        """Fully-joined driven sub-query, cached per query (S-Plan is a
-        full scan per the paper; only the SIP filter varies per block)."""
-        key = self._full_key(driven, impl, backend)
-        if key not in self._scan_cache:
-            rel = self._cached_scan(driven.all_ordered[0])
-            rel = self._join_chain(rel, driven.all_ordered[1:], impl, backend)
-            self._scan_cache[key] = rel
-        return self._scan_cache[key]
-
-    def _driven_material(self, driven: SidePlan,
-                         plan: QueryPlan) -> DrivenMaterial:
-        """Phase-3 material of `_driven_full`'s relation, which must be
-        sorted by the entity variable; cached beside it, keyed also by the
-        quant terms and the ranking direction the contributions use."""
-        full = self._full_key(driven, plan.join_impl, plan.rank_backend)
-        key = ("__phase3",) + full + (
-            driven.entity_var, plan.descending,
-            tuple((var, w) for _, var, w in driven.quant_terms))
-        if key not in self._scan_cache:
-            rel = self._scan_cache[full]
-            self._scan_cache[key] = DrivenMaterial.build(
-                self.store.tree, rel[driven.entity_var],
-                self._key_contrib(rel, driven, plan))
-        return self._scan_cache[key]
-
-    def _shape_side(self, side: SidePlan, plan: QueryPlan) -> tuple:
-        """(relation, entities with a geometry, their normalized MBRs) of
-        one side of a non-top-k shape (`shapes._side`): no window or
-        centre enters them, so they are built once per engine and cached
-        beside the side's relation, the two arrays read-only. Each lookup
-        counts `shape.side_hit:<shape>` or `shape.side_built:<shape>`."""
-        from .shapes import _ents_boxes, _side_rel   # imports this module
-        key = ("__shape_side",) + self._full_key(
-            side, plan.join_impl, plan.rank_backend) + (side.entity_var,)
-        hit = key in self._scan_cache
-        tracing.count(f"shape.side_{'hit' if hit else 'built'}:{plan.shape}")
-        if not hit:
-            rel = _side_rel(self, side, plan)
-            ents, boxes = _ents_boxes(self.store, rel, side.entity_var)
-            ents.flags.writeable = False
-            boxes.flags.writeable = False
-            self._scan_cache[key] = (rel, ents, boxes)
-        return self._scan_cache[key]
-
     @tracing.spanned("driven.splan")
     def _driven_splan(self, driven: SidePlan, plan: QueryPlan, intervals,
                       explicit, stats: ExecStats) -> tuple:
@@ -430,7 +443,7 @@ class StreakEngine:
         Returns the kept relation and, when the merge filter kept rows of
         a relation sorted by the entity variable, `(material, rows)` for
         `QueryCursor._phase3` to gather from (else None)."""
-        rel = self._driven_full(driven, plan.join_impl, plan.rank_backend)
+        rel = self.sides.full(driven, plan)
         stats.driven_rows_scanned += rel.n
         rows = None
         if self.config.use_sip and driven.entity_var in rel:
@@ -441,26 +454,17 @@ class StreakEngine:
             if key is not None and _shared(sc, key, "splan"):
                 rel, rows = sc[key]
             else:
-                if resolve_join_impl(plan.join_impl) == "merge":
-                    rows = rows_in_ranges(rel, driven.entity_var, intervals,
-                                          explicit, plan.rank_backend,
-                                          self.device)
-                    kept = rel.take(rows)
-                    kept.sorted_by = rel.sorted_by  # the rows keep their order
-                    rel = kept
-                    if rel.sorted_by[:1] != (driven.entity_var,):
-                        rows = None     # nothing to gather: hold no index
-                else:
-                    rel = filter_in_ranges(rel, driven.entity_var, intervals,
-                                           explicit, impl=plan.join_impl,
-                                           backend=plan.rank_backend,
-                                           device=self.device)
+                rel, rows = select_in_ranges(
+                    rel, driven.entity_var, intervals, explicit,
+                    plan.join_impl, plan.rank_backend, self.device)
+                if rel.sorted_by[:1] != (driven.entity_var,):
+                    rows = None     # nothing to gather: hold no index
                 if key is not None:
                     sc[key] = (rel, rows)
         stats.driven_rows_after_sip += rel.n
         if rows is None:
             return rel, None
-        return rel, (self._driven_material(driven, plan), rows)
+        return rel, (self.sides.material(driven, plan), rows)
 
     @tracing.spanned("driven.nplan")
     def _driven_nplan(self, driven: SidePlan, plan: QueryPlan, intervals,
@@ -497,7 +501,7 @@ class StreakEngine:
                                                  backend=plan.rank_backend,
                                                  device=self.device)
                 joined = self._join_chain(block_rel, driven.join_patterns,
-                                          plan.join_impl, plan.rank_backend)
+                                          plan)
                 if cfg.use_sip and driven.entity_var not in block_rel \
                         and driven.entity_var in joined:
                     joined = filter_in_ranges(joined, driven.entity_var,
@@ -544,7 +548,6 @@ class QueryCursor:
         self.deadline = deadline
         cfg = engine.config
         store = engine.store
-        self.tree = store.tree
         with tracing.span("exec.plan"):
             self.plan = plan_query(store, q, force_driver=cfg.force_driver,
                                    policy=cfg.policy)
@@ -557,31 +560,7 @@ class QueryCursor:
             self.driven, self.plan.descending, exclude_primary=False)
         self.kw_p = (engine._kw(self.driver.primary[2], self.plan.descending)
                      if self.driver.primary else 0.0)
-        # shard views: one view on an unsharded store. SIP disabled ⟹ no
-        # interval filtering, so a per-shard loop would replicate the
-        # driven side — the single global view instead.
-        self.shards = (shard_mod.shard_views(store) if cfg.use_sip
-                       else shard_mod.whole_view(store)) \
-            if store.tree is not None else []
-        # per-query (block-invariant) driven-CS cardinality per shard node
-        self.card_all = [sh.tree.cs_stats.cardinality_all(self.plan.driven_cs)
-                         for sh in self.shards]
-        # query-invariant probe material: driven-CS keys hashed once and
-        # reused by every frontier level of every window; `prepare` is pure
-        # in (keys, bloom geometry) and the shard builder copies the global
-        # Bloom geometry, so ONE prepared serves every shard
-        self.prepared = (self.tree.bloom_self.prepare(self.plan.driven_cs)
-                         if cfg.use_sip else None)
-        # fused-descent routes probe the Bloom root paths ONCE per query
-        # (block/box-independent, see SQuadTree.cs_path_mask) instead of
-        # once per frontier level of every lookahead window — per shard
-        self.cs_path = (
-            [sh.tree.cs_path_mask(self.plan.driven_cs,
-                                  prepared=self.prepared,
-                                  probe_backend=self.plan.probe_backend,
-                                  device=engine.device)
-             for sh in self.shards]
-            if cfg.use_sip and self.plan.descend_backend != "numpy" else None)
+        self.sip = shard_mod.SipContext(engine, self.plan)
         self.window = max(int(cfg.sip_lookahead), 1) if cfg.use_sip else 1
         self._drv_sig = engine._side_sig(self.driver, self.plan)
         self.pending: dict[int, tuple] = {}  # block -> (rel, ents, boxes)
@@ -651,17 +630,13 @@ class QueryCursor:
             block_rel, _ = eng._block_relation(driver, w)
             join_chain = driver.join_patterns
         else:  # no numeric driver: single full block
-            block_rel = eng._cached_scan(driver.all_ordered[0])
+            block_rel = eng.sides.scan(driver.all_ordered[0])
             join_chain = driver.all_ordered[1:]
-        drv_rel = eng._join_chain(block_rel, join_chain, plan.join_impl,
-                                  plan.rank_backend)
+        drv_rel = eng._join_chain(block_rel, join_chain, plan)
         uniq_ents = boxes = None
-        if drv_rel.n:
-            # driver entities with geometry
-            uniq_ents = np.unique(drv_rel[driver.entity_var])
-            boxes = eng.store.spatial_box_of(uniq_ents)
-            has_geom = ~np.isnan(boxes[:, 0])
-            uniq_ents, boxes = uniq_ents[has_geom], boxes[has_geom]
+        if drv_rel.n:   # driver entities with geometry
+            uniq_ents, boxes = eng.store.entities_with_box(
+                drv_rel[driver.entity_var])
         if key is not None:
             sc[key] = (drv_rel, uniq_ents, boxes)
         return drv_rel, uniq_ents, boxes
@@ -672,16 +647,11 @@ class QueryCursor:
         gathers and MBR tests across blocks (per shard). Speculative work
         past an early termination cut is discarded — the per-block guard is
         unchanged."""
-        cfg, plan = self.engine.config, self.plan
         mats = self._materialize_window(b0)
-        if cfg.use_sip:
+        if self.engine.config.use_sip:
             box_sets = [bx if bx is not None else np.zeros((0, 4))
                         for (_, _, _, bx) in mats]
-            v_stars = shard_mod.sip_select(
-                self.shards, box_sets, plan.dist_norm, plan.driven_cs,
-                self.prepared, plan.probe_backend, plan.descend_backend,
-                self.cs_path, cfg.select_params, self.card_all,
-                self.engine.device)
+            v_stars = self.sip.select(box_sets, self.plan.dist_norm)
             for (w, _, _, _), v_star in zip(mats, v_stars):
                 self._vstars[w] = v_star
 
@@ -702,7 +672,7 @@ class QueryCursor:
         the batcher's emit callback refines + scores + pushes into this
         cursor's TopK so θ tightens between shared kernel launches.
 
-        ``v_star`` is a per-shard list aligned with ``self.shards``. The
+        ``v_star`` is a per-shard list aligned with ``self.sip.shards``. The
         shard-clipped SIP intervals partition the driven result set, so
         sweeping shards sequentially and re-reading θ before each shard's
         APS `key_needed` (global-θ exchange) is exact: earlier shards'
@@ -715,7 +685,7 @@ class QueryCursor:
         if cfg.use_sip and all(len(v) == 0 for v in v_star):
             return  # nothing on the driven side can join this block
         stats.v_star_sizes.append(sum(len(v) for v in v_star))
-        for si, sh in enumerate(self.shards):
+        for si, sh in enumerate(self.sip.shards):
             if cfg.use_sip and len(v_star[si]) == 0:
                 continue
             with tracing.span("exec.filter_material"):
@@ -729,7 +699,7 @@ class QueryCursor:
                 if topk.full else -np.inf
             decision = aps.choose(sh.tree, v_star[si], plan.driven_cs,
                                   driven.scan, key_needed, drv_rel.n,
-                                  cfg.cost_params, self.card_all[si])
+                                  cfg.cost_params, self.sip.card_all[si])
             chosen = cfg.force_plan or decision.plan
             if driven.scan is None:
                 chosen = "S"
@@ -839,7 +809,7 @@ class QueryCursor:
             self._sip_prefetch(b)
         drv_rel, uniq_ents, boxes = self.pending.pop(b)
         v_star = self._vstars.pop(
-            b, [np.array([0], dtype=np.int64)] * len(self.shards))
+            b, [np.array([0], dtype=np.int64)] * len(self.sip.shards))
         self.b += 1
         if drv_rel.n and uniq_ents is not None and len(uniq_ents):
             self._process(drv_rel, uniq_ents, boxes, v_star)
@@ -898,13 +868,14 @@ class QueryCursor:
                         else np.zeros((0, 4)) for w in sorted(self.pending)]
                 else:
                     self._win_blocks, win_boxes = [], []
+                sip = self.sip
                 return {"boxes": win_boxes,
-                        "driven_cs": self.plan.driven_cs,
-                        "prepared": self.prepared,
+                        "driven_cs": sip.driven_cs,
+                        "prepared": sip.prepared,
                         "dist_norm": self.plan.dist_norm,
-                        "card_all": self.card_all,
+                        "card_all": sip.card_all,
                         "need_sip": need_sip,
-                        "cs_path": self.cs_path}
+                        "cs_path": sip.cs_path}
             if self.b >= self.n_blocks:
                 self._finish()
         return None
@@ -924,7 +895,7 @@ class QueryCursor:
                 self._vstars[w] = v
             self._win_blocks = []
         v_star = self._vstars.pop(
-            b, [np.array([0], dtype=np.int64)] * len(self.shards))
+            b, [np.array([0], dtype=np.int64)] * len(self.sip.shards))
         self._process(drv_rel, uniq_ents, boxes, v_star, batcher=batcher)
         if self.b >= self.n_blocks:
             self._finish()

@@ -555,12 +555,23 @@ def filter_in_ranges(rel: Relation, col: str, intervals: np.ndarray,
     if rel.n == 0 or (len(intervals) == 0 and len(explicit) == 0):
         return rel if (len(intervals) or len(explicit)) else rel.take(
             np.empty(0, dtype=np.int64))
+    return select_in_ranges(rel, col, intervals, explicit, impl, backend,
+                            device)[0]
+
+
+def select_in_ranges(rel: Relation, col: str, intervals: np.ndarray,
+                     explicit: np.ndarray, impl: str | None = None,
+                     backend: str | None = None, device=None
+                     ) -> tuple[Relation, np.ndarray | None]:
+    """`filter_in_ranges`' kept relation, and on the merge impl the
+    ascending indices of the rows of `rel` it kept (None on the looped
+    oracle). The merge relation keeps `rel.sorted_by`."""
     if resolve_join_impl(impl) == "looped":
-        return filter_in_ranges_looped(rel, col, intervals, explicit)
-    out = rel.take(rows_in_ranges(rel, col, intervals, explicit, backend,
-                                  device))
+        return filter_in_ranges_looped(rel, col, intervals, explicit), None
+    rows = rows_in_ranges(rel, col, intervals, explicit, backend, device)
+    out = rel.take(rows)
     out.sorted_by = rel.sorted_by  # the rows keep their order
-    return out
+    return out, rows
 
 
 def rows_in_ranges(rel: Relation, col: str, intervals: np.ndarray,
@@ -585,14 +596,13 @@ def rows_in_ranges(rel: Relation, col: str, intervals: np.ndarray,
     return np.flatnonzero(keep)
 
 
-def filter_in_ranges_looped(rel: Relation, col: str, intervals: np.ndarray,
-                            explicit: np.ndarray) -> Relation:
-    """Pre-rework numpy SIP filter, kept as the bit-identical oracle."""
-    if rel.n == 0 or (len(intervals) == 0 and len(explicit) == 0):
-        return rel if (len(intervals) or len(explicit)) else rel.take(
-            np.empty(0, dtype=np.int64))
-    vals = rel[col]
-    keep = np.zeros(rel.n, dtype=bool)
+def in_ranges_mask(vals: np.ndarray, intervals: np.ndarray,
+                   explicit: np.ndarray) -> np.ndarray:
+    """SIP membership of the ids `vals` in closed I-Range `intervals` or
+    the sorted E-list ids `explicit`, in numpy: the bool mask the looped
+    filter keeps rows by (the merge filter's rank-backend twin is
+    `rows_in_ranges`)."""
+    keep = np.zeros(len(vals), dtype=bool)
     if len(intervals):
         iv = intervals[np.argsort(intervals[:, 0])]
         starts = iv[:, 0]
@@ -604,4 +614,14 @@ def filter_in_ranges_looped(rel: Relation, col: str, intervals: np.ndarray,
         pos = np.searchsorted(explicit, vals)
         pos = np.clip(pos, 0, len(explicit) - 1)
         keep |= explicit[pos] == vals
-    return rel.take(np.flatnonzero(keep))
+    return keep
+
+
+def filter_in_ranges_looped(rel: Relation, col: str, intervals: np.ndarray,
+                            explicit: np.ndarray) -> Relation:
+    """Pre-rework numpy SIP filter, kept as the bit-identical oracle."""
+    if rel.n == 0 or (len(intervals) == 0 and len(explicit) == 0):
+        return rel if (len(intervals) or len(explicit)) else rel.take(
+            np.empty(0, dtype=np.int64))
+    return rel.take(np.flatnonzero(in_ranges_mask(rel[col], intervals,
+                                                  explicit)))

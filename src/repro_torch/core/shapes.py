@@ -49,11 +49,13 @@ from __future__ import annotations
 import numpy as np
 
 from .. import tracing
-from . import shard as shard_mod, spatial_join
+from . import spatial_join
+from .executor import ExecStats
 from .fault import QueryDeadline
-from .join import Relation, join
+from .join import Relation, in_ranges_mask, join
 from .planner import QueryPlan, plan_query
 from .query import Query
+from .shard import SipContext
 
 COVER_NORM = float(np.sqrt(2.0))    # normalized-space diameter bound
 
@@ -62,99 +64,26 @@ COVER_NORM = float(np.sqrt(2.0))    # normalized-space diameter bound
 # shared pieces
 # ---------------------------------------------------------------------------
 
-def _side_rel(engine, side, plan: QueryPlan) -> Relation:
-    """Fully-joined relation of one side; a pattern-less side means "every
-    spatial entity"."""
-    if not side.all_ordered:
-        return Relation({side.entity_var:
-                         np.unique(engine.store.tree.obj_ids)})
-    return engine._driven_full(side, plan.join_impl, plan.rank_backend)
-
-
-def _ents_boxes(store, rel: Relation, var: str
-                ) -> tuple[np.ndarray, np.ndarray]:
-    """Sorted unique entities of `rel[var]` that have geometry, plus their
-    normalized MBRs."""
-    if rel.n == 0 or var not in rel:
-        return np.empty(0, np.int64), np.zeros((0, 4))
-    ents = np.unique(rel[var])
-    boxes = store.spatial_box_of(ents)
-    ok = ~np.isnan(boxes[:, 0])
-    return ents[ok], boxes[ok]
-
-
-class _Sip:
-    """Per-query SIP state (Phases 1-2 across shard views), reusable across
-    driver chunks / kNN rounds — the same prepared Bloom keys, root-path
-    masks, and per-shard CS cardinalities the top-k cursor precomputes.
-    Probes and the descent run on the engine's device."""
-
-    def __init__(self, engine, plan: QueryPlan):
-        cfg = engine.config
-        self.engine = engine
-        self.plan = plan
-        self.enabled = bool(cfg.use_sip) and engine.store.tree is not None
-        self.shards = (shard_mod.shard_views(engine.store) if self.enabled
-                       else shard_mod.whole_view(engine.store))
-        if not self.enabled:
-            return
-        tree = engine.store.tree
-        self.prepared = tree.bloom_self.prepare(plan.driven_cs)
-        self.card_all = [sh.tree.cs_stats.cardinality_all(plan.driven_cs)
-                         for sh in self.shards]
-        self.cs_path = (
-            [sh.tree.cs_path_mask(plan.driven_cs, prepared=self.prepared,
-                                  probe_backend=plan.probe_backend,
-                                  device=engine.device)
-             for sh in self.shards]
-            if plan.descend_backend != "numpy" else None)
-
-    def filter(self, box_sets: list, dist_norm: float, ents: np.ndarray,
-               stats) -> list[np.ndarray]:
-        """One batched Phases-1-2 call over `box_sets` (one entry per driver
-        chunk), then per-chunk boolean masks over the sorted unique entity
-        array `ents` — an entity survives a chunk iff ANY shard's I-Range /
-        E-list material covers it (shard materials partition the id space,
-        so the union is exact)."""
-        if not self.enabled:
-            return [np.ones(len(ents), dtype=bool) for _ in box_sets]
-        plan, cfg = self.plan, self.engine.config
-        v_stars = shard_mod.sip_select(
-            self.shards, box_sets, dist_norm, plan.driven_cs, self.prepared,
-            plan.probe_backend, plan.descend_backend, self.cs_path,
-            cfg.select_params, self.card_all, self.engine.device)
-        masks = []
-        with tracing.span("shape.material"):
-            for v_star in v_stars:
-                stats.v_star_sizes.append(sum(len(v) for v in v_star))
-                keep = np.zeros(len(ents), dtype=bool)
-                for si, sh in enumerate(self.shards):
-                    if len(v_star[si]) == 0:
-                        continue
-                    intervals, explicit = sh.filter_material(v_star[si])
-                    keep |= _material_mask(ents, intervals, explicit)
-                masks.append(keep)
-        return masks
-
-
-def _material_mask(ents: np.ndarray, intervals: np.ndarray,
-                   explicit: np.ndarray) -> np.ndarray:
-    """SIP membership of sorted ids in I-Range intervals / E-list ids —
-    the array-side twin of `join.filter_in_ranges`."""
-    keep = np.zeros(len(ents), dtype=bool)
-    if len(ents) == 0:
-        return keep
-    if len(intervals):
-        iv = intervals[np.argsort(intervals[:, 0])]
-        starts = iv[:, 0]
-        ends = np.maximum.accumulate(iv[:, 1])
-        pos = np.searchsorted(starts, ents, "right") - 1
-        ok = pos >= 0
-        keep[ok] = ents[ok] <= ends[np.clip(pos[ok], 0, len(ends) - 1)]
-    if len(explicit):
-        pos = np.clip(np.searchsorted(explicit, ents), 0, len(explicit) - 1)
-        keep |= explicit[pos] == ents
-    return keep
+def _sip_masks(sip: SipContext, box_sets: list, dist_norm: float,
+               ents: np.ndarray, stats) -> list[np.ndarray]:
+    """One batched Phases-1-2 call over `box_sets` (one entry per driver
+    chunk), then per-chunk boolean masks over the sorted unique entity
+    array `ents` — an entity survives a chunk iff ANY shard's I-Range /
+    E-list material covers it (shard materials partition the id space, so
+    the union is exact). With SIP off every entity survives."""
+    if not sip.enabled:
+        return [np.ones(len(ents), dtype=bool) for _ in box_sets]
+    v_stars = sip.select(box_sets, dist_norm)
+    masks = []
+    with tracing.span("shape.material"):
+        for v_star in v_stars:
+            stats.v_star_sizes.append(sum(len(v) for v in v_star))
+            keep = np.zeros(len(ents), dtype=bool)
+            for v, sh in zip(v_star, sip.shards):
+                if len(v):
+                    keep |= in_ranges_mask(ents, *sh.filter_material(v))
+            masks.append(keep)
+    return masks
 
 
 def _canonical_order(rows: Relation, primary: list[str],
@@ -230,7 +159,6 @@ def _chunks(n: int, size: int) -> list[np.ndarray]:
 def execute_shape(engine, q: Query, deadline: QueryDeadline | None = None):
     """Execute a non-top-k shape on a `StreakEngine`. Returns
     (scores, rows, ExecStats) with the canonical deterministic ordering."""
-    from .executor import ExecStats   # lazy: executor imports this module
     cfg = engine.config
     plan = plan_query(engine.store, q, force_driver=cfg.force_driver,
                       policy=cfg.policy)
@@ -255,10 +183,10 @@ def execute_shape(engine, q: Query, deadline: QueryDeadline | None = None):
 def _side(engine, side, plan: QueryPlan
           ) -> tuple[Relation, np.ndarray, np.ndarray]:
     """(relation, entities with geometry, their normalized MBRs) of one
-    side, built once per engine (`StreakEngine._shape_side`; the arrays
-    are read-only): one `shape.side` span."""
+    side, built once per engine (`SideCache.shape`; the arrays are
+    read-only): one `shape.side` span."""
     with tracing.span("shape.side"):
-        return engine._shape_side(side, plan)
+        return engine.sides.shape(side, plan)
 
 
 def _count(shape: str, entities: int, kept: int, rows: int) -> None:
@@ -290,11 +218,11 @@ def _exec_range(engine, q: Query, plan: QueryPlan, stats):
     win = np.asarray(q.spatial.window, dtype=np.float64)
     ext = store.tree.extent
     win_norm = ext.normalize(win[None, :])[0]
-    sip = _Sip(engine, plan)
+    sip = SipContext(engine, plan)
     stats.driver_blocks += 1
     stats.plan_s += 1
     stats.plan_log.append("S")
-    keep = sip.filter([win_norm[None, :]], 0.0, ents, stats)[0]
+    keep = _sip_masks(sip, [win_norm[None, :]], 0.0, ents, stats)[0]
     # MBR prefilter in normalized space (conservative), exact point-in-
     # window test on the pool only for survivors
     from .geometry import boxes_intersect
@@ -320,11 +248,11 @@ def _exec_within(engine, q: Query, plan: QueryPlan, stats):
     ext = store.tree.extent
     c = np.asarray(q.spatial.center, dtype=np.float64)
     c_box = ext.normalize(np.array([[c[0], c[1], c[0], c[1]]]))
-    sip = _Sip(engine, plan)
+    sip = SipContext(engine, plan)
     stats.driver_blocks += 1
     stats.plan_s += 1
     stats.plan_log.append("S")
-    keep = sip.filter([c_box], plan.dist_norm, ents, stats)[0]
+    keep = _sip_masks(sip, [c_box], plan.dist_norm, ents, stats)[0]
     from .geometry import box_min_dist
     with tracing.span("shape.exact"):
         keep &= box_min_dist(boxes, c_box[0][None, :]) <= plan.dist_norm
@@ -350,12 +278,12 @@ def _exec_join(engine, q: Query, plan: QueryPlan, stats,
     stats.driven_rows_scanned += dvn_rel.n
     rows_a_all = store.geom_rows(a_ents)
     rows_b_all = store.geom_rows(b_ents)
-    sip = _Sip(engine, plan)
+    sip = SipContext(engine, plan)
     chunks = _chunks(len(a_ents), cfg.block)
     pa, pb, pd = [], [], []
     if chunks and len(b_ents):
-        masks = sip.filter([a_boxes[c] for c in chunks], plan.dist_norm,
-                           b_ents, stats)
+        masks = _sip_masks(sip, [a_boxes[c] for c in chunks],
+                           plan.dist_norm, b_ents, stats)
         for c, keep in zip(chunks, masks):
             if deadline is not None \
                     and deadline.expired(stats.driver_blocks):
@@ -418,7 +346,7 @@ def _exec_knn(engine, q: Query, plan: QueryPlan, stats,
     stats.driven_rows_scanned += dvn_rel.n
     rows_a_all = store.geom_rows(a_ents)
     rows_b_all = store.geom_rows(b_ents)
-    sip = _Sip(engine, plan)
+    sip = SipContext(engine, plan)
     ext = store.tree.extent
 
     res_a: list[np.ndarray] = []
@@ -439,7 +367,7 @@ def _exec_knn(engine, q: Query, plan: QueryPlan, stats,
         stats.driver_blocks += 1
         stats.plan_s += 1
         stats.plan_log.append("S")
-        keep = sip.filter([a_boxes[unc]], rn, b_ents, stats)[0]
+        keep = _sip_masks(sip, [a_boxes[unc]], rn, b_ents, stats)[0]
         cand = np.flatnonzero(keep)
         stats.driven_rows_after_sip += len(cand)
         done_rounds = np.zeros(len(unc), dtype=bool)
@@ -510,7 +438,6 @@ class ShapeCursor:
 
     def __init__(self, engine, q: Query,
                  deadline: QueryDeadline | None = None):
-        from .executor import ExecStats
         self.engine = engine
         self.q = q
         self.deadline = deadline

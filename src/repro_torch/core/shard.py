@@ -307,6 +307,52 @@ def candidate_nodes_sharded(shards: list[TreeShard], box_sets, dist_norm,
     return [masks[si, :, :sizes[si]] for si in range(len(shards))]
 
 
+class SipContext:
+    """One query's Phase 1-2 set-up across shard views, made once from
+    (engine, plan) and reused by every driver block or shape round:
+
+    - `shards`: the store's shard views (one view on an unsharded store);
+      with SIP off the one global view, since with no interval filtering a
+      per-shard loop would replicate the driven side; none without a tree;
+    - `card_all`: the driven-CS cardinality of every node, per view, also
+      with SIP off (APS reads it);
+    - `prepared`: the driven-CS keys hashed once for every frontier level
+      of every window; `prepare` is pure in (keys, Bloom geometry) and the
+      shard builder copies the global geometry, so one serves every shard;
+      None with SIP off;
+    - `cs_path`: per view, the root-path Bloom mask the fused descent
+      probes once per query (`SQuadTree.cs_path_mask`); None on the host
+      frontier or with SIP off.
+
+    `select` runs Phases 1-2 (`sip_select`) over driver box sets."""
+
+    def __init__(self, engine, plan):
+        cfg, store = engine.config, engine.store
+        self.plan, self.driven_cs = plan, plan.driven_cs
+        self.params, self.device = cfg.select_params, engine.device
+        self.enabled = bool(cfg.use_sip) and store.tree is not None
+        self.shards = ([] if store.tree is None else shard_views(store)
+                       if cfg.use_sip else whole_view(store))
+        self.card_all = [sh.tree.cs_stats.cardinality_all(self.driven_cs)
+                         for sh in self.shards]
+        self.prepared = (store.tree.bloom_self.prepare(self.driven_cs)
+                         if self.enabled else None)
+        self.cs_path = (
+            [sh.tree.cs_path_mask(self.driven_cs, prepared=self.prepared,
+                                  probe_backend=plan.probe_backend,
+                                  device=engine.device)
+             for sh in self.shards]
+            if self.enabled and plan.descend_backend != "numpy" else None)
+
+    def select(self, box_sets, dist_norm) -> list[list[np.ndarray]]:
+        """Per-block lists of per-shard V* for the driver `box_sets`."""
+        plan = self.plan
+        return sip_select(self.shards, box_sets, dist_norm, self.driven_cs,
+                          self.prepared, plan.probe_backend,
+                          plan.descend_backend, self.cs_path, self.params,
+                          self.card_all, self.device)
+
+
 @tracing.spanned("sip.select")
 def sip_select(shards: list[TreeShard], box_sets, dist_norm,
                driven_cs: np.ndarray, prepared, probe_backend,

@@ -402,6 +402,17 @@ class QuadStore:
         out[hit] = t.obj_mbr[pos[hit]]
         return out
 
+    def entities_with_box(self, ids: np.ndarray
+                          ) -> tuple[np.ndarray, np.ndarray]:
+        """The sorted unique ids of the id column `ids` that have a spatial
+        box, and their normalized MBRs; empties for an empty column."""
+        if len(ids) == 0:
+            return np.empty(0, np.int64), np.zeros((0, 4))
+        ents = np.unique(ids)
+        boxes = self.spatial_box_of(ents)
+        ok = ~np.isnan(boxes[:, 0])
+        return ents[ok], boxes[ok]
+
 
 def build_store(quads: np.ndarray,
                 dictionary: Dictionary,

@@ -88,6 +88,11 @@ class ServeStats:
     deadline_partials: int = 0      # requests retired with partial results
 
 
+def _window_boxes(r: dict) -> list[np.ndarray]:
+    """A `begin_block` request's driver boxes, one entry per window row."""
+    return [b if b is not None else np.zeros((0, 4)) for b in r["boxes"]]
+
+
 class _FusedJoinBatcher:
     """Collects every slot's Phase-3 streaming join for one engine step and
     runs them as cross-query `fused_stream_join_multi` launches."""
@@ -210,32 +215,35 @@ class SpatialServeEngine:
             self.slots[slot] = None
 
     # ------------------------------------------------------------------
-    def _slot_sip(self, r: dict) -> list:
-        """Per-slot serial Phase-1/2 (the pooled call's degraded mode): the
-        same per-shard candidate_nodes + select_batch, one tenant's rows
-        only. Returns per-row lists of per-shard V* arrays."""
+    def _phase12(self, rows: list[tuple[np.ndarray, dict]]) -> list:
+        """Phases 1-2 over `rows`, each (driver boxes, the `begin_block`
+        request they come from, whose CS set, prepared keys, distance,
+        cardinalities and root-path masks the row uses): per shard one
+        `candidate_nodes` and one `select_batch` call over every row.
+        Returns per-row lists of per-shard V* arrays."""
         shards = shard_mod.shard_views(self.engine.store)
-        policy = self.engine.config.policy
-        boxes = [b if b is not None else np.zeros((0, 4))
-                 for b in r["boxes"]]
-        n = len(boxes)
-        cs_path = r.get("cs_path")
+        cfg = self.engine.config
+        reqs = [r for _, r in rows]
+        cs_sets = [r["driven_cs"] for r in reqs]
         sel_shards = []
         for si, sh in enumerate(shards):
+            # card_all / cs_path are per-shard lists (tenant cursors expose
+            # one entry per shard view, same order); the root-path masks
+            # let fused descents skip the per-step Bloom probes
             in_v = sh.tree.candidate_nodes(
-                boxes, np.full(n, r["dist_norm"]), [r["driven_cs"]] * n,
-                prepared=[r["prepared"]] * n,
-                probe_backend=policy.probe, descend_backend=policy.descend,
-                cs_path=[cs_path[si] if cs_path is not None else None] * n,
+                [b for b, _ in rows], np.array([r["dist_norm"] for r in reqs]),
+                cs_sets, prepared=[r["prepared"] for r in reqs],
+                probe_backend=cfg.policy.probe,
+                descend_backend=cfg.policy.descend,
+                cs_path=[r["cs_path"][si] if r["cs_path"] is not None
+                         else None for r in reqs],
                 device=self.engine.device)
             sel_shards.append(node_select.select_batch(
-                sh.tree, in_v, [r["driven_cs"]] * n,
-                self.engine.config.select_params,
-                card_all=np.stack([r["card_all"][si]] * n)))
+                sh.tree, in_v, cs_sets, cfg.select_params,
+                card_all=np.stack([r["card_all"][si] for r in reqs])))
         self.stats.sip_batches += 1
-        self.stats.sip_blocks += n
-        return [[sel_shards[si][i] for si in range(len(shards))]
-                for i in range(n)]
+        self.stats.sip_blocks += len(rows)
+        return [[sel[i] for sel in sel_shards] for i in range(len(rows))]
 
     @tracing.spanned("serve.step", -1)
     def step(self) -> int:
@@ -283,58 +291,26 @@ class SpatialServeEngine:
             # batch, and identical rows from same-shape tenants collapse
             # to one row — the dedup row set is shard-independent, so the
             # per-shard sweep reuses it as-is
-            shards = shard_mod.shard_views(self.engine.store)
-            policy = self.engine.config.policy
-            boxes, cs_sets, prepared, dists, cards = [], [], [], [], []
-            cs_paths = []
+            rows: list[tuple[np.ndarray, dict]] = []   # (boxes, request)
             row_of: dict[tuple, int] = {}
             spans: list[tuple[int, list[int]]] = []
             with tracing.span("serve.pool"):
                 for s, r in sip_slots:
                     cs_bytes = np.asarray(r["driven_cs"]).tobytes()
-                    rows = []
-                    for box in r["boxes"]:
-                        box = box if box is not None else np.zeros((0, 4))
+                    idx = []
+                    for box in _window_boxes(r):
                         rk = (box.shape, box.tobytes(), cs_bytes,
                               float(r["dist_norm"]))
-                        idx = row_of.get(rk)
-                        if idx is None:
-                            idx = len(boxes)
-                            row_of[rk] = idx
-                            boxes.append(box)
-                            cs_sets.append(r["driven_cs"])
-                            prepared.append(r["prepared"])
-                            dists.append(r["dist_norm"])
-                            cards.append(r["card_all"])
-                            # tenants' precomputed root-path masks ride along so
-                            # fused descents skip the per-step Bloom probes
-                            cs_paths.append(r.get("cs_path"))
-                        rows.append(idx)
-                    spans.append((s, rows))
+                        if rk not in row_of:
+                            row_of[rk] = len(rows)
+                            rows.append((box, r))
+                        idx.append(row_of[rk])
+                    spans.append((s, idx))
             try:
-                # cards[i] / cs_paths[i] are per-shard lists (tenant
-                # cursors expose one entry per shard view, same order)
-                sel_shards = []
                 with tracing.span("sip.pooled"):
-                    for si, sh in enumerate(shards):
-                        in_v = sh.tree.candidate_nodes(
-                            boxes, np.array(dists), cs_sets,
-                            prepared=prepared,
-                            probe_backend=policy.probe,
-                            descend_backend=policy.descend,
-                            cs_path=[p[si] if p is not None else None
-                                     for p in cs_paths],
-                            device=self.engine.device)
-                        sel_shards.append(node_select.select_batch(
-                            sh.tree, in_v, cs_sets,
-                            self.engine.config.select_params,
-                            card_all=np.stack([c[si] for c in cards])))
-                for s, rows in spans:
-                    v_stars[s] = [[sel_shards[si][i]
-                                   for si in range(len(shards))]
-                                  for i in rows]
-                self.stats.sip_batches += 1
-                self.stats.sip_blocks += len(boxes)
+                    per_row = self._phase12(rows)
+                for s, idx in spans:
+                    v_stars[s] = [per_row[i] for i in idx]
             except Exception:       # noqa: BLE001 — poisoned pooled call
                 # one tenant's rows poisoned the shared batch: degrade to
                 # per-slot serial Phase-1/2 for this step, so only the
@@ -343,7 +319,8 @@ class SpatialServeEngine:
                 self.stats.pooled_fallbacks += 1
                 for s, r in sip_slots:
                     try:
-                        v_stars[s] = self._slot_sip(r)
+                        v_stars[s] = self._phase12(
+                            [(box, r) for box in _window_boxes(r)])
                     except Exception as exc:    # noqa: BLE001
                         self._fault_slot(s, exc)
 

@@ -107,8 +107,7 @@ def test_gathered_equals_looked_up(dataset, case, descending):
         plan = plan_query(store, _ranked(q, descending),
                           policy=eng.config.policy)
         side = plan.driven
-        rel = _by_entity(eng._driven_full(side, plan.join_impl,
-                                          plan.rank_backend), side.entity_var)
+        rel = _by_entity(eng.sides.full(side, plan), side.entity_var)
         if case == "gaps":
             rel = _with_gaps(rel, side, store, rng)
         contrib = eng._key_contrib(rel, side, plan)
@@ -164,7 +163,8 @@ def _counted(fn) -> dict:
 def test_counters_and_shapes_that_differ_in_ranking(monkeypatch):
     """S-Plan blocks count as gathered and N-Plan blocks as looked up; no
     SIP means looked up. Shapes that differ only in their weights or
-    direction keep materials of their own and answer as a fresh engine."""
+    direction keep materials of their own (`SideCache.material` builds one
+    each and hands it back after) and answer as a fresh engine."""
     ds = _dataset("yago")
     store = ds.store
     calls = []
@@ -193,9 +193,21 @@ def test_counters_and_shapes_that_differ_in_ranking(monkeypatch):
     variants = [q, _ranked(q, q.ranking.descending, 2.0),
                 _ranked(q, not q.ranking.descending)]
     shared = StreakEngine(store, ExecConfig(force_plan="S"), device="cpu")
+    built = []
+    orig_build = DrivenMaterial.build.__func__
+
+    def build(cls, *args):
+        built.append(orig_build(cls, *args))
+        return built[-1]
+
+    monkeypatch.setattr(DrivenMaterial, "build", classmethod(build))
     got = [shared.execute(v) for v in variants]
-    mats = [v for k, v in shared._scan_cache.items() if k[0] == "__phase3"]
-    assert len(mats) == len(variants)
+    assert len(built) == len(variants)
+    plans = [plan_query(store, v, policy=shared.config.policy)
+             for v in variants]
+    mats = [shared.sides.material(p.driven, p) for p in plans]
+    assert len(built) == len(variants)      # the lookups built nothing
+    assert all(m is b for m, b in zip(mats, built))
     assert len({m.contrib.tobytes() for m in mats}) == len(variants)
     for v, (scores, rows, _) in zip(variants, got):
         want_scores, want_rows, _ = StreakEngine(

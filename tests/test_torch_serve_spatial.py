@@ -27,6 +27,7 @@ from repro.serve import spatial as ref_serve
 from repro_torch.core import node_select as port_ns
 from repro_torch.core import spatial_join as port_sj
 from repro_torch.core.planner import plan_query as port_plan
+from repro_torch.core.squadtree import SQuadTree
 from repro_torch.data import synth_rdf as port_synth
 from repro_torch.kernels import ops
 from repro_torch.serve import spatial as port_serve
@@ -201,6 +202,53 @@ def test_serve_single_slot_degenerates_to_serial(lgd):
     assert_serial_equal(reqs, serial(lgd[1], config(repro_torch, "numpy"),
                                      mixed(lgd[1])[:3]))
     assert srv.stats.slot_reuse == 2
+
+
+@pytest.mark.parametrize("cfg", ["numpy", "kernel"])
+def test_poisoned_pooled_phase12_degrades_to_per_slot(lgd, cfg, monkeypatch):
+    """A pooled Phase-1/2 call that raises on one tenant's rows falls back
+    to per-slot Phase 1-2 for that step: `pooled_fallbacks` counts it, only
+    that tenant faults, and every other tenant answers as serial `execute`
+    does, bit for bit. The culprit runs Q4 at a distance no other tenant
+    uses, so its rows are its own."""
+    d = lgd[1]
+    conf = config(repro_torch, cfg)
+    queries = mixed(d)
+    culprit = 3
+    q = queries[culprit]
+    queries[culprit] = dataclasses.replace(
+        q, spatial=dataclasses.replace(q.spatial, dist=3.5))
+    poison = port_plan(d.store, queries[culprit],
+                       policy=conf.policy).dist_norm
+    assert sum(port_plan(d.store, q, policy=conf.policy).dist_norm == poison
+               for q in queries) == 1
+    want = serial(d, conf, queries)
+    orig = SQuadTree.candidate_nodes
+
+    def candidate_nodes(self, boxes, dist_norm, *args, **kw):
+        if np.any(np.asarray(dist_norm) == poison):
+            raise RuntimeError("poisoned Phase-1/2 rows")
+        return orig(self, boxes, dist_norm, *args, **kw)
+
+    monkeypatch.setattr(SQuadTree, "candidate_nodes", candidate_nodes)
+    srv = port_serve.SpatialServeEngine(d.store, conf, max_slots=8,
+                                        device="cpu")
+    reqs = srv.serve(queries)
+    st = srv.stats
+    assert st.pooled_fallbacks == 1
+    assert (st.faults, st.failed_requests, st.retries) == (1, 1, 0)
+    assert [r.rid for r in reqs if r.error is not None] == [culprit]
+    assert isinstance(reqs[culprit].error, RuntimeError)
+    for req, (scores, rows, _) in zip(reqs, want):
+        if req.rid == culprit:
+            continue
+        assert req.done and req.error is None
+        assert req.scores.dtype == scores.dtype
+        assert req.scores.tobytes() == scores.tobytes()
+        assert req.rows.n == rows.n
+        for v in req.query.select:
+            if rows.n:      # an empty TopK relation carries no columns
+                assert req.rows[v.name].tobytes() == rows[v.name].tobytes()
 
 
 @pytest.mark.parametrize("cfg", sorted(CONFIGS))

@@ -18,7 +18,8 @@ import repro_torch
 from repro.core import spatial_join as ref_sj
 from repro.data import synth_rdf as ref_synth
 from repro_torch import tracing
-from repro_torch.core import shapes, spatial_join as port_sj
+from repro_torch.core import spatial_join as port_sj
+from repro_torch.core.executor import SideCache
 from repro_torch.core.planner import plan_query
 from repro_torch.data import synth_rdf as port_synth
 
@@ -361,15 +362,18 @@ def _counted(before: dict, prefix: str) -> dict:
 @pytest.mark.parametrize("name", sorted(SHAPES) + ["bare", "empty"])
 def test_cached_side_equals_a_fresh_build(ds, name):
     """Every side of the corpus: the engine's cached (relation, entities,
-    boxes) equals `_ents_boxes` over `_side_rel`, array for array."""
+    boxes) equals `QuadStore.entities_with_box` over a fresh engine's
+    joined side (every spatial entity for a pattern-less side), array for
+    array."""
     d = ds[1]
     eng, plan, sides = _engine_plan_sides(d, name)
     for side in sides:
-        rel, ents, boxes = eng._shape_side(side, plan)
+        rel, ents, boxes = eng.sides.shape(side, plan)
         fresh = repro_torch.StreakEngine(d.store, device="cpu")
-        want_rel = shapes._side_rel(fresh, side, plan)
-        want_ents, want_boxes = shapes._ents_boxes(d.store, want_rel,
-                                                   side.entity_var)
+        want_rel = (fresh.sides.full(side, plan) if side.all_ordered
+                    else {side.entity_var: np.unique(d.store.tree.obj_ids)})
+        want_ents, want_boxes = d.store.entities_with_box(
+            want_rel[side.entity_var])
         assert sorted(rel.keys()) == sorted(want_rel.keys())
         for c in want_rel.keys():
             np.testing.assert_array_equal(rel[c], want_rel[c])
@@ -390,17 +394,17 @@ def test_cached_side_is_looked_up_not_built_again(ds, name, monkeypatch):
     d = ds[1]
     eng, plan, sides = _engine_plan_sides(d, name)
     before = dict(tracing.COUNTS)
-    first = [eng._shape_side(s, plan) for s in sides]
+    first = [eng.sides.shape(s, plan) for s in sides]
     assert _counted(before, "shape.side_") == {
         f"shape.side_built:{plan.shape}": len(sides)}
 
     def no_build(*args):
         raise AssertionError("a cached side was built again")
 
-    monkeypatch.setattr(shapes, "_side_rel", no_build)
-    monkeypatch.setattr(shapes, "_ents_boxes", no_build)
+    monkeypatch.setattr(SideCache, "full", no_build)
+    monkeypatch.setattr(type(d.store), "entities_with_box", no_build)
     before = dict(tracing.COUNTS)
-    again = [eng._shape_side(s, plan) for s in sides]
+    again = [eng.sides.shape(s, plan) for s in sides]
     for a, b in zip(again, first):
         assert all(x is y for x, y in zip(a, b))
     eng.execute(_port_query(d, name))
@@ -412,7 +416,7 @@ def test_cached_side_is_looked_up_not_built_again(ds, name, monkeypatch):
 def test_cached_side_arrays_are_read_only(ds, name):
     d = ds[1]
     eng, plan, sides = _engine_plan_sides(d, name)
-    _, ents, boxes = eng._shape_side(sides[-1], plan)
+    _, ents, boxes = eng.sides.shape(sides[-1], plan)
     assert not ents.flags.writeable and not boxes.flags.writeable
     assert (len(ents) == 0) == (name == "empty")
     with pytest.raises(ValueError, match="read-only"):

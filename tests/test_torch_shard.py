@@ -238,9 +238,63 @@ def test_sip_disabled_collapses_to_whole_view(ds, sharded):
     eng1 = repro_torch.StreakEngine(sharded[4][1], cfg, device="cpu")
     q = ds[1].queries[0]
     cur = eng1.cursor(q)
-    assert len(cur.shards) == 1 and not cur.shards[0].clip
-    assert cur.shards[0].tree is ds[1].store.tree
+    assert len(cur.sip.shards) == 1 and not cur.sip.shards[0].clip
+    assert cur.sip.shards[0].tree is ds[1].store.tree
     assert_same_answer(eng1.execute(q), eng0.execute(q))
+
+
+@pytest.mark.parametrize("descend", ["numpy", "kernel"])
+@pytest.mark.parametrize("use_sip", [True, False])
+@pytest.mark.parametrize("n_shards", [1, 4])
+def test_sip_context_equals_the_cursors_own_set_up(ds, sharded, n_shards,
+                                                  use_sip, descend):
+    """A cursor's `SipContext` holds, field by field, the Phase 1-2 set-up
+    the cursor once made in its own constructor: the shard views (SIP off:
+    one global view), every view's driven-CS cardinalities (also with SIP
+    off), the prepared Bloom keys and the root-path masks (fused descent
+    only); the serve request hands on the same objects."""
+    store = ds[1].store if n_shards == 1 else sharded[n_shards][1]
+    cfg = repro_torch.ExecConfig(
+        use_sip=use_sip, policy=repro_torch.BackendPolicy(descend=descend))
+    eng = repro_torch.StreakEngine(store, cfg, device="cpu")
+    paths = 0
+    for q in ds[1].queries:
+        cur = eng.cursor(q)
+        sip, cs = cur.sip, cur.plan.driven_cs
+        views = (port_shard.shard_views(store) if use_sip
+                 else port_shard.whole_view(store))
+        assert len(sip.shards) == len(views) == (n_shards if use_sip else 1)
+        for got, want in zip(sip.shards, views):
+            assert got.tree is want.tree
+            assert (got.id_lo, got.id_hi, got.clip) == (want.id_lo,
+                                                        want.id_hi, want.clip)
+        for got, sh in zip(sip.card_all, views, strict=True):
+            want = sh.tree.cs_stats.cardinality_all(cs)
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+        prepared = store.tree.bloom_self.prepare(cs) if use_sip else None
+        if prepared is None:
+            assert sip.prepared is None
+        else:
+            assert (sip.prepared.nbits, sip.prepared.k) == (prepared.nbits,
+                                                            prepared.k)
+            for f in ("keys", "word", "shift"):
+                np.testing.assert_array_equal(getattr(sip.prepared, f),
+                                              getattr(prepared, f))
+        if not use_sip or cur.plan.descend_backend == "numpy":
+            assert sip.cs_path is None
+        else:
+            for got, sh in zip(sip.cs_path, views, strict=True):
+                np.testing.assert_array_equal(got, sh.tree.cs_path_mask(
+                    cs, prepared=prepared,
+                    probe_backend=cur.plan.probe_backend, device="cpu"))
+            paths += 1
+        req = cur.begin_block()
+        if req is not None:
+            assert req["driven_cs"] is cs and req["prepared"] is sip.prepared
+            assert req["card_all"] is sip.card_all
+            assert req["cs_path"] is sip.cs_path
+    assert (paths > 0) == (use_sip and descend == "kernel")
 
 
 # ------------------------------------------------- compressed E-list tier --
