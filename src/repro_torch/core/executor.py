@@ -18,7 +18,7 @@ from . import aps, node_select, shard as shard_mod, spatial_join
 from .. import tracing
 from ..device import resolve_device
 from .fault import QueryDeadline
-from .join import (Relation, filter_in_ranges, join, scan_pattern,
+from .join import (Relation, SipIndex, filter_in_ranges, join, scan_pattern,
                    select_in_ranges)
 from .planner import QueryPlan, SidePlan, plan_query
 from .policy import BackendPolicy
@@ -91,6 +91,8 @@ class SideCache:
       full driven scan (only the SIP filter varies per block);
     - `material(side, plan)`: Phase 3's `DrivenMaterial` of that relation,
       which must be sorted by the entity variable;
+    - `sip_index(side, plan)`: the `SipIndex` of that relation's entity
+      column, which the S-Plan's SIP filter ranks each block against;
     - `shape(side, plan)`: a query shape's (relation, entities with a box,
       their normalized MBRs), the two arrays read-only; a pattern-less
       side is every spatial entity. No window or centre enters them. Each
@@ -140,6 +142,12 @@ class SideCache:
             "material", side.all_ordered, plan, side.entity_var,
             plan.descending,
             tuple((var, w) for _, var, w in side.quant_terms)), build)
+
+    def sip_index(self, side: SidePlan, plan: QueryPlan) -> SipIndex:
+        return self._get(
+            self._key("sip", side.all_ordered, plan, side.entity_var),
+            lambda: SipIndex.build(self.full(side, plan), side.entity_var,
+                                   plan.rank_backend, self.engine.device))
 
     def shape(self, side: SidePlan, plan: QueryPlan) -> tuple:
         key = self._key("shape", side.all_ordered, plan, side.entity_var)
@@ -438,7 +446,10 @@ class StreakEngine:
     def _driven_splan(self, driven: SidePlan, plan: QueryPlan, intervals,
                       explicit, stats: ExecStats) -> tuple:
         """S-Plan: spatial join pushed down -- one full scan of the driven
-        sub-query (cached), then I-Range/E-list skipping of its rows.
+        sub-query (cached), then I-Range/E-list skipping of its rows: the
+        merge filter ranks the block's bounds and ids against the side's
+        `SipIndex`, counted `driven.sip:indexed` (the looped oracle scans
+        the rows, `driven.sip:scanned`).
 
         Returns the kept relation and, when the merge filter kept rows of
         a relation sorted by the entity variable, `(material, rows)` for
@@ -454,9 +465,13 @@ class StreakEngine:
             if key is not None and _shared(sc, key, "splan"):
                 rel, rows = sc[key]
             else:
+                merge = plan.join_impl == "merge"
+                tracing.count("driven.sip:" + ("indexed" if merge
+                                               else "scanned"))
                 rel, rows = select_in_ranges(
                     rel, driven.entity_var, intervals, explicit,
-                    plan.join_impl, plan.rank_backend, self.device)
+                    plan.join_impl, plan.rank_backend, self.device,
+                    self.sides.sip_index(driven, plan) if merge else None)
                 if rel.sorted_by[:1] != (driven.entity_var,):
                     rows = None     # nothing to gather: hold no index
                 if key is not None:
@@ -494,6 +509,7 @@ class StreakEngine:
                 scanned = block_rel.n
                 stats.driven_rows_scanned += scanned
                 if cfg.use_sip and driven.entity_var in block_rel:
+                    tracing.count("driven.sip:scanned")
                     block_rel = filter_in_ranges(block_rel,
                                                  driven.entity_var,
                                                  intervals, explicit,
@@ -504,6 +520,7 @@ class StreakEngine:
                                           plan)
                 if cfg.use_sip and driven.entity_var not in block_rel \
                         and driven.entity_var in joined:
+                    tracing.count("driven.sip:scanned")
                     joined = filter_in_ranges(joined, driven.entity_var,
                                               intervals, explicit,
                                               impl=plan.join_impl,

@@ -22,6 +22,10 @@ import torch
 
 import repro_torch
 from repro_torch import tracing
+from repro_torch.core.executor import ExecStats
+from repro_torch.core.join import rows_in_ranges
+from repro_torch.core.planner import plan_query
+from repro_torch.core.shard import shard_views
 from repro_torch.data import synth_rdf
 from repro_torch.kernels import ops
 from repro_torch.serve.spatial import SpatialServeEngine
@@ -461,3 +465,39 @@ def test_rank_round_trip_counts_its_staged_words(card):
                          (len(table) + len(probes)) * 8}
     assert counted(table_on_device=resident) == {
         "h2d.mapped:merge_join_ranks": len(probes) * 8}
+
+
+@pytest.mark.cuda
+def test_splan_filter_ranks_its_block_against_the_side_index(card, lgd):
+    """An S-Plan filter on the card is one `merge_join_ranks` launch that
+    reads the block's 2I + E interval bounds and E-list ids in place
+    against the side's index; the index's sorted column goes up once for
+    the engine, and nothing stages a table."""
+    eng = repro_torch.StreakEngine(lgd.store, repro_torch.ExecConfig(
+        force_plan="S", policy=repro_torch.BackendPolicy(rank="kernel")),
+        device=card)
+    plan = plan_query(lgd.store, lgd.queries[0], policy=eng.config.policy)
+    side = plan.driven
+    full = eng.sides.full(side, plan)       # the joins' tables go up here
+    sh = shard_views(lgd.store)[0]
+    n_nodes = len(sh.tree.irange)
+    rng = np.random.default_rng(0)
+    for block in range(3):
+        v_star = np.sort(rng.choice(n_nodes, size=n_nodes // 3,
+                                    replace=False)).astype(np.int64)
+        intervals, explicit = sh.filter_material(v_star)
+        before = dict(tracing.COUNTS)
+        launches = ops.LAUNCHES["merge_join_ranks"]
+        rel, _ = eng._driven_splan(side, plan, intervals, explicit,
+                                   ExecStats())
+        assert ops.LAUNCHES["merge_join_ranks"] == launches + 1
+        want = {"driven.sip:indexed": 1, "h2d.mapped:merge_join_ranks":
+                (2 * len(intervals) + len(explicit)) * 8}
+        if block == 0:
+            want["h2d.copy:rank_table"] = full.n * 8
+        assert {k: v - before.get(k, 0) for k, v in tracing.COUNTS.items()
+                if v != before.get(k, 0)} == want
+        rows = rows_in_ranges(full, side.entity_var, intervals, explicit,
+                              "numpy")
+        for c in full:
+            np.testing.assert_array_equal(rel[c], full[c][rows])
